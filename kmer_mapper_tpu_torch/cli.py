@@ -1,0 +1,95 @@
+"""Command-line interface: the ``map`` subcommand.
+
+    python -m kmer_mapper_tpu_torch.cli map -i index.npz -f reads.fq -o counts -k 31
+
+Flags follow ``kmer_mapper_tpu map`` (and the reference CLI): ``-i -f -k
+-c -o -I -r``. ``--device`` picks the torch device; it defaults to
+``cuda`` when PyTorch sees a GPU and to ``cpu`` otherwise, and the choice
+is logged.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+import numpy as np
+
+logger = logging.getLogger(__name__)
+
+
+def _parse_bool(value) -> bool:
+    if isinstance(value, bool):
+        return value
+    return str(value).strip().lower() in ("1", "true", "yes", "y", "t")
+
+
+def main(argv=None):
+    logging.basicConfig(
+        stream=sys.stdout, level=logging.INFO,
+        format="%(asctime)s %(levelname)s: %(message)s",
+    )
+    return run_argument_parser(sys.argv[1:] if argv is None else argv)
+
+
+def run_argument_parser(args):
+    parser = argparse.ArgumentParser(
+        description="Kmer Mapper on PyTorch and CUDA",
+        prog="kmer_mapper_tpu_torch",
+    )
+    subparsers = parser.add_subparsers()
+    sub = subparsers.add_parser("map", help="Map reads to a kmer index")
+    sub.add_argument("-i", "--kmer-index", required=True,
+                     help="graph_kmer_index-format .npz index")
+    sub.add_argument(
+        "-f", "--reads", required=True, help="Reads in .fa, .fq, .fa.gz, or .fq.gz format"
+    )
+    sub.add_argument("-k", "--kmer-size", default=31, type=int)
+    sub.add_argument("-c", "--chunk-size", type=int, default=2_500_000,
+                     help="N bytes to read in each chunk")
+    sub.add_argument("-o", "--output-file", required=True)
+    sub.add_argument("-I", "--max-hits-per-kmer", default=1000, type=int,
+                     help="Ignore index kmers with more than this many hits in the index")
+    sub.add_argument("-r", "--map-reverse-complements", default=False,
+                     help="Also count kmers of the reverse complement of each read")
+    sub.add_argument("--device", default=None,
+                     help="torch device (default: cuda if available, else cpu)")
+    sub.set_defaults(func=_cmd_map)
+
+    if len(args) == 0:
+        parser.print_help()
+        sys.exit(1)
+    parsed = parser.parse_args(args)
+    if not hasattr(parsed, "func"):
+        parser.print_help()
+        sys.exit(1)
+    return parsed.func(parsed)
+
+
+def _cmd_map(args):
+    import torch
+
+    from . import pipeline
+
+    if not 1 <= args.kmer_size <= 31:
+        logger.error("kmer size must be in [1, 31] (62-bit hashes); got %d", args.kmer_size)
+        sys.exit(1)
+    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    logger.info("Mapping on device %s", device)
+    node_counts = pipeline.map_file(
+        args.kmer_index,
+        args.reads,
+        device=device,
+        k=args.kmer_size,
+        chunk_size=args.chunk_size,
+        max_frequency=args.max_hits_per_kmer,
+        map_reverse_complements=_parse_bool(args.map_reverse_complements),
+    )
+    np.save(args.output_file, node_counts)
+    # np.save appends .npy only when the path does not already end with it
+    saved = args.output_file if str(args.output_file).endswith(".npy") else f"{args.output_file}.npy"
+    logger.info("Saved node counts to %s", saved)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,93 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+
+``nvcc`` compiles the sources into one shared library with a plain C
+interface under ``_build/``, named by a hash of the sources and flags, so
+an edited source rebuilds and an unchanged one loads at once. The library
+is bound with ``ctypes``. Importing this module needs neither nvcc nor a
+GPU; :func:`library` does.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",
+)
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels are built "
+        "from kmer_mapper_tpu_torch/csrc with the CUDA toolkit"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Path of the built library for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libkmt_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless this exact build exists; returns its path.
+    The compiler's report (registers and shared memory per kernel) is kept
+    beside it as ``.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
+    return out
+
+
+def build_log() -> str:
+    """The compiler's report of the current build ("" if none was made here)."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = ctypes.CDLL(str(build()))
+    lib.stream_count_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    )
+    lib.stream_count_launch.restype = ctypes.c_int
+    lib.kmt_error_string.argtypes = [ctypes.c_int]
+    lib.kmt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def error_string(code: int) -> str:
+    return library().kmt_error_string(code).decode()

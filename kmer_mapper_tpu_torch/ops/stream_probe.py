@@ -1,0 +1,228 @@
+"""Sort + stream count: the counting path of the port.
+
+1. Each query's mixed (m_lo, m_hi) pair becomes ONE int64 sort key,
+   ``m_lo * 2**32 + m_hi - 2**63``: the signed order of the key is the
+   unsigned order of the pair, and the all-ones invalid pair becomes the
+   largest key and sorts last. The bucket id is the high bits of m_lo, so
+   the sorted keys are grouped by bucket and by 128-bucket chain block.
+2. ``block_offsets`` finds each chain block's window of sorted keys.
+3. ``stream_count`` adds, for every valid query, one to the table slot that
+   stores its key. On a CUDA tensor it launches the hand-written kernel
+   ``csrc/stream_count.cu`` (one CTA per chain block); on a CPU tensor it
+   runs its plain twin ``stream_count_reference``.
+
+Table words arrive as int32 bit patterns (``key_lo``/``key_hi`` of shape
+(n_buckets, 8), slot order) and counts as int32 (n_buckets * 8,) in slot
+order, whose bits equal the reference's wrapping uint32 counts.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import native
+from ..index.layout import BUCKET_KEYS, CHAIN_BLOCK
+from .u32hash import (
+    MASK32, bucket_from_mlo_torch, bucket_shift, feistel_mix_torch, to_int32_bits,
+)
+
+#: invalid queries get BOTH mixed words set to this; the pair equals the
+#: table's EMPTY sentinel, which the build keeps away from real keys, and the
+#: count step skips it
+INVALID_WORD = 0xFFFFFFFF
+
+#: launches of the CUDA kernel and calls of its plain twin since import;
+#: a run that must show which one counted resets them first
+launch_counts = {"stream_count": 0, "stream_count_reference": 0}
+
+
+def sort_key(m_lo: torch.Tensor, m_hi: torch.Tensor) -> torch.Tensor:
+    """int64 key whose signed order is the unsigned (m_lo, m_hi) order.
+    ``m_lo << 32`` would overflow int64 for m_lo >= 2**31, so the key is
+    built as ``(m_lo - 2**31) * 2**32 + m_hi``, which stays in range."""
+    return (m_lo - (1 << 31)) * (1 << 32) + m_hi
+
+
+def split_key(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`sort_key`: int64-held (m_lo, m_hi)."""
+    return (keys >> 32) + (1 << 31), keys & MASK32
+
+
+def sort_mixed(m_lo: torch.Tensor, m_hi: torch.Tensor) -> torch.Tensor:
+    """Sorted int64 keys of pre-mixed, pre-masked query words."""
+    return torch.sort(sort_key(m_lo, m_hi)).values
+
+
+def sort_queries(q_lo, q_hi, valid, seed: int) -> torch.Tensor:
+    """Raw query words -> sorted int64 keys: mixed, invalid -> all-ones."""
+    m_lo, m_hi = feistel_mix_torch(q_lo, q_hi, seed)
+    m_lo = torch.where(valid, m_lo, INVALID_WORD)
+    m_hi = torch.where(valid, m_hi, INVALID_WORD)
+    return sort_mixed(m_lo, m_hi)
+
+
+def block_offsets(sorted_keys: torch.Tensor, n_buckets: int, block: int) -> torch.Tensor:
+    """int32[n_blocks + 1] window bounds of each chain block in the sorted keys.
+
+    Block b owns keys whose m_lo lies in [(b*block) << shift,
+    ((b+1)*block) << shift). A threshold at or past 2**32 (the top of the
+    table) means "end of array"; that last window also holds the invalid
+    tail, which the count step skips."""
+    n_blocks = max(1, n_buckets // min(block, n_buckets))
+    block = n_buckets // n_blocks
+    shift = min(bucket_shift(n_buckets), 31)  # 32 only for a 1-bucket table,
+    # whose only non-top bound is 0
+    dev = sorted_keys.device
+    bounds_b = torch.arange(n_blocks + 1, dtype=torch.int64, device=dev) * block
+    is_top = bounds_b >= n_buckets
+    thr_lo = torch.where(is_top, 0, bounds_b) << shift
+    thr = sort_key(thr_lo, torch.zeros_like(thr_lo))
+    off = torch.searchsorted(sorted_keys, thr)
+    off = torch.where(is_top, sorted_keys.shape[0], off)
+    return off.to(torch.int32)
+
+
+def _check_args(key_lo, key_hi, counts, sorted_keys, off, block_probe, shift, bpb):
+    n_buckets = key_lo.shape[0] if key_lo.dim() == 2 else -1
+    expect = (
+        (key_lo, torch.int32, (n_buckets, BUCKET_KEYS)),
+        (key_hi, torch.int32, (n_buckets, BUCKET_KEYS)),
+        (counts, torch.int32, (n_buckets * BUCKET_KEYS,)),
+        (sorted_keys, torch.int64, (sorted_keys.shape[0],)),
+        (off, torch.int32, (n_buckets // max(1, bpb) + 1,)),
+        (block_probe, torch.int32, (n_buckets // max(1, bpb),)),
+    )
+    dev = key_lo.device
+    for name, (t, dtype, shape) in zip(
+        ("key_lo", "key_hi", "counts", "sorted_keys", "off", "block_probe"), expect
+    ):
+        if t.dtype != dtype or tuple(t.shape) != shape or t.dim() != len(shape):
+            raise ValueError(
+                f"stream_count: {name} is {t.dtype}{tuple(t.shape)}, "
+                f"expected {dtype}{shape}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"stream_count: {name} is not contiguous")
+        if t.device != dev:
+            raise ValueError(f"stream_count: {name} is on {t.device}, keys on {dev}")
+    if n_buckets < 1 or n_buckets & (n_buckets - 1):
+        raise ValueError(f"stream_count: n_buckets={n_buckets} is not a power of two")
+    if shift != bucket_shift(n_buckets) or bpb != min(CHAIN_BLOCK, n_buckets):
+        raise ValueError(
+            f"stream_count: shift={shift}, bpb={bpb} do not fit {n_buckets} buckets"
+        )
+    if sorted_keys.shape[0] >= 1 << 31:
+        raise ValueError("stream_count: more than 2**31 - 1 queries in one call")
+
+
+def stream_count(key_lo, key_hi, counts, sorted_keys, off, block_probe,
+                 shift: int, bpb: int) -> torch.Tensor:
+    """counts[slot] += the number of valid sorted queries whose (m_lo, m_hi)
+    equals the key stored in that slot; updates ``counts`` in place and
+    returns it. A query of chain block b looks in bucket
+    ``b*bpb + ((local_b + p) & (bpb-1))`` for rounds ``p < block_probe[b]``,
+    across all 8 lanes.
+
+    CUDA tensors launch ``csrc/stream_count.cu`` (a failed build or launch
+    raises); CPU tensors run :func:`stream_count_reference`."""
+    _check_args(key_lo, key_hi, counts, sorted_keys, off, block_probe, shift, bpb)
+    if counts.device.type == "cpu":
+        return stream_count_reference(
+            key_lo, key_hi, counts, sorted_keys, off, block_probe, shift, bpb
+        )
+    if counts.device.type != "cuda":
+        raise ValueError(f"stream_count: no kernel for device {counts.device}")
+    fn = native.library().stream_count_launch
+    n_blocks = block_probe.shape[0]
+    with torch.cuda.device(counts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(
+            key_lo.data_ptr(), key_hi.data_ptr(), counts.data_ptr(),
+            sorted_keys.data_ptr(), off.data_ptr(), block_probe.data_ptr(),
+            n_blocks, shift, bpb, counts.device.index, stream,
+        )
+    if rc:
+        raise RuntimeError(f"stream_count kernel launch failed: {native.error_string(rc)}")
+    launch_counts["stream_count"] += 1
+    return counts
+
+
+def stream_count_reference(key_lo, key_hi, counts, sorted_keys, off, block_probe,
+                           shift: int, bpb: int) -> torch.Tensor:
+    """Plain-torch twin of the kernel (same contract, same result): for each
+    valid query, walk its rounds with a row gather and an 8-lane compare,
+    then add the hits into ``counts`` with wrapping 32-bit arithmetic."""
+    launch_counts["stream_count_reference"] += 1
+    dev = sorted_keys.device
+    n_blocks = block_probe.shape[0]
+    off64 = off.to(torch.int64)
+    lengths = off64[1:] - off64[:-1]
+    keys = sorted_keys[int(off64[0]) : int(off64[-1])]
+    block = torch.repeat_interleave(torch.arange(n_blocks, device=dev), lengths)
+    m_lo, m_hi = split_key(keys)
+    bucket = bucket_from_mlo_torch(m_lo, key_lo.shape[0])
+    local = bucket - block * bpb
+    live = ~((m_lo == INVALID_WORD) & (m_hi == INVALID_WORD))
+    live &= (local >= 0) & (local < bpb)
+    # a chain never leaves its block: more than bpb rounds would revisit
+    rounds = block_probe.to(torch.int64).clamp(max=bpb)[block]
+    q_lo, q_hi = to_int32_bits(m_lo), to_int32_bits(m_hi)
+    hit_slots = []
+    for p in range(min(int(block_probe.max()), bpb)):
+        sel = torch.nonzero(live & (p < rounds)).squeeze(1)
+        if sel.numel() == 0:
+            continue
+        b = block[sel] * bpb + ((local[sel] + p) & (bpb - 1))
+        match = (key_lo[b] == q_lo[sel, None]) & (key_hi[b] == q_hi[sel, None])
+        row, lane = torch.nonzero(match, as_tuple=True)
+        hit_slots.append(b[row] * BUCKET_KEYS + lane)
+    if hit_slots:
+        slots, n_hits = torch.unique(torch.cat(hit_slots), return_counts=True)
+        total = (counts[slots].to(torch.int64) & MASK32) + n_hits
+        counts[slots] = to_int32_bits(total & MASK32)
+    return counts
+
+
+def slot_to_plane(counts: np.ndarray, n_buckets: int, gpb: int = CHAIN_BLOCK) -> np.ndarray:
+    """Slot-order counts -> the plane order of ``kmer_mapper_tpu``'s
+    stream mappers ((g*8 + lane) * gpb + bucket_in_group)."""
+    gpb = min(gpb, n_buckets)
+    return np.ascontiguousarray(
+        np.asarray(counts)
+        .reshape(n_buckets // gpb, gpb, BUCKET_KEYS)
+        .transpose(0, 2, 1)
+    ).reshape(-1)
+
+
+def plane_to_slot(counts: np.ndarray, n_buckets: int, gpb: int = CHAIN_BLOCK) -> np.ndarray:
+    """Plane-order counts of ``kmer_mapper_tpu`` -> slot order."""
+    gpb = min(gpb, n_buckets)
+    return np.ascontiguousarray(
+        np.asarray(counts)
+        .reshape(n_buckets // gpb, BUCKET_KEYS, gpb)
+        .transpose(0, 2, 1)
+    ).reshape(-1)
+
+
+def _count_sorted(key_lo, key_hi, counts, sorted_keys, block_probe):
+    n_buckets = key_lo.shape[0]
+    bpb = min(CHAIN_BLOCK, n_buckets)
+    off = block_offsets(sorted_keys, n_buckets, bpb)
+    return stream_count(
+        key_lo, key_hi, counts, sorted_keys, off, block_probe,
+        bucket_shift(n_buckets), bpb,
+    )
+
+
+def stream_probe_count_mixed(key_lo, key_hi, counts, m_lo, m_hi, block_probe):
+    """Stream path for pre-mixed, pre-masked, unsorted queries: sort ->
+    block offsets -> stream count. Updates ``counts`` in place."""
+    return _count_sorted(key_lo, key_hi, counts, sort_mixed(m_lo, m_hi), block_probe)
+
+
+def stream_probe_count(key_lo, key_hi, counts, q_lo, q_hi, valid, seed: int,
+                       block_probe):
+    """Stream path for raw query words and their validity mask."""
+    return _count_sorted(
+        key_lo, key_hi, counts, sort_queries(q_lo, q_hi, valid, seed), block_probe
+    )

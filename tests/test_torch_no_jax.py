@@ -1,0 +1,53 @@
+"""The port imports and maps with jax and ``kmer_mapper_tpu`` blocked: the
+machine it runs on has PyTorch and no JAX."""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SCRIPT = textwrap.dedent(
+    """
+    import sys
+    for name in ("jax", "jaxlib", "kmer_mapper_tpu"):
+        sys.modules[name] = None  # any import of these now raises ImportError
+    import importlib, pkgutil, tempfile, os
+    import numpy as np
+    import kmer_mapper_tpu_torch as pkg
+
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    from kmer_mapper_tpu_torch import oracle, pipeline
+    from kmer_mapper_tpu_torch.index import kmer_index
+
+    rng = np.random.default_rng(0)
+    reads = ["".join(rng.choice(list("ACGT"), 40)) for _ in range(50)]
+    d = tempfile.mkdtemp()
+    with open(os.path.join(d, "r.fq"), "w") as f:
+        f.write("".join(f"@{i}\\n{s}\\n+\\n{'I' * 40}\\n" for i, s in enumerate(reads)))
+    codes = oracle.encode_bytes(np.frombuffer("".join(reads).encode(), np.uint8))
+    kmers = oracle.kmer_hashes_ragged(codes, np.full(50, 40), 21)
+    arrays = oracle.build_kmer_index(kmers[::3], rng.integers(0, 30, len(kmers[::3])), 101)
+    kmer_index.save_reference_npz(os.path.join(d, "i.npz"), arrays)
+    got = pipeline.map_file(os.path.join(d, "i.npz"), os.path.join(d, "r.fq"),
+                            device="cpu", k=21)
+    assert (got == oracle.map_kmers_to_index(arrays, kmers)).all() and got.sum() > 0
+    blocked = ("jax", "jaxlib", "kmer_mapper_tpu")
+    assert not [m for m in sys.modules if m.split(".")[0] in blocked and sys.modules[m]]
+    print("OK", len(names))
+    """
+)
+
+
+def test_port_imports_and_maps_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().startswith("OK")
+    assert int(proc.stdout.split()[-1]) >= 15  # every module of the package
