@@ -15,12 +15,21 @@ result line):
      modulo-index probe, and the kernel must have run;
   5. steady state on 8 distinct device-resident 64 Mi-base chunks of 151-bp
      reads: k-mers per second through KmerMapper.map_chunk and through the
-     same stages with the plain twin, per-stage milliseconds, equal counts.
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}. Needs no network and one GPU.
+     same stages with the plain twin, per-stage milliseconds, equal counts;
+  6. dissect: the three dissection scripts of kmer_mapper_tpu_torch.scripts
+     run as a user runs them, at their full sizes (their kernels must have
+     launched); then every variant of each kernel against its twin, bit for
+     bit, r2_kernel_dissect's full against stream_count, and the
+     tile-scheduled r2_window_dissect against both on a poly-A window.
+The line before the last is a JSON object describing each kernel, with its
+bound: the larger of its bytes over 3.35 TB/s (the H100 SXM's memory rate)
+and its 32-bit integer operations over the card's INT32 rate (SMs x 64
+INT32 lanes per SM x the largest SM clock, as nvidia-smi reports it); the
+last line is {"ok": true, "device": {...}}. Needs no network and one GPU.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -37,6 +46,9 @@ E2E_READS = 100_000
 POLY_A = 2_000_000  # poly-A k-mers in one chain block's window
 INDEX_UNIFORM = 2_000_000  # bench.py's recipe: half uniform random keys,
 INDEX_FROM_READS = 2_000_000  # half drawn from the first 5000 reads' k-mers
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 units
+DISSECT_POLY_A = 200_000  # poly-A queries in one window, phase 6
 
 
 def log(msg: str) -> None:
@@ -69,9 +81,14 @@ def phase_build() -> float:
     path = native.build()
     native.library()
     seconds = time.perf_counter() - t
-    log(f"build: {path.name} in {seconds:.2f} s")
-    for line in native.build_log().splitlines():
-        if "ptxas info" in line:
+    report = native.build_log().splitlines()
+    # "nvcc <source>: <seconds> s" heads each compile's report
+    compiles = [float(line.split()[-2]) for line in report
+                if line.startswith("nvcc ") and ".cu:" in line]
+    log(f"build: {path.name} in {seconds:.2f} s; the {len(compiles)} compiles, "
+        f"started together, took {sum(compiles):.2f} s one after another")
+    for line in report:
+        if "ptxas info" in line or line.startswith("nvcc "):
             log(f"  {line.strip()}")
     return seconds
 
@@ -80,6 +97,37 @@ def _u32(t):
     import numpy as np
 
     return t.cpu().numpy().view(np.uint32).astype(np.int64)
+
+
+@functools.cache
+def int32_ops_per_s() -> float:
+    """The card's INT32 instruction rate: SMs x INT32 lanes x largest SM clock."""
+    import torch
+
+    mhz = float(_cmd_output(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                             "--format=csv,noheader,nounits"]).splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    ``n_bytes`` moved and ``n_ops`` 32-bit integer operations."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / int32_ops_per_s()
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def count_bound(args, max_probe: int, n_changed: int) -> tuple[float, str]:
+    """The stream count's bound on these inputs: each 8-byte sort key, both
+    key words of every slot, the offsets and probe bounds read once, and the
+    counts of the slots this run changes read and written once; operations:
+    two 32-bit compares per key lane per round of each query in a window."""
+    key_lo, _, _, keys, off, block_probe, _, _ = args
+    lengths = (off[1:] - off[:-1]).long()
+    rounds = block_probe.long().clamp(min=1, max=max_probe)
+    n_bytes = (8 * keys.numel() + 8 * key_lo.numel() + 4 * off.numel()
+               + 4 * block_probe.numel() + 8 * n_changed)
+    return bound(n_bytes, 16 * int((lengths * rounds).sum()))
 
 
 def phase_hazards(torch, device) -> int:
@@ -287,30 +335,196 @@ def phase_steady_state(torch, np, chunks, index, device) -> dict:
             stage_ms[n] += ev[i].elapsed_time(ev[i + 1]) / len(dev_chunks)
     log("steady: per-chunk stage ms " + ", ".join(f"{n} {v:.3f}" for n, v in stage_ms.items()))
 
-    # kernel vs twin alone on one chunk's sorted keys, fresh counts each
+    # kernel vs twin alone on one chunk's sorted keys: the result from
+    # fresh counts, then the median device time of 5 calls (median_ms)
     keys, off = sorted_queries(dev_chunks[0][0], dev_chunks[0][2])
     outs, ms = [], []
     for fn in (stream_probe.stream_count, stream_probe.stream_count_reference):
-        reps = []
-        for _ in range(5):
-            c = torch.zeros_like(mapper.counts)
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn(mapper.key_lo, mapper.key_hi, c, keys, off, mapper.block_probe, shift, bpb)
-            e1.record()
-            torch.cuda.synchronize()
-            reps.append(e0.elapsed_time(e1))
-        outs.append(c)
-        ms.append(sorted(reps)[len(reps) // 2])
+        c = torch.zeros_like(mapper.counts)
+        args = (mapper.key_lo, mapper.key_hi, c, keys, off, mapper.block_probe, shift, bpb)
+        outs.append(fn(*args).clone())
+        ms.append(median_ms(lambda: fn(*args)))
     max_err = int((outs[0].to(torch.int64) - outs[1].to(torch.int64)).abs().max())
     if max_err:
         raise AssertionError("steady: kernel and twin disagree on one chunk")
+    bound_ms, bound_by = count_bound(
+        (mapper.key_lo, mapper.key_hi, outs[0], keys, off, mapper.block_probe, shift, bpb),
+        index.table.max_probe, int(outs[0].ne(0).sum()))
     log(f"steady: stream_count on {keys.numel()} queries: kernel {ms[0]:.3f} ms, "
-        f"twin {ms[1]:.3f} ms (median of 5)")
+        f"twin {ms[1]:.3f} ms (median of 5); bound {bound_ms:.4f} ms by {bound_by}")
     return {
         "kernel_rates": kernel_rates, "twin_rates": twin_rates, "stage_ms": stage_ms,
         "ms": ms[0], "plain_ms": ms[1], "max_abs_err": max_err,
+        "bound_ms": bound_ms, "bound_by": bound_by,
     }
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    from kmer_mapper_tpu_torch.scripts import median_ms as script_median_ms
+    import torch
+
+    return script_median_ms(fn, torch.device("cuda"), reps)
+
+
+def phase_dissect(torch, np, device) -> list[dict]:
+    """The dissection path: each script's main at its full size, with every
+    launch count zeroed before it and read after it; then every variant of
+    each kernel against its twin (launches not counted)."""
+    from kmer_mapper_tpu_torch.ops import stream_count_cases, stream_probe
+    from kmer_mapper_tpu_torch.index import layout
+    from kmer_mapper_tpu_torch.scripts import r2_kernel_dissect as A
+    from kmer_mapper_tpu_torch.scripts import r2_window_dissect as B
+    from kmer_mapper_tpu_torch.scripts import r3_iter_floor as C
+
+    modules = {"r2_kernel_dissect": A, "r2_window_dissect": B, "r3_iter_floor": C}
+    for m in (*modules.values(), stream_probe):
+        for name in m.launch_counts:
+            m.launch_counts[name] = 0
+    t = time.perf_counter()
+    log("dissect: python -m kmer_mapper_tpu_torch.scripts.r2_kernel_dissect")
+    ra = A.main([])
+    log("dissect: python -m kmer_mapper_tpu_torch.scripts.r2_window_dissect")
+    rb = B.main([])
+    log("dissect: python -m kmer_mapper_tpu_torch.scripts.r3_iter_floor")
+    rc = C.main([])
+    launches = {name: m.launch_counts[name] for name, m in modules.items()}
+    twins = {name: m.launch_counts[f"{name}_reference"] for name, m in modules.items()}
+    if not all(launches.values()) or any(twins.values()):
+        raise AssertionError(f"dissect: a kernel did not run: launches {launches}, twins {twins}")
+    log(f"dissect: the three scripts ran in {time.perf_counter() - t:.1f} s; "
+        f"launches {launches}")
+
+    def u32(x):
+        return x.cpu().numpy().view(np.uint32)
+
+    max_err = {}
+
+    def check(name, variant, got, twin):
+        """kernel == twin; keeps the largest absolute difference per kernel."""
+        err = float((got.cpu().double() - twin.cpu().double()).abs().max()) if got.numel() else 0.0
+        max_err[name] = max(max_err.get(name, 0.0), err)
+        if err or not torch.equal(got, twin):
+            raise AssertionError(f"dissect: {name} {variant}: kernel != twin")
+
+    def count_variants(module, args, max_probe, kernel_ms=None):
+        """Each variant: kernel == twin from the same counts. Returns
+        {variant: (kernel ms, twin ms)}, taking the kernel's from
+        ``kernel_ms`` or timing 5 calls, the twin's from 3 calls, and the
+        full variant's counts."""
+        times, full = {}, None
+        name = module.__name__.rsplit(".", 1)[1]
+        for variant in module.VARIANTS:
+            call_args = (*args[:2], args[2].clone(), *args[3:], max_probe, variant)
+            got = module.stream_count_v(*call_args).clone()
+            twin_args = (*args[:2], args[2].clone(), *args[3:], max_probe, variant)
+            # the counts are uint32 bit patterns in int32
+            check(name, variant, torch.from_numpy(_u32(got)),
+                  torch.from_numpy(_u32(module.stream_count_v_reference(*twin_args))))
+            times[variant] = (
+                kernel_ms[variant] if kernel_ms else median_ms(
+                    lambda: module.stream_count_v(*call_args)),
+                median_ms(lambda: module.stream_count_v_reference(*twin_args), reps=3))
+            full = got if variant == "full" else full
+        return times, full
+
+    def table(name, times):
+        for variant, (kernel_ms, twin_ms) in times.items():
+            log(f"dissect {name}: {variant:10s} kernel {kernel_ms:9.4f} ms  "
+                f"twin {twin_ms:9.3f} ms")
+
+    out = []
+    # A: the script's own inputs; full must equal stream_count
+    args, max_probe = ra["args"], ra["max_probe"]
+    times, full_a = count_variants(A, args, max_probe, ra["ms"])
+    main_args = (*args[:2], args[2].clone(), *args[3:])
+    if not torch.equal(full_a, stream_probe.stream_count(*main_args)):
+        raise AssertionError("dissect: r2_kernel_dissect full != stream_count")
+    # the main path's launch of the same kernel, on the same inputs
+    main_ms = median_ms(lambda: stream_probe.stream_count(*main_args))
+    table("A", times)
+    bound_ms, bound_by = count_bound(args, max_probe, int(full_a.ne(args[2]).sum()))
+    log(f"dissect A: {len(A.VARIANTS)} variants == twins; full == stream_count; "
+        f"stream_count {main_ms:.4f} ms on the same inputs; "
+        f"bound {bound_ms:.4f} ms by {bound_by}")
+    out.append(dict(name="r2_kernel_dissect", source="kmer_mapper_tpu_torch/csrc/r2_kernel_dissect.cu",
+                    replaces="scripts/r2_kernel_dissect.py:52", ms=ra["ms"]["full"],
+                    plain_ms=times["full"][1], bound_ms=bound_ms, bound_by=bound_by))
+
+    # B: one chunk of the in-context run (each variant alone), then a
+    # poly-A window
+    ctx = rb["context"]
+    keys, off, _ = ctx.sorted_chunk(0)
+    args = ctx.count_args(torch.zeros_like(ctx.key_lo).view(-1), keys, off)
+    max_probe = ctx.index.table.max_probe
+    times, full_b = count_variants(B, args, max_probe)
+    per_block_args = (*args[:2], args[2].clone(), *args[3:])
+    for name, other in (("stream_count", stream_probe.stream_count(*per_block_args)),
+                        ("r2_kernel_dissect", A.stream_count_v(
+                            *args[:2], args[2].clone(), *args[3:], max_probe, "full"))):
+        if not torch.equal(full_b, other):
+            raise AssertionError(f"dissect: r2_window_dissect full != {name}")
+    per_block_ms = median_ms(lambda: stream_probe.stream_count(*per_block_args))
+    table("B", times)
+    lengths = off[1:] - off[:-1]
+    n_invalid = int((keys == torch.iinfo(torch.int64).max).sum())
+    bound_ms_b, bound_by_b = count_bound(args, max_probe, int(full_b.ne(0).sum()))
+    log(f"dissect B: {len(B.VARIANTS)} variants == twins on one {ctx.buf}-base chunk "
+        f"({keys.numel()} queries, {n_invalid} of them invalid; longest window "
+        f"{int(lengths.max())} queries in block {int(lengths.argmax())} of {lengths.numel()}); "
+        f"full == r2_kernel_dissect == stream_count; per-block stream_count alone "
+        f"{per_block_ms:.4f} ms; bound {bound_ms_b:.4f} ms by {bound_by_b}")
+    rng = np.random.default_rng(1)
+    keys_pa = np.concatenate([[np.uint64(0)], np.unique(
+        rng.integers(0, 1 << 62, 8000, dtype=np.uint64))])
+    table_pa = layout.build_table(keys_pa)
+    queries = np.concatenate([np.zeros(DISSECT_POLY_A, np.uint64), rng.choice(keys_pa, 50_000)])
+    case = stream_count_cases.Case("poly_a_tiles", table_pa, queries,
+                                   np.ones(len(queries), bool), np.zeros(table_pa.n_slots, np.uint32))
+    pa_args = case.inputs(device)
+    results = [fn(*pa_args[:2], pa_args[2].clone(), *pa_args[3:], table_pa.max_probe, "full")
+               for fn in (B.stream_count_v, A.stream_count_v, B.stream_count_v_reference)]
+    results.append(stream_probe.stream_count(*pa_args[:2], pa_args[2].clone(), *pa_args[3:]))
+    window = int((pa_args[4][1:] - pa_args[4][:-1]).max())
+    if not all(torch.equal(results[0], r) for r in results[1:]) or not np.array_equal(
+            u32(results[0]), case.expected()):
+        raise AssertionError("dissect: tile-scheduled count differs on the poly-A window")
+    log(f"dissect B: poly-A window of {window} queries over {-(-window // B.CAP)} tiles: "
+        "tile-scheduled == per-block == stream_count == twin == oracle")
+    out.append(dict(name="r2_window_dissect", source="kmer_mapper_tpu_torch/csrc/r2_window_dissect.cu",
+                    replaces="scripts/r2_window_dissect.py:45", ms=times["full"][0],
+                    plain_ms=times["full"][1], bound_ms=bound_ms_b, bound_by=bound_by_b))
+
+    # C: the script's inputs, every variant
+    off, tb, q = rc["inputs"]
+    times = {}
+    for variant in C.VARIANTS:
+        twin_args = (off, tb, q, variant, C.N_ITER, C.N_GRID, C.CAP)
+        check("r3_iter_floor", variant, C.iter_floor(off, tb, q, variant),
+              C.iter_floor_reference(*twin_args))
+        times[variant] = (rc["ms"][variant],
+                          median_ms(lambda: C.iter_floor_reference(*twin_args), reps=3))
+    table("C", times)
+    # bound of full: the inputs read and the output written once; per lane
+    # and iteration 4 integer operations (position window, local_b, its
+    # range), per live lane 8 key lanes of 2 word compares; the one float
+    # add per live lane issues on the FP32 pipe beside them
+    t_idx = torch.arange(C.N_ITER, device=device)
+    a = off[t_idx % C.OFF_HALF].long()[:, None]
+    b = off[C.OFF_HALF + t_idx % C.OFF_HALF].long()[:, None]
+    col = (t_idx % C.N_TILES)[:, None] * C.CAP + torch.arange(C.CAP, device=device)
+    local = q[0].long()[col] - torch.remainder(b, C.MOD)
+    n_live = int(((col >= a) & (col < a + C.CAP) & (local >= 0) & (local < C.BPB)).sum())
+    n_bytes = 4 * (off.numel() + tb.numel() + q.numel() + C.BPB * C.K)
+    bound_ms_c, bound_by_c = bound(n_bytes, C.N_ITER * (4 * C.CAP + 2) + n_live * 16)
+    log(f"dissect C: {len(C.VARIANTS)} variants == twins; {n_live} live lanes in full; "
+        f"bound {bound_ms_c:.6f} ms by {bound_by_c}")
+    out.append(dict(name="r3_iter_floor", source="kmer_mapper_tpu_torch/csrc/r3_iter_floor.cu",
+                    replaces="scripts/r3_iter_floor.py:65", ms=rc["ms"]["full"],
+                    plain_ms=times["full"][1], bound_ms=bound_ms_c, bound_by=bound_by_c))
+    for entry in out:
+        entry.update(route="cuda", launches=launches[entry["name"]],
+                     max_abs_err=max_err[entry["name"]], library_ms=None)
+    return out
 
 
 def main() -> int:
@@ -340,6 +554,7 @@ def main() -> int:
     log(f"summary on {smi}: kernel path median "
         f"{sorted(steady['kernel_rates'])[N_WINDOWS // 2] / 1e6:.1f} Mk/s, twin path median "
         f"{sorted(steady['twin_rates'])[N_WINDOWS // 2] / 1e6:.1f} Mk/s")
+    dissect = phase_dissect(torch, np, device)
     kernels = [{
         "name": "stream_count",
         "route": "cuda",
@@ -349,7 +564,10 @@ def main() -> int:
         "max_abs_err": max(max_err, steady["max_abs_err"]),
         "ms": steady["ms"],
         "plain_ms": steady["plain_ms"],
-    }]
+        "bound_ms": steady["bound_ms"],
+        "bound_by": steady["bound_by"],
+        "library_ms": None,  # no single PyTorch call counts slot hits
+    }, *dissect]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -3,9 +3,9 @@
     python -m kmer_mapper_tpu_torch.cli map -i index.npz -f reads.fq -o counts -k 31
 
 Flags follow ``kmer_mapper_tpu map`` (and the reference CLI): ``-i -f -k
--c -o -I -r``. ``--device`` picks the torch device; it defaults to
-``cuda`` when PyTorch sees a GPU and to ``cpu`` otherwise, and the choice
-is logged.
+-c -o -I -r``. ``--device`` picks the torch device and defaults to
+``cuda``. Where PyTorch sees no GPU, ``map`` exits with an error unless the
+caller passes ``--device cpu``: it never falls back to the CPU on its own.
 """
 from __future__ import annotations
 
@@ -52,8 +52,9 @@ def run_argument_parser(args):
                      help="Ignore index kmers with more than this many hits in the index")
     sub.add_argument("-r", "--map-reverse-complements", default=False,
                      help="Also count kmers of the reverse complement of each read")
-    sub.add_argument("--device", default=None,
-                     help="torch device (default: cuda if available, else cpu)")
+    sub.add_argument("--device", default="cuda",
+                     help="torch device (default: cuda; pass --device cpu to map "
+                          "on the CPU)")
     sub.set_defaults(func=_cmd_map)
 
     if len(args) == 0:
@@ -74,7 +75,11 @@ def _cmd_map(args):
     if not 1 <= args.kmer_size <= 31:
         logger.error("kmer size must be in [1, 31] (62-bit hashes); got %d", args.kmer_size)
         sys.exit(1)
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        logger.error("--device %s: PyTorch sees no CUDA device; pass --device cpu "
+                     "to map on the CPU", args.device)
+        sys.exit(1)
     logger.info("Mapping on device %s", device)
     node_counts = pipeline.map_file(
         args.kmer_index,

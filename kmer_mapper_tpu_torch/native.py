@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-``nvcc`` compiles the sources into one shared library with a plain C
-interface under ``_build/``, named by a hash of the sources and flags, so
-an edited source rebuilds and an unchanged one loads at once. The library
-is bound with ``ctypes``. Importing this module needs neither nvcc nor a
+``nvcc`` compiles each source into an object, all at once in parallel,
+and links them into one shared library with a plain C interface under
+``_build/``, named by a hash of the sources, headers and flags, so an edited
+source rebuilds and an unchanged one loads at once. The library is bound
+with ``ctypes``. Importing this module needs neither nvcc nor a
 GPU; :func:`library` does.
 """
 from __future__ import annotations
@@ -14,6 +15,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -21,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",
+    "-Xcompiler", "-fPIC", "--ptxas-options=-v",
 )
 
 
@@ -41,31 +44,49 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Path of the built library for the current sources and flags."""
+    """Path of the built library for the current sources, headers and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libkmt_kernels-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless this exact build exists; returns its path.
-    The compiler's report (registers and shared memory per kernel) is kept
-    beside it as ``.log``."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+def _run(cmd: list[str], label: str) -> str:
+    """Runs one nvcc; returns its report, headed by its label and seconds."""
+    t = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(
             f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}"
         )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    return f"nvcc {label}: {time.perf_counter() - t:.2f} s\n{proc.stdout}{proc.stderr}"
+
+
+def build() -> Path:
+    """Compile the sources unless this exact build exists; returns its path.
+    One nvcc per source, all started together, then one link. The
+    compiler's report (each nvcc's seconds, registers and shared memory per
+    kernel) is kept beside the library as ``.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(BUILD_DIR / f"{src.stem}.{tag}.o"),
+                 str(src)] for src in _sources()]
+    with ThreadPoolExecutor(len(compiles)) as pool:
+        logs = list(pool.map(_run, compiles, [src.name for src in _sources()]))
+    objects = [cmd[cmd.index("-o") + 1] for cmd in compiles]
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    try:
+        logs.append(_run([nvcc, "-shared", "-o", str(tmp), *objects], "link"))
+    finally:
+        for obj in objects:
+            Path(obj).unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
     return out
 
@@ -84,6 +105,20 @@ def library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     lib.stream_count_launch.restype = ctypes.c_int
+    # the dissection kernels of kmer_mapper_tpu_torch/scripts; each takes its
+    # variant as an int
+    lib.r2_kernel_dissect_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    )
+    lib.r2_window_dissect_launch.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    )
+    lib.r3_iter_floor_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    for fn in (lib.r2_kernel_dissect_launch, lib.r2_window_dissect_launch,
+               lib.r3_iter_floor_launch):
+        fn.restype = ctypes.c_int
     lib.kmt_error_string.argtypes = [ctypes.c_int]
     lib.kmt_error_string.restype = ctypes.c_char_p
     return lib

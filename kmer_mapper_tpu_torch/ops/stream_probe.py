@@ -82,7 +82,11 @@ def block_offsets(sorted_keys: torch.Tensor, n_buckets: int, block: int) -> torc
     return off.to(torch.int32)
 
 
-def _check_args(key_lo, key_hi, counts, sorted_keys, off, block_probe, shift, bpb):
+def check_count_args(key_lo, key_hi, counts, sorted_keys, off, block_probe, shift, bpb,
+                     name: str = "stream_count"):
+    """Raises ValueError unless the arguments fit the count kernels'
+    contract (dtypes, shapes, contiguity, one device, a power-of-two table
+    and its shift and chain-block size)."""
     n_buckets = key_lo.shape[0] if key_lo.dim() == 2 else -1
     expect = (
         (key_lo, torch.int32, (n_buckets, BUCKET_KEYS)),
@@ -93,26 +97,24 @@ def _check_args(key_lo, key_hi, counts, sorted_keys, off, block_probe, shift, bp
         (block_probe, torch.int32, (n_buckets // max(1, bpb),)),
     )
     dev = key_lo.device
-    for name, (t, dtype, shape) in zip(
+    for arg, (t, dtype, shape) in zip(
         ("key_lo", "key_hi", "counts", "sorted_keys", "off", "block_probe"), expect
     ):
         if t.dtype != dtype or tuple(t.shape) != shape or t.dim() != len(shape):
             raise ValueError(
-                f"stream_count: {name} is {t.dtype}{tuple(t.shape)}, "
+                f"{name}: {arg} is {t.dtype}{tuple(t.shape)}, "
                 f"expected {dtype}{shape}"
             )
         if not t.is_contiguous():
-            raise ValueError(f"stream_count: {name} is not contiguous")
+            raise ValueError(f"{name}: {arg} is not contiguous")
         if t.device != dev:
-            raise ValueError(f"stream_count: {name} is on {t.device}, keys on {dev}")
+            raise ValueError(f"{name}: {arg} is on {t.device}, keys on {dev}")
     if n_buckets < 1 or n_buckets & (n_buckets - 1):
-        raise ValueError(f"stream_count: n_buckets={n_buckets} is not a power of two")
+        raise ValueError(f"{name}: n_buckets={n_buckets} is not a power of two")
     if shift != bucket_shift(n_buckets) or bpb != min(CHAIN_BLOCK, n_buckets):
-        raise ValueError(
-            f"stream_count: shift={shift}, bpb={bpb} do not fit {n_buckets} buckets"
-        )
+        raise ValueError(f"{name}: shift={shift}, bpb={bpb} do not fit {n_buckets} buckets")
     if sorted_keys.shape[0] >= 1 << 31:
-        raise ValueError("stream_count: more than 2**31 - 1 queries in one call")
+        raise ValueError(f"{name}: more than 2**31 - 1 queries in one call")
 
 
 def stream_count(key_lo, key_hi, counts, sorted_keys, off, block_probe,
@@ -125,7 +127,7 @@ def stream_count(key_lo, key_hi, counts, sorted_keys, off, block_probe,
 
     CUDA tensors launch ``csrc/stream_count.cu`` (a failed build or launch
     raises); CPU tensors run :func:`stream_count_reference`."""
-    _check_args(key_lo, key_hi, counts, sorted_keys, off, block_probe, shift, bpb)
+    check_count_args(key_lo, key_hi, counts, sorted_keys, off, block_probe, shift, bpb)
     if counts.device.type == "cpu":
         return stream_count_reference(
             key_lo, key_hi, counts, sorted_keys, off, block_probe, shift, bpb

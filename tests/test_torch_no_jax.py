@@ -20,6 +20,8 @@ SCRIPT = textwrap.dedent(
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    for script in ("r2_kernel_dissect", "r2_window_dissect", "r3_iter_floor"):
+        assert f"kmer_mapper_tpu_torch.scripts.{script}" in names, names
     from kmer_mapper_tpu_torch import oracle, pipeline
     from kmer_mapper_tpu_torch.index import kmer_index
 

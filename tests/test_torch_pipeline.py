@@ -130,3 +130,25 @@ def test_cli_map_writes_the_same_npy(tmp_path):
     got = np.load(tmp_path / "port.npy")
     np.testing.assert_array_equal(got, np.load(tmp_path / "ref.npy"))
     np.testing.assert_array_equal(got, expect)
+
+
+def test_cli_map_without_a_gpu_needs_device_cpu(tmp_path, monkeypatch, caplog):
+    """``--device`` defaults to cuda; with no GPU the map fails and names
+    ``--device cpu`` instead of picking the CPU on its own."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(22)
+    reads = _reads(rng, 50, [40] * 50, with_n=False)
+    path = tmp_path / "reads.fq"
+    _write(path, reads, "fastq", gz=False)
+    _index_npz(rng, reads, 21, tmp_path / "index.npz")
+    args = ["map", "-i", str(tmp_path / "index.npz"), "-f", str(path), "-k", "21",
+            "-o", str(tmp_path / "out")]
+    with pytest.raises(SystemExit) as exc:
+        cli.main(args)
+    assert exc.value.code != 0
+    assert "--device cpu" in caplog.text
+    assert not (tmp_path / "out.npy").exists()
+    cli.main(args + ["--device", "cpu"])
+    assert np.load(tmp_path / "out.npy").sum() > 0
