@@ -20,7 +20,13 @@ result line):
      run as a user runs them, at their full sizes (their kernels must have
      launched); then every variant of each kernel against its twin, bit for
      bit, r2_kernel_dissect's full against stream_count, and the
-     tile-scheduled r2_window_dissect against both on a poly-A window.
+     tile-scheduled r2_window_dissect against both on a poly-A window; on
+     a ragged chunk, the main path's offsets (which end at the invalid tail)
+     leave the last chain block's window without invalid queries;
+  7. tiles: the three r9 tile-body scripts of kmer_mapper_tpu_torch.scripts
+     (r9_dot_orient, r9_step_parts, r9_block_pipeline) run as a user runs
+     them, at their full sizes (their kernels must have launched); then
+     every variant against its twin, bit for bit, with hits.
 The line before the last is a JSON object describing each kernel, with its
 bound: the larger of its bytes over 3.35 TB/s (the H100 SXM's memory rate)
 and its 32-bit integer operations over the card's INT32 rate (SMs x 64
@@ -275,7 +281,7 @@ def phase_steady_state(torch, np, chunks, index, device) -> dict:
             from_int32_bits(words), K, READ_LEN, n_reads, index.table.seed
         )
         keys = stream_probe.sort_mixed(m_lo, m_hi)
-        return keys, stream_probe.block_offsets(keys, n_buckets, bpb)
+        return keys, stream_probe.count_offsets(keys, n_buckets, bpb)
 
     twin_counts = torch.zeros_like(mapper.counts)
 
@@ -322,7 +328,7 @@ def phase_steady_state(torch, np, chunks, index, device) -> dict:
         ev[1].record()
         keys = stream_probe.sort_mixed(m_lo, m_hi)
         ev[2].record()
-        off = stream_probe.block_offsets(keys, n_buckets, bpb)
+        off = stream_probe.count_offsets(keys, n_buckets, bpb)
         ev[3].record()
         count_args = (mapper.key_lo, mapper.key_hi, scratch, keys, off,
                       mapper.block_probe, shift, bpb)
@@ -464,15 +470,28 @@ def phase_dissect(torch, np, device) -> list[dict]:
         if not torch.equal(full_b, other):
             raise AssertionError(f"dissect: r2_window_dissect full != {name}")
     per_block_ms = median_ms(lambda: stream_probe.stream_count(*per_block_args))
+    # the main path's offsets end at the invalid tail: the last chain
+    # block's window must hold no invalid query, and the count is the same
+    main_off = stream_probe.count_offsets(keys, ctx.n_buckets, args[7])
+    last = keys[int(main_off[-2]):int(main_off[-1])]
+    if bool((last == stream_probe.INVALID_KEY).any()):
+        raise AssertionError("dissect: the last window of count_offsets holds invalid queries")
+    main_args = ctx.count_args(torch.zeros_like(args[2]), keys, main_off)
+    if not torch.equal(full_b, stream_probe.stream_count(*main_args)):
+        raise AssertionError("dissect: stream_count on count_offsets != r2_window_dissect full")
+    main_ms = median_ms(lambda: stream_probe.stream_count(*main_args))
     table("B", times)
     lengths = off[1:] - off[:-1]
-    n_invalid = int((keys == torch.iinfo(torch.int64).max).sum())
+    n_invalid = int((keys == stream_probe.INVALID_KEY).sum())
     bound_ms_b, bound_by_b = count_bound(args, max_probe, int(full_b.ne(0).sum()))
     log(f"dissect B: {len(B.VARIANTS)} variants == twins on one {ctx.buf}-base chunk "
         f"({keys.numel()} queries, {n_invalid} of them invalid; longest window "
         f"{int(lengths.max())} queries in block {int(lengths.argmax())} of {lengths.numel()}); "
         f"full == r2_kernel_dissect == stream_count; per-block stream_count alone "
-        f"{per_block_ms:.4f} ms; bound {bound_ms_b:.4f} ms by {bound_by_b}")
+        f"{per_block_ms:.4f} ms on block_offsets; bound {bound_ms_b:.4f} ms by {bound_by_b}")
+    log(f"dissect B: tail repair: per-block stream_count {per_block_ms:.4f} ms on "
+        f"block_offsets (last window {int(lengths[-1])} queries) -> {main_ms:.4f} ms on "
+        f"count_offsets (last window {last.numel()} queries, none invalid); counts equal")
     rng = np.random.default_rng(1)
     keys_pa = np.concatenate([[np.uint64(0)], np.unique(
         rng.integers(0, 1 << 62, 8000, dtype=np.uint64))])
@@ -527,6 +546,79 @@ def phase_dissect(torch, np, device) -> list[dict]:
     return out
 
 
+def phase_tiles(torch, np, device) -> list[dict]:
+    """The tile-body path: each r9 script's main at its full size, with
+    every launch count zeroed before it and read after it; then every
+    variant against its twin on the main's inputs (launches not counted)."""
+    from kmer_mapper_tpu_torch.scripts import r9_block_pipeline as P
+    from kmer_mapper_tpu_torch.scripts import r9_dot_orient as D
+    from kmer_mapper_tpu_torch.scripts import r9_step_parts as S
+
+    modules = {"r9_dot_orient": D, "r9_step_parts": S, "r9_block_pipeline": P}
+    for m in modules.values():
+        for name in m.launch_counts:
+            m.launch_counts[name] = 0
+    t = time.perf_counter()
+    results = {}
+    for name, m in modules.items():
+        log(f"tiles: python -m kmer_mapper_tpu_torch.scripts.{name}")
+        results[name] = m.main([])
+    launches = {name: m.launch_counts[name] for name, m in modules.items()}
+    twins = {name: m.launch_counts[f"{name}_reference"] for name, m in modules.items()}
+    if not all(launches.values()) or any(twins.values()):
+        raise AssertionError(f"tiles: a kernel did not run: launches {launches}, twins {twins}")
+    log(f"tiles: the three scripts ran in {time.perf_counter() - t:.1f} s; launches {launches}")
+
+    # (kernel, twin at the script's sizes, the variant in the kernels line)
+    calls = {
+        "r9_dot_orient": (D.dot_orient,
+                          lambda x, v: D.dot_orient_reference(*x, v, D.ITERS), "new"),
+        "r9_step_parts": (S.step_parts,
+                          lambda x, v: S.step_parts_reference(*x, v, S.GRID, S.TILES), "newfull"),
+        "r9_block_pipeline": (P.block_pipeline, lambda x, v: P.block_pipeline_reference(
+            *x, v, P.GRID, P.TILES), "new"),
+    }
+    out = []
+    for name, m in modules.items():
+        kernel, twin, main_variant = calls[name]
+        res, max_err, twin_ms = results[name], 0, {}
+        for variant, inputs in res["inputs"].items():
+            got, ref = _u32(kernel(*inputs, variant)), _u32(twin(inputs, variant))
+            max_err = max(max_err, int(np.abs(got - ref).max()))
+            if not np.array_equal(got, ref):
+                raise AssertionError(f"tiles: {name} {variant}: kernel != twin")
+            # hits: the count tile's sum, or the count slots that changed
+            hits = int(got.sum()) if m is D else int((got != _u32(inputs[2])).sum())
+            if not hits:
+                raise AssertionError(f"tiles: {name} {variant}: no hits")
+            twin_ms[variant] = median_ms(lambda: twin(inputs, variant), reps=3)
+            log(f"tiles {name}: {variant:9s} kernel {res['ms'][variant]:9.4f} ms  twin "
+                f"{twin_ms[variant]:9.3f} ms  == twin, {hits} "
+                f"{'hits' if m is D else 'count slots changed'}")
+        # bound: the inputs read and the outputs written once; 4 integer
+        # operations per lane and tile (bucket, live), 16 word compares per
+        # live lane (2 words of 8 key lanes)
+        x = res["inputs"][main_variant]
+        if m is D:
+            n_tiles, per_tile = D.ITERS, np.arange(D.ITERS)
+            n_bytes = 2 * x[0].numel() + 4 * x[1].numel() + 4 * D.K * D.GPB
+        else:
+            n_tiles, per_tile = m.GRID * m.TILES, np.tile(np.arange(m.TILES), m.GRID)
+            n_bytes = 4 * (3 * x[0].numel() + x[3].numel()) + 4 * x[2].numel()
+        lanes = x[1].shape[1] if m is D else x[3].shape[1]
+        n_live = int(np.maximum(0, lanes - (per_tile & 63)).sum())
+        bound_ms, bound_by = bound(n_bytes, 4 * n_tiles * lanes + 16 * n_live)
+        log(f"tiles {name}: {len(res['ms'])} variants == twins; {n_tiles} tiles, {n_live} live "
+            f"lanes; bound {bound_ms:.6f} ms by {bound_by}")
+        line = {"r9_dot_orient": 55, "r9_step_parts": 63, "r9_block_pipeline": 56}[name]
+        out.append(dict(name=name, route="cuda", source=f"kmer_mapper_tpu_torch/csrc/{name}.cu",
+                        replaces=f"scripts/{name}.py:{line}", launches=launches[name],
+                        max_abs_err=max_err, ms=res["ms"][main_variant],
+                        plain_ms=twin_ms[main_variant], bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None))
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -555,6 +647,7 @@ def main() -> int:
         f"{sorted(steady['kernel_rates'])[N_WINDOWS // 2] / 1e6:.1f} Mk/s, twin path median "
         f"{sorted(steady['twin_rates'])[N_WINDOWS // 2] / 1e6:.1f} Mk/s")
     dissect = phase_dissect(torch, np, device)
+    tiles = phase_tiles(torch, np, device)
     kernels = [{
         "name": "stream_count",
         "route": "cuda",
@@ -567,7 +660,7 @@ def main() -> int:
         "bound_ms": steady["bound_ms"],
         "bound_by": steady["bound_by"],
         "library_ms": None,  # no single PyTorch call counts slot hits
-    }, *dissect]
+    }, *dissect, *tiles]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

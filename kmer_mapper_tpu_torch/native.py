@@ -116,8 +116,14 @@ def library() -> ctypes.CDLL:
     lib.r3_iter_floor_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
+    lib.r9_dot_orient_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    for fn in (lib.r9_step_parts_launch, lib.r9_block_pipeline_launch):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     for fn in (lib.r2_kernel_dissect_launch, lib.r2_window_dissect_launch,
-               lib.r3_iter_floor_launch):
+               lib.r3_iter_floor_launch, lib.r9_dot_orient_launch,
+               lib.r9_step_parts_launch, lib.r9_block_pipeline_launch):
         fn.restype = ctypes.c_int
     lib.kmt_error_string.argtypes = [ctypes.c_int]
     lib.kmt_error_string.restype = ctypes.c_char_p

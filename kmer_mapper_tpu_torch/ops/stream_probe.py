@@ -5,7 +5,8 @@
    unsigned order of the pair, and the all-ones invalid pair becomes the
    largest key and sorts last. The bucket id is the high bits of m_lo, so
    the sorted keys are grouped by bucket and by 128-bucket chain block.
-2. ``block_offsets`` finds each chain block's window of sorted keys.
+2. ``block_offsets`` finds each chain block's window of sorted keys;
+   ``count_offsets`` ends every window at the invalid tail, for the count.
 3. ``stream_count`` adds, for every valid query, one to the table slot that
    stores its key. On a CUDA tensor it launches the hand-written kernel
    ``csrc/stream_count.cu`` (one CTA per chain block); on a CPU tensor it
@@ -30,6 +31,9 @@ from .u32hash import (
 #: table's EMPTY sentinel, which the build keeps away from real keys, and the
 #: count step skips it
 INVALID_WORD = 0xFFFFFFFF
+#: the sort key of the invalid pair, ``sort_key(INVALID_WORD, INVALID_WORD)``:
+#: the largest int64
+INVALID_KEY = (1 << 63) - 1
 
 #: launches of the CUDA kernel and calls of its plain twin since import;
 #: a run that must show which one counted resets them first
@@ -80,6 +84,16 @@ def block_offsets(sorted_keys: torch.Tensor, n_buckets: int, block: int) -> torc
     off = torch.searchsorted(sorted_keys, thr)
     off = torch.where(is_top, sorted_keys.shape[0], off)
     return off.to(torch.int32)
+
+
+def count_offsets(sorted_keys: torch.Tensor, n_buckets: int, block: int) -> torch.Tensor:
+    """:func:`block_offsets` with every window ended at the first invalid
+    key. The invalid queries sort last, into the last block's window, where
+    the count's one CTA for that block would read each only to skip it. One
+    ``searchsorted`` on the keys' device, with no host sync."""
+    off = block_offsets(sorted_keys, n_buckets, block)
+    invalid = torch.full((1,), INVALID_KEY, dtype=torch.int64, device=sorted_keys.device)
+    return torch.minimum(off, torch.searchsorted(sorted_keys, invalid).to(torch.int32))
 
 
 def check_count_args(key_lo, key_hi, counts, sorted_keys, off, block_probe, shift, bpb,
@@ -209,7 +223,7 @@ def plane_to_slot(counts: np.ndarray, n_buckets: int, gpb: int = CHAIN_BLOCK) ->
 def _count_sorted(key_lo, key_hi, counts, sorted_keys, block_probe):
     n_buckets = key_lo.shape[0]
     bpb = min(CHAIN_BLOCK, n_buckets)
-    off = block_offsets(sorted_keys, n_buckets, bpb)
+    off = count_offsets(sorted_keys, n_buckets, bpb)
     return stream_count(
         key_lo, key_hi, counts, sorted_keys, off, block_probe,
         bucket_shift(n_buckets), bpb,

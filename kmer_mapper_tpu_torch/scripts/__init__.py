@@ -4,11 +4,17 @@ counterparts of the Pallas measurement scripts under ``scripts/``.
     python -m kmer_mapper_tpu_torch.scripts.r2_kernel_dissect [variant ...]
     python -m kmer_mapper_tpu_torch.scripts.r2_window_dissect [variant ...]
     python -m kmer_mapper_tpu_torch.scripts.r3_iter_floor [variant ...]
+    python -m kmer_mapper_tpu_torch.scripts.r9_dot_orient [variant ...]
+    python -m kmer_mapper_tpu_torch.scripts.r9_step_parts [variant ...]
+    python -m kmer_mapper_tpu_torch.scripts.r9_block_pipeline [variant ...]
 
 Each module holds a hand-written CUDA kernel (``csrc/<name>.cu``) with its
 variants, the kernel's plain-torch twin and a ``main`` that times every
-variant on the card and prints one line per variant. Wrappers launch the
-kernel on CUDA tensors and run the twin only on CPU tensors.
+variant on the card and prints one line per variant (``--device cpu`` runs
+the twins instead). Wrappers launch the kernel on CUDA tensors and run the
+twin only on CPU tensors. The r2 and r3 scripts take the stream count
+apart; the three r9 scripts run its tile body (``csrc/r9_tile.cuh``) under
+the layouts of the TPU kernel's tiles.
 """
 from __future__ import annotations
 

@@ -18,7 +18,10 @@ bucket ``(local + p) & (bpb - 1)``, as its Pallas variant rolls them.
 the variant, 8 steps a window, against the bench index (2M uniform keys and
 2M drawn from the first 5000 reads' k-mers). It prints ms per chunk and
 k-mers per second for each variant, and a row with the main path's
-per-block ``stream_probe.stream_count`` in the same place.
+per-block ``stream_probe.stream_count`` in the same place, on the main
+path's offsets (``stream_probe.count_offsets``: windows end at the invalid
+tail). The variants take ``block_offsets``, whose last window holds the
+invalid tail, as the Pallas script's schedule does.
 """
 from __future__ import annotations
 
@@ -147,16 +150,19 @@ class Context:
     def n_buckets(self) -> int:
         return self.index.table.n_buckets
 
-    def sorted_chunk(self, i: int):
+    def sorted_chunk(self, i: int, main_path: bool = False):
         """The ragged step up to the count for chunk i: (sorted keys, block
-        offsets, number of valid windows as a device scalar)."""
+        offsets, number of valid windows as a device scalar). The offsets
+        are ``block_offsets``, or with ``main_path`` the count's
+        ``count_offsets``, which end the last window at the invalid tail."""
         words, lengths, n_bases = self.chunks[i % len(self.chunks)]
         lo, hi = hashing.rolling_kmer_hash_packed(words, K)
         starts = torch.cumsum(lengths, 0) - lengths
         valid = hashing.window_mask(starts, n_bases, K, self.buf)
         keys = stream_probe.sort_queries(lo, hi, valid, self.index.table.seed)
         bpb = min(CHAIN_BLOCK, self.n_buckets)
-        return keys, stream_probe.block_offsets(keys, self.n_buckets, bpb), valid.sum()
+        offsets = stream_probe.count_offsets if main_path else stream_probe.block_offsets
+        return keys, offsets(keys, self.n_buckets, bpb), valid.sum()
 
     def count_args(self, counts, keys, off) -> tuple:
         """``stream_probe.stream_count``'s arguments for these sorted keys."""
@@ -209,7 +215,7 @@ def run(ctx: Context, variants, device) -> dict[str, tuple[float, float]]:
         def window(v=variant):
             total = 0
             for i in range(STEPS):
-                keys, off, n_valid = ctx.sorted_chunk(i)
+                keys, off, n_valid = ctx.sorted_chunk(i, main_path=v == PER_BLOCK)
                 args = ctx.count_args(counts, keys, off)
                 if v == PER_BLOCK:
                     stream_probe.stream_count(*args)

@@ -1,5 +1,6 @@
-"""The port imports and maps with jax and ``kmer_mapper_tpu`` blocked: the
-machine it runs on has PyTorch and no JAX."""
+"""The port and ``chip_smoke.py`` import, and the port maps, with jax and
+``kmer_mapper_tpu`` blocked: the machine it runs on has PyTorch and no
+JAX."""
 import os
 import subprocess
 import sys
@@ -13,15 +14,20 @@ SCRIPT = textwrap.dedent(
     import sys
     for name in ("jax", "jaxlib", "kmer_mapper_tpu"):
         sys.modules[name] = None  # any import of these now raises ImportError
-    import importlib, pkgutil, tempfile, os
+    import importlib, importlib.util, pkgutil, tempfile, os
     import numpy as np
     import kmer_mapper_tpu_torch as pkg
 
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
-    for script in ("r2_kernel_dissect", "r2_window_dissect", "r3_iter_floor"):
+    for script in ("r2_kernel_dissect", "r2_window_dissect", "r3_iter_floor",
+                   "r9_dot_orient", "r9_step_parts", "r9_block_pipeline"):
         assert f"kmer_mapper_tpu_torch.scripts.{script}" in names, names
+    spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert callable(smoke.phase_tiles)
     from kmer_mapper_tpu_torch import oracle, pipeline
     from kmer_mapper_tpu_torch.index import kmer_index
 

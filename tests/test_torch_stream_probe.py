@@ -67,3 +67,54 @@ def test_block_offsets_match_jax(n_buckets):
     assert got[0] == 0 and got[-1] == len(m_lo)
 
 
+def test_count_offsets_end_at_the_invalid_tail(monkeypatch):
+    """The ragged step turns every window that crosses a read boundary into
+    the all-ones pair, which sorts last. The offsets that reach the count
+    end at the first such key, ``block_offsets`` of the same keys still
+    equals JAX's, and the node counts equal the oracle's."""
+    from kmer_mapper_tpu_torch import oracle
+    from kmer_mapper_tpu_torch.index import kmer_index
+    from kmer_mapper_tpu_torch.io import readers
+    from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
+
+    rng = np.random.default_rng(31)
+    k = 15
+    lengths = rng.integers(k - 3, 70, 150)
+    codes = rng.integers(0, 4, int(lengths.sum()))
+    kmers = oracle.kmer_hashes_ragged(codes, lengths, k)
+    entries = np.concatenate([kmers[::7], rng.integers(0, 1 << 30, 50, dtype=np.uint64)])
+    arrays = oracle.build_kmer_index(entries, rng.integers(0, 40, len(entries)), 1021)
+    config = MapperConfig(k=k, buf=4096, max_reads=128)
+    mapper = KmerMapper(kmer_index.KmerIndex.from_arrays(arrays), config, "cpu")
+    bases = np.frombuffer(b"ACGT", np.uint8)[codes]
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    chunks = list(readers.pack_for_device(
+        iter([readers.SequenceChunk(bases, starts)]), config.buf, config.max_reads, k))
+    assert len(chunks) > 1
+
+    seen = []
+    count = stream_probe.stream_count
+
+    def spy(key_lo, key_hi, counts, sorted_keys, off, *rest):
+        seen.append((sorted_keys.clone(), off.clone()))
+        return count(key_lo, key_hi, counts, sorted_keys, off, *rest)
+
+    monkeypatch.setattr(stream_probe, "stream_count", spy)
+    for packed, lens, n_bases, _, n_invalid in chunks:
+        mapper.map_chunk(packed, lens, n_bases, n_invalid)
+    np.testing.assert_array_equal(mapper.node_counts(), oracle.map_kmers_to_index(arrays, kmers))
+
+    n_buckets = mapper.index.table.n_buckets
+    bpb = min(layout.CHAIN_BLOCK, n_buckets)
+    assert len(seen) == len(chunks)
+    for keys, off in seen:
+        first_invalid = int(np.searchsorted(keys.numpy(), stream_probe.INVALID_KEY))
+        assert first_invalid < keys.numel()  # the chunk has an invalid tail
+        assert (keys[:first_invalid] != stream_probe.INVALID_KEY).all()
+        assert int(off[-1]) == int(off.max()) == first_invalid
+        full = stream_probe.block_offsets(keys, n_buckets, bpb)
+        assert int(full[-1]) == keys.numel()
+        np.testing.assert_array_equal(off.numpy(), np.minimum(full.numpy(), first_invalid))
+        sorted_lo = stream_probe.split_key(keys)[0].numpy().astype(np.uint32)
+        expect = ref_sp.block_offsets(jnp.asarray(sorted_lo), n_buckets, bpb)
+        np.testing.assert_array_equal(full.numpy(), np.asarray(expect))
