@@ -26,7 +26,15 @@ result line):
   7. tiles: the three r9 tile-body scripts of kmer_mapper_tpu_torch.scripts
      (r9_dot_orient, r9_step_parts, r9_block_pipeline) run as a user runs
      them, at their full sizes (their kernels must have launched); then
-     every variant against its twin, bit for bit, with hits.
+     every variant against its twin, bit for bit, with hits;
+  8. library: the pre-hashed calls on the bench index, as KAGE calls them:
+     compat.map_kmers_to_graph_index on 2^24 hashes (stream route),
+     in_graph_index on 2^24 (gather kernel), map_hashes on 2^16 (gather
+     route) and GpuCounter with reverse complements on 2^22, each equal to
+     the numpy oracle, with the launch counts zeroed before and read after
+     (no twin may run); a second call on 2^26 hashes that must reuse the
+     cached mapper, timed; the gather kernel against its twins on every
+     hazard case; the device ms of both routes at 2^12 ... 2^24 hashes.
 The line before the last is a JSON object describing each kernel, with its
 bound: the larger of its bytes over 3.35 TB/s (the H100 SXM's memory rate)
 and its 32-bit integer operations over the card's INT32 rate (SMs x 64
@@ -55,6 +63,11 @@ INDEX_FROM_READS = 2_000_000  # half drawn from the first 5000 reads' k-mers
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 units
 DISSECT_POLY_A = 200_000  # poly-A queries in one window, phase 6
+LIB_HASHES = 1 << 24  # hashes of the library calls held to the oracle, phase 8
+LIB_TIMED = 1 << 26  # hashes of the timed map_kmers_to_graph_index call
+LIB_GATHER = 1 << 16  # a map_hashes batch on the gather route
+LIB_COUNTER = 1 << 22  # hashes counted by GpuCounter (and their revcomps)
+CROSSOVER = [1 << e for e in range(12, 25, 2)]  # batch sizes timed on both routes
 
 
 def log(msg: str) -> None:
@@ -241,7 +254,8 @@ def phase_end_to_end(torch, np, chunk0, rng, workdir) -> dict:
     log(f"e2e: cli map on {torch.cuda.get_device_name(0)} in {seconds:.2f} s "
         f"(index build included); {int(got.sum())} node hits == oracle; "
         f"launches {launches}")
-    return {"launches": launches["stream_count"], "index": kmer_index.KmerIndex.from_arrays(arrays)}
+    return {"launches": launches["stream_count"], "arrays": arrays,
+            "index": kmer_index.KmerIndex.from_arrays(arrays)}
 
 
 def phase_steady_state(torch, np, chunks, index, device) -> dict:
@@ -619,6 +633,232 @@ def phase_tiles(torch, np, device) -> list[dict]:
     return out
 
 
+def gather_bound(index, q_lo, q_hi, slots) -> tuple[float, float, str, float]:
+    """(mean rounds, bound ms, "bytes" or "operations", row-traffic ms) of
+    the gather probe's slots mode on these queries. Rounds per query: up to
+    the hit, the table's max_probe for a miss, none for the sentinel. Bytes:
+    the 8 bytes of each query's words read once, each bucket the run touches
+    read once (32 bytes of lo and 32 of hi words) and 4 bytes of slot
+    written per query; operations: 30 for the Feistel mix of each query (3
+    rounds of fmix32 and two xors) and 9 per round taken (8 lane compares
+    and the bucket). The row-traffic time is the same bytes with every
+    round's 64-byte row read again, as a gather that caches nothing would."""
+    import torch
+
+    from kmer_mapper_tpu_torch.ops import probe
+    from kmer_mapper_tpu_torch.ops.u32hash import (
+        MASK32, bucket_from_mlo_torch, feistel_mix_torch, from_int32_bits,
+    )
+
+    table = index.table
+    n, n_buckets, bpb = q_lo.numel(), table.n_buckets, min(128, table.n_buckets)
+    m_lo, m_hi = feistel_mix_torch(from_int32_bits(q_lo), from_int32_bits(q_hi), table.seed)
+    b0 = bucket_from_mlo_torch(m_lo, n_buckets)
+    slots = slots.long()
+    rounds = torch.where(slots >= 0, ((slots // 8 - b0) & (bpb - 1)) + 1, table.max_probe)
+    rounds = torch.where((m_lo == MASK32) & (m_hi == MASK32), 0, rounds)
+    touched = torch.zeros(n_buckets, dtype=torch.bool, device=q_lo.device)
+    for p in range(table.max_probe):
+        sel = rounds > p
+        touched[probe.chain_next(b0[sel], p, n_buckets)] = True
+    n_rounds = int(rounds.sum())
+    ms, by = bound(12 * n + 64 * int(touched.sum()), 30 * n + 9 * n_rounds)
+    row_ms = (12 * n + 64 * n_rounds) / HBM_BYTES_PER_S * 1e3
+    return n_rounds / max(n, 1), ms, by, row_ms
+
+
+def library_hashes(np, rng, arrays, n: int, shuffle: bool = True):
+    """n uint64 hashes: half drawn from the index's kmers, half uniform."""
+    q = np.concatenate([rng.choice(arrays.kmers, n // 2),
+                        rng.integers(0, 1 << 62, n - n // 2, dtype=np.uint64)])
+    if shuffle:
+        rng.shuffle(q)
+    return q
+
+
+def phase_library(torch, np, arrays, rng, device) -> dict:
+    """The pre-hashed library path at the sizes a KAGE caller passes, on the
+    bench index: compat calls, map_hashes on the gather route and
+    GpuCounter, each against the numpy oracle with every launch count
+    zeroed before and read after (no twin may run); the gather kernel
+    against its twins on every hazard case; the crossover of the two routes
+    of map_hashes; the gather kernel's time and bound."""
+    from kmer_mapper_tpu_torch import compat, gpu_counter, oracle
+    from kmer_mapper_tpu_torch.ops import probe, probe_cases, stream_probe
+    from kmer_mapper_tpu_torch.ops.u32hash import from_int32_bits
+
+    def launches():
+        return {**stream_probe.launch_counts, **probe.launch_counts}
+
+    def require(before, rose: str, what: str):
+        now = launches()
+        twins = {k: now[k] - before[k] for k in now if "reference" in k and now[k] != before[k]}
+        if now[rose] <= before[rose] or twins:
+            raise AssertionError(f"library: {what} did not run {rose} alone: "
+                                 f"before {before}, after {now}")
+
+    t_phase = time.perf_counter()
+    for m in (probe, stream_probe):
+        for name in m.launch_counts:
+            m.launch_counts[name] = 0
+    q = library_hashes(np, rng, arrays, LIB_HASHES)
+    before = launches()
+    t = time.perf_counter()
+    got = compat.map_kmers_to_graph_index(arrays, kmers=q)
+    first_s = time.perf_counter() - t
+    require(before, "stream_count", "map_kmers_to_graph_index")
+    t = time.perf_counter()
+    if not np.array_equal(got, oracle.map_kmers_to_index(arrays, q)):
+        raise AssertionError("library: map_kmers_to_graph_index != oracle.map_kmers_to_index")
+    oracle_s = time.perf_counter() - t
+    index = compat._as_index(arrays)
+    mapper = compat._shared_mapper(index)
+    table_ptr = mapper.key_lo.data_ptr()
+    log(f"library: map_kmers_to_graph_index on {len(q)} hashes (table build and upload "
+        f"included) in {first_s:.2f} s; {int(got.sum())} node hits == oracle "
+        f"({oracle_s:.1f} s)")
+
+    # a second call with the same index object: the cached mapper and its
+    # device table, timed on LIB_TIMED hashes
+    big = library_hashes(np, rng, arrays, LIB_TIMED, shuffle=False)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = launches()
+    t = time.perf_counter()
+    got_big = compat.map_kmers_to_graph_index(arrays, kmers=big)
+    big_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base
+    require(before, "stream_count", "the timed map_kmers_to_graph_index")
+    if compat._shared_mapper(index) is not mapper or mapper.key_lo.data_ptr() != table_ptr:
+        raise AssertionError("library: the second call did not reuse the cached mapper")
+    if int(got_big.sum()) < LIB_TIMED // 2:
+        raise AssertionError("library: the timed call counted too few hits")
+    # its host stages alone: words split and uploaded, node counts
+    t = time.perf_counter()
+    words = list(mapper._hash_pieces(big))
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t
+    t = time.perf_counter()
+    mapper.node_counts()
+    finalize_s = time.perf_counter() - t
+    log(f"library: second call on {LIB_TIMED} hashes, same mapper and table: "
+        f"{big_s:.3f} s host clock, {LIB_TIMED / big_s / 1e6:.1f} M hashes/s (split and "
+        f"upload alone {upload_s:.3f} s, node counts alone {finalize_s:.3f} s); peak device "
+        f"memory above the table {peak / 2**30:.2f} GiB ({peak / LIB_TIMED:.1f} B a hash, "
+        f"HASH_PIECE {mapper.HASH_PIECE})")
+    del big, got_big, words
+
+    before = launches()
+    member = compat.in_graph_index(arrays, q)
+    require(before, "gather_probe", "in_graph_index")
+    if not np.array_equal(member, oracle.in_index(arrays, q)):
+        raise AssertionError("library: in_graph_index != oracle.in_index")
+    log(f"library: in_graph_index on {len(q)} hashes == oracle ({int(member.sum())} in)")
+
+    small = q[:LIB_GATHER]
+    before = launches()
+    mapper.reset_counts()
+    mapper.map_hashes(small)
+    require(before, "gather_probe", "map_hashes on the gather route")
+    if launches()["stream_count"] != before["stream_count"]:
+        raise AssertionError("library: a gather-route batch launched stream_count")
+    if not np.array_equal(mapper.node_counts(), oracle.map_kmers_to_index(arrays, small)):
+        raise AssertionError("library: map_hashes (gather route) != oracle")
+    log(f"library: map_hashes on {LIB_GATHER} hashes (gather route) == oracle")
+
+    counted = q[:LIB_COUNTER]
+    before = launches()
+    counter = gpu_counter.GpuCounter.from_kmers_and_nodes(arrays.kmers, arrays.nodes, K)
+    counter.count(counted, count_revcomps=True)
+    got_nodes = counter.get_node_counts()
+    require(before, "stream_count", "GpuCounter.count")
+    unique = np.unique(arrays.kmers)
+    expect = oracle.node_counts_from_kmer_counts(
+        arrays.kmers, arrays.nodes, unique, oracle.count_unique_kmers(
+            unique, np.concatenate([counted, oracle.revcomp_hash(counted, K)])))
+    if not np.array_equal(got_nodes, expect):
+        raise AssertionError("library: GpuCounter != numpy node_counts_from_kmer_counts")
+    path_launches = launches()
+    log(f"library: GpuCounter.count({LIB_COUNTER} hashes, count_revcomps=True) == numpy "
+        f"path ({int(got_nodes.sum())} node hits); launches on the library path "
+        f"{path_launches}")
+
+    # the kernel against its twins on every hazard case (launches not counted)
+    max_err = 0
+    for case in probe_cases.cases():
+        slots = probe.probe_slots(*case.slot_args(device))
+        counts = probe.probe_count(*case.count_args(device))
+        twin_slots = probe.probe_slots_reference(*case.slot_args(device))
+        twin_counts = probe.probe_count_reference(*case.count_args(device))
+        max_err = max(max_err, int(np.abs(slots.cpu().numpy().astype(np.int64)
+                                          - twin_slots.cpu().numpy()).max(initial=0)),
+                      int(np.abs(_u32(counts) - _u32(twin_counts)).max(initial=0)))
+        if (max_err or not np.array_equal(slots.cpu().numpy(), case.expected_slots())
+                or not np.array_equal(_u32(counts), case.expected_counts())):
+            raise AssertionError(f"library: gather hazard {case.name}: kernel, twin and loop differ")
+    log(f"library: gather_probe == twin == numpy loop on {len(probe_cases.cases())} hazard "
+        "cases, both modes")
+
+    # the crossover of the two routes, on device-resident query words
+    table = index.table
+    lo32 = torch.from_numpy(np.ascontiguousarray(q.astype(np.uint32)).view(np.int32)).to(device)
+    hi32 = torch.from_numpy(np.ascontiguousarray((q >> np.uint64(32)).astype(np.uint32))
+                            .view(np.int32)).to(device)
+    valid = torch.ones(len(q), dtype=torch.bool, device=device)
+    scratch = torch.zeros_like(mapper.counts)
+
+    def stream_route(n, counts):
+        return lambda: stream_probe.stream_probe_count(
+            mapper.key_lo, mapper.key_hi, counts, from_int32_bits(lo32[:n]),
+            from_int32_bits(hi32[:n]), valid[:n], table.seed, mapper.block_probe)
+
+    def gather_route(n, counts):
+        return lambda: probe.probe_count(mapper.key_lo, mapper.key_hi, counts, lo32[:n],
+                                         hi32[:n], valid[:n], table.max_probe, table.seed)
+
+    crossover = []
+    log("library: crossover, device ms of one map_hashes piece on each route "
+        "(median of 5)")
+    for n in CROSSOVER:
+        a, b = torch.zeros_like(scratch), torch.zeros_like(scratch)
+        stream_route(n, a)()
+        gather_route(n, b)()
+        if not torch.equal(a, b):
+            raise AssertionError(f"library: stream and gather routes differ at n={n}")
+        row = (n, median_ms(stream_route(n, scratch)), median_ms(gather_route(n, scratch)))
+        crossover.append(row)
+        log(f"  n = 2^{n.bit_length() - 1:2d}: stream {row[1]:8.4f} ms  gather {row[2]:8.4f} ms")
+
+    # the kernel line: in_graph_index's shape, LIB_HASHES queries in slots mode
+    slots_args = (mapper.key_lo, mapper.key_hi, lo32, hi32, table.max_probe, table.seed)
+    slots = probe.probe_slots(*slots_args)
+    twin = probe.probe_slots_reference(*slots_args)
+    max_err = max(max_err, int((slots.long() - twin.long()).abs().max()))
+    if max_err:
+        raise AssertionError("library: gather kernel != twin at the library's shape")
+    ms = median_ms(lambda: probe.probe_slots(*slots_args))
+    plain_ms = median_ms(lambda: probe.probe_slots_reference(*slots_args), reps=3)
+    mean_rounds, bound_ms, bound_by, row_ms = gather_bound(index, lo32, hi32, slots)
+    count_args = (mapper.key_lo, mapper.key_hi, scratch, lo32, hi32, valid, table.max_probe,
+                  table.seed)
+    count_ms = median_ms(lambda: probe.probe_count(*count_args))
+    count_plain_ms = median_ms(lambda: probe.probe_count_reference(*count_args), reps=3)
+    log(f"library: gather_probe on {len(q)} queries, slots: kernel {ms:.4f} ms, twin "
+        f"{plain_ms:.3f} ms; counts: kernel {count_ms:.4f} ms, twin {count_plain_ms:.3f} ms; "
+        f"{mean_rounds:.3f} rounds a query; bound {bound_ms:.4f} ms by {bound_by} (every "
+        f"touched bucket read once), {row_ms:.4f} ms with every round's row read")
+    log(f"library: phase took {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "name": "gather_probe", "route": "cuda",
+        "source": "kmer_mapper_tpu_torch/csrc/gather_probe.cu",
+        "replaces": "kmer_mapper_tpu/ops/probe.py:31 (XLA)",
+        "launches": path_launches["gather_probe"], "max_abs_err": max_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call probes a bucket chain
+    }
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -648,6 +888,7 @@ def main() -> int:
         f"{sorted(steady['twin_rates'])[N_WINDOWS // 2] / 1e6:.1f} Mk/s")
     dissect = phase_dissect(torch, np, device)
     tiles = phase_tiles(torch, np, device)
+    library = phase_library(torch, np, e2e["arrays"], rng, device)
     kernels = [{
         "name": "stream_count",
         "route": "cuda",
@@ -660,7 +901,7 @@ def main() -> int:
         "bound_ms": steady["bound_ms"],
         "bound_by": steady["bound_by"],
         "library_ms": None,  # no single PyTorch call counts slot hits
-    }, *dissect, *tiles]
+    }, *dissect, *tiles, library]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,11 +1,15 @@
-"""Command-line interface: the ``map`` subcommand.
+"""Command-line interface: the ``map`` and ``convert-index`` subcommands.
 
     python -m kmer_mapper_tpu_torch.cli map -i index.npz -f reads.fq -o counts -k 31
+    python -m kmer_mapper_tpu_torch.cli convert-index -i index.npz -o index.tpuidx
 
-Flags follow ``kmer_mapper_tpu map`` (and the reference CLI): ``-i -f -k
--c -o -I -r``. ``--device`` picks the torch device and defaults to
-``cuda``. Where PyTorch sees no GPU, ``map`` exits with an error unless the
-caller passes ``--device cpu``: it never falls back to the CPU on its own.
+Flags follow ``kmer_mapper_tpu map`` (and the reference CLI): ``-i -b -f -k
+-c -o -I -r``; ``-i`` wins over ``-b`` where both are given. ``--device``
+picks the torch device and defaults to ``cuda``. Where PyTorch sees no GPU,
+``map`` exits with an error unless the caller passes ``--device cpu``: it
+never falls back to the CPU on its own. ``convert-index`` writes the
+prebuilt table (``.tpuidx.npz``, the file the JAX package reads too) and
+needs no device.
 """
 from __future__ import annotations
 
@@ -39,8 +43,9 @@ def run_argument_parser(args):
     )
     subparsers = parser.add_subparsers()
     sub = subparsers.add_parser("map", help="Map reads to a kmer index")
-    sub.add_argument("-i", "--kmer-index", required=True,
-                     help="graph_kmer_index-format .npz index")
+    sub.add_argument("-i", "--kmer-index",
+                     help="kmer index: reference .npz, .tpuidx.npz, counter .npz or pickle")
+    sub.add_argument("-b", "--index-bundle", help="index bundle holding a kmer_index")
     sub.add_argument(
         "-f", "--reads", required=True, help="Reads in .fa, .fq, .fa.gz, or .fq.gz format"
     )
@@ -57,6 +62,13 @@ def run_argument_parser(args):
                           "on the CPU)")
     sub.set_defaults(func=_cmd_map)
 
+    conv = subparsers.add_parser(
+        "convert-index", help="Prebuild the table layout (.tpuidx.npz) from an index"
+    )
+    conv.add_argument("-i", "--kmer-index", required=True)
+    conv.add_argument("-o", "--output-file", required=True)
+    conv.set_defaults(func=_cmd_convert_index)
+
     if len(args) == 0:
         parser.print_help()
         sys.exit(1)
@@ -72,6 +84,9 @@ def _cmd_map(args):
 
     from . import pipeline
 
+    if args.kmer_index is None and args.index_bundle is None:
+        logger.error("Either a kmer index (-i) or an index bundle (-b) needs to be specified")
+        sys.exit(1)
     if not 1 <= args.kmer_size <= 31:
         logger.error("kmer size must be in [1, 31] (62-bit hashes); got %d", args.kmer_size)
         sys.exit(1)
@@ -82,7 +97,7 @@ def _cmd_map(args):
         sys.exit(1)
     logger.info("Mapping on device %s", device)
     node_counts = pipeline.map_file(
-        args.kmer_index,
+        args.kmer_index if args.kmer_index is not None else args.index_bundle,
         args.reads,
         device=device,
         k=args.kmer_size,
@@ -94,6 +109,16 @@ def _cmd_map(args):
     # np.save appends .npy only when the path does not already end with it
     saved = args.output_file if str(args.output_file).endswith(".npy") else f"{args.output_file}.npy"
     logger.info("Saved node counts to %s", saved)
+
+
+def _cmd_convert_index(args):
+    from .index.kmer_index import load_index
+
+    index = load_index(args.kmer_index)
+    out = args.output_file if args.output_file.endswith(".npz") else args.output_file + ".npz"
+    index.to_file(out)
+    logger.info("Wrote index (%d unique kmers, %d buckets) to %s",
+                index.n_unique, index.table.n_buckets, out)
 
 
 if __name__ == "__main__":

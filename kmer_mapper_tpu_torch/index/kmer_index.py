@@ -1,21 +1,34 @@
 """Index loading and the device-ready index structure (host numpy).
 
-A copy of the reference-format ``.npz`` path of
-``kmer_mapper_tpu/index/kmer_index.py``, pinned by
-``tests/test_torch_layout.py``. Loading produces a :class:`KmerIndex`: the
-block-chained bucket table of unique kmers (``layout.py``) plus per-entry
-arrays that turn unique-kmer slot counts into graph-node counts with the
-reference's per-entry frequency filter.
+A jax-free copy of ``kmer_mapper_tpu/index/kmer_index.py``, pinned by
+``tests/test_torch_layout.py`` and ``tests/test_torch_index_forms.py``.
+Input forms follow the reference's index resolution
+(``kmer_mapper/util.py:38-68``), in :func:`load_index`'s order:
+
+1. this package's prebuilt ``.tpuidx.npz`` (table + finalization arrays,
+   format ``tpuidx-v4``, the same file the JAX package writes and reads),
+2. a counter-style ``.npz`` (field ``counter_keys``),
+3. a pickled ``CounterKmerIndex`` or ``IndexBundle`` (``pickled.py``),
+4. a ``graph_kmer_index`` KmerIndex/MinimalKmerIndex ``.npz``,
+5. an index bundle: a zip holding a ``kmer_index`` member.
+
+Loading produces a :class:`KmerIndex`: the block-chained bucket table of
+unique kmers (``layout.py``) plus per-entry arrays that turn unique-kmer
+slot counts into graph-node counts with the reference's per-entry
+frequency filter.
 """
 from __future__ import annotations
 
 import dataclasses
+import io
 import logging
 import os
+import zipfile
 
 import numpy as np
 
-from ..oracle import KmerIndexArrays
+from ..ops.u32hash import feistel_unmix, join_u64
+from ..oracle import KmerIndexArrays, build_kmer_index
 from . import layout
 
 logger = logging.getLogger(__name__)
@@ -100,12 +113,20 @@ class KmerIndex:
         nodes: np.ndarray,
         frequencies: np.ndarray | None = None,
         max_load: float = layout.DEFAULT_MAX_LOAD,
+        extra_keys: np.ndarray | None = None,
     ) -> "KmerIndex":
         """Build from (kmer, node) entry pairs. Entry slots come from the
-        build's own slot record, not from probing every entry again."""
+        build's own slot record, not from probing every entry again.
+        ``extra_keys`` are countable kmers with no node (a CounterKmerIndex
+        may count keys that carry no entry): probed and counted, but added
+        to no node."""
         kmers = np.asarray(kmers, dtype=np.uint64)
         nodes = np.asarray(nodes, dtype=np.int32)
-        unique, inverse = np.unique(kmers, return_inverse=True)
+        all_keys = kmers
+        if extra_keys is not None and len(extra_keys):
+            all_keys = np.concatenate([kmers, np.asarray(extra_keys, np.uint64)])
+        unique, inverse = np.unique(all_keys, return_inverse=True)
+        inverse = inverse[: len(kmers)]
         if frequencies is None:
             counts = np.bincount(inverse, minlength=len(unique))
             frequencies = np.minimum(counts[inverse], 65535).astype(np.uint16)
@@ -118,6 +139,22 @@ class KmerIndex:
             entry_node=nodes,
             entry_frequency=np.asarray(frequencies, dtype=np.uint16),
             max_node_id=int(nodes.max()) if len(nodes) else 0,
+            n_unique=len(unique),
+        )
+
+    @classmethod
+    def from_counter_keys(cls, unique_kmers: np.ndarray) -> "KmerIndex":
+        """Counter-only index (no node mapping): node i is unique kmer i."""
+        unique = np.unique(np.asarray(unique_kmers, dtype=np.uint64))
+        table = layout.build_table(unique)
+        slot = table.build_slots
+        table.build_slots = None
+        return cls(
+            table=table,
+            entry_slot=slot.astype(np.int32),
+            entry_node=np.arange(len(unique), dtype=np.int32),
+            entry_frequency=np.ones(len(unique), dtype=np.uint16),
+            max_node_id=len(unique) - 1 if len(unique) else 0,
             n_unique=len(unique),
         )
 
@@ -136,11 +173,86 @@ class KmerIndex:
         )
         return out.astype(np.uint32)
 
+    def get(self, kmer: int) -> np.ndarray:
+        """Graph nodes of a kmer hash (the reference's ``KmerIndex.get``)."""
+        slot = layout.query_table(self.table, np.array([kmer], dtype=np.uint64))[0]
+        if slot < 0:
+            return np.zeros(0, dtype=np.int32)
+        return self.entry_node[self.entry_slot == slot]
+
+    def kmer_counts(self, slot_counts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(unique kmers in slot order, their counts): the counter view. The
+        table stores mixed words; unmixing recovers the raw kmers."""
+        m_lo, m_hi = self.table.key_words()
+        occupied = ~((m_lo == layout.EMPTY) & (m_hi == layout.EMPTY))
+        lo, hi = feistel_unmix(m_lo, m_hi, seed=self.table.seed)
+        counts = np.asarray(slot_counts).reshape(-1)
+        return join_u64(lo, hi)[occupied], counts[occupied]
+
+    def to_file(self, path) -> None:
+        """Write the ``tpuidx-v4`` file that both packages read."""
+        np.savez(
+            path,
+            format=np.array(["tpuidx-v4"]),
+            table_key_lo=self.table.key_lo,
+            table_key_hi=self.table.key_hi,
+            table_max_probe=np.int64(self.table.max_probe),
+            table_seed=np.int64(self.table.seed),
+            entry_slot=self.entry_slot,
+            entry_node=self.entry_node,
+            entry_frequency=self.entry_frequency,
+            max_node_id=np.int64(self.max_node_id),
+            n_unique=np.int64(self.n_unique),
+        )
+
+    @classmethod
+    def from_file(cls, path_or_file) -> "KmerIndex":
+        with np.load(path_or_file, allow_pickle=False) as data:
+            fmt = str(data["format"][0]) if "format" in data else "?"
+            if fmt != "tpuidx-v4":
+                raise ValueError(
+                    f"unsupported .tpuidx format {fmt!r} (this build reads "
+                    "tpuidx-v4, which stores mixed table words; re-run "
+                    "convert-index on the source .npz)"
+                )
+            key_lo = data["table_key_lo"]
+            max_probe = int(data["table_max_probe"])
+            if not 1 <= max_probe <= layout.MAX_PROBE_HARD:
+                # no build makes chains this deep: a corrupt or foreign file
+                raise ValueError(
+                    f"corrupt .tpuidx: table_max_probe={max_probe} outside "
+                    f"[1, {layout.MAX_PROBE_HARD}]"
+                )
+            table = layout.TableArrays(
+                key_lo=key_lo,
+                key_hi=data["table_key_hi"],
+                n_buckets=key_lo.shape[0],
+                max_probe=max_probe,
+                seed=int(data["table_seed"]),
+            )
+            return cls(
+                table=table,
+                entry_slot=data["entry_slot"],
+                entry_node=data["entry_node"],
+                entry_frequency=data["entry_frequency"],
+                max_node_id=int(data["max_node_id"]),
+                n_unique=int(data["n_unique"]),
+            )
+
+
+def _is_tpuidx(path_or_file) -> bool:
+    try:
+        with np.load(path_or_file, allow_pickle=False) as data:
+            return "table_key_lo" in data
+    except Exception:
+        return False
+
 
 def load_index(source) -> KmerIndex:
-    """A :class:`KmerIndex` from itself, from reference-layout arrays, or
-    from a reference-format ``.npz`` path (``path`` or ``path + ".npz"``,
-    the latter first, as the reference resolves it)."""
+    """Resolve any supported index form into a :class:`KmerIndex`
+    (reference: ``_get_kmer_index_from_args``, ``util.py:38-68``). A path
+    ``p`` without ``.npz`` reads ``p + ".npz"`` first when it exists, as the
+    reference resolves it."""
     if isinstance(source, KmerIndex):
         return source
     if isinstance(source, KmerIndexArrays):
@@ -148,10 +260,63 @@ def load_index(source) -> KmerIndex:
     path = str(source)
     if not path.endswith(".npz") and os.path.exists(path + ".npz"):
         path = path + ".npz"
-    arrays = load_reference_npz(path)
+    if _is_tpuidx(path):
+        logger.info("Loading prebuilt index %s", path)
+        return KmerIndex.from_file(path)
+    try:
+        with np.load(path, allow_pickle=False) as data:
+            if "counter_keys" in data:
+                logger.info("Kmer index is counter index")
+                return KmerIndex.from_counter_keys(data["counter_keys"])
+    except Exception:
+        pass
+    # pickled CounterKmerIndex (util.py:63-66) or IndexBundle (util.py:51-53):
+    # pickles are not zipfiles, so sniff first
+    from .pickled import is_pickle_file, load_pickled_index
+
+    if is_pickle_file(path):
+        logger.info("Kmer index is a pickle file (counter index or bundle)")
+        return load_pickled_index(path)
+    # a bundle is a zip that is not itself a loadable .npz index
+    try:
+        arrays = load_reference_npz(path)
+    except Exception:
+        if zipfile.is_zipfile(path):
+            return load_bundle(path)
+        raise
     logger.info(
         "Loaded reference-format index: %d entries, modulo %d",
         len(arrays.kmers),
         arrays.modulo,
     )
     return KmerIndex.from_arrays(arrays)
+
+
+def load_bundle(path) -> KmerIndex:
+    """Index bundle: a zip archive holding a kmer_index ``.npz`` member
+    (``graph_kmer_index.IndexBundle``, ``util.py:51-53``)."""
+    with zipfile.ZipFile(path) as zf:
+        names = [n for n in zf.namelist() if "kmer_index" in n]
+        if not names:
+            raise ValueError(f"bundle {path} has no kmer_index member")
+        with zf.open(names[0]) as member:
+            payload = io.BytesIO(member.read())
+    if _is_tpuidx(payload):
+        payload.seek(0)
+        return KmerIndex.from_file(payload)
+    payload.seek(0)
+    return KmerIndex.from_arrays(load_reference_npz(payload))
+
+
+def build_toy_index(
+    n_unique: int, k: int, n_nodes: int, seed: int = 0, dup_fraction: float = 0.2
+) -> KmerIndexArrays:
+    """A reference-layout index of random kmers, for tests and benchmarks."""
+    rng = np.random.default_rng(seed)
+    mask = np.uint64(4**k - 1) if k < 32 else np.uint64(0xFFFFFFFFFFFFFFFF)
+    kmers = np.unique(rng.integers(0, 1 << 62, n_unique * 2, dtype=np.uint64) & mask)[:n_unique]
+    n_dup = int(len(kmers) * dup_fraction)
+    entry_kmers = np.concatenate([kmers, rng.choice(kmers, n_dup)])
+    nodes = rng.integers(0, n_nodes, len(entry_kmers)).astype(np.int32)
+    modulo = max(2, int(len(entry_kmers) * 1.7) | 1)
+    return build_kmer_index(entry_kmers, nodes, modulo)

@@ -6,6 +6,12 @@ at a time. The torch counterpart of ``kmer_mapper_tpu/models/mapper.py``.
 
 Chunks whose reads are not all ``read_len`` long take the ragged step
 (rolling hash + read-boundary window mask), which gives identical counts.
+Pre-hashed uint64 k-mers (the library calls) take :meth:`KmerMapper.map_hashes`
+and :meth:`KmerMapper.in_index`:
+
+    large batches: Feistel mix -> sort -> chain-block offsets -> stream-count kernel
+    small batches and membership: gather-probe kernel (``ops/probe.py``)
+
 Counts stay on the device in slot order as int32 whose bits are the
 reference's wrapping uint32; they leave it only in :meth:`slot_counts`.
 """
@@ -18,8 +24,8 @@ import torch
 
 from ..index.kmer_index import KmerIndex
 from ..index.layout import CHAIN_BLOCK
-from ..ops import encode, hashing, stream_probe
-from ..ops.u32hash import from_int32_bits
+from ..ops import encode, hashing, probe, stream_probe
+from ..ops.u32hash import from_int32_bits, split_u64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,8 +93,17 @@ def state_from_jax(counts_plane: np.ndarray, n_buckets: int,
 
 class KmerMapper:
     """Device-resident mapper: the index table and the counts live on
-    ``device``; feed packed chunks with :meth:`map_chunk`, then read
-    :meth:`node_counts`. Nothing is moved off the device it was given."""
+    ``device``; feed packed chunks with :meth:`map_chunk` or uint64 hashes
+    with :meth:`map_hashes`, then read :meth:`node_counts`. Nothing is moved
+    off the device it was given."""
+
+    #: a batch of at least this many hashes takes the stream route (sort +
+    #: stream-count kernel), a smaller one the gather probe; by size alone,
+    #: the same on every device
+    STREAM_HASH_MIN = 1 << 17
+    #: hashes per piece of a batch: bounds the stream route's int64
+    #: temporaries on the device (5.6 GiB at 2**26 on an H100; PERF.md)
+    HASH_PIECE = 1 << 26
 
     def __init__(self, index: KmerIndex, config: MapperConfig, device):
         self.index = index
@@ -145,6 +160,47 @@ class KmerMapper:
         lengths = torch.from_numpy(np.asarray(lengths, dtype=np.int64)).to(self.device)
         self._stats.append(chunk_step(*step_args, lengths, n_bases, **step_kw))
 
+    def _hash_pieces(self, kmers):
+        """uint64 hashes -> (lo, hi) int32 word tensors on the device, one
+        piece of at most HASH_PIECE hashes at a time."""
+        kmers = np.asarray(kmers, dtype=np.uint64)
+        for start in range(0, len(kmers), self.HASH_PIECE):
+            lo, hi = split_u64(kmers[start : start + self.HASH_PIECE])
+            yield self._to_device(lo), self._to_device(hi)
+
+    def map_hashes(self, kmers: np.ndarray) -> None:
+        """Count pre-computed uint64 kmer hashes (the library calls
+        ``map_kmers_to_graph_index`` and ``counter.count``). A piece of at
+        least STREAM_HASH_MIN hashes takes the stream route, a smaller one
+        the gather probe; both give the same counts."""
+        table = self.index.table
+        for q_lo, q_hi in self._hash_pieces(kmers):
+            n = q_lo.shape[0]
+            valid = torch.ones(n, dtype=torch.bool, device=self.device)
+            if n >= self.STREAM_HASH_MIN:
+                stream_probe.stream_probe_count(
+                    self.key_lo, self.key_hi, self.counts, from_int32_bits(q_lo),
+                    from_int32_bits(q_hi), valid, table.seed, self.block_probe,
+                )
+            else:
+                probe.probe_count(
+                    self.key_lo, self.key_hi, self.counts, q_lo, q_hi, valid,
+                    table.max_probe, table.seed,
+                )
+            self._stats.append(n)
+
+    def in_index(self, kmers: np.ndarray) -> np.ndarray:
+        """Membership per uint64 kmer hash, uint8[n], with no frequency
+        filter (the reference's ``in_graph_index``), by the gather probe."""
+        table = self.index.table
+        out = [np.zeros(0, dtype=np.uint8)]
+        for q_lo, q_hi in self._hash_pieces(kmers):
+            slots = probe.probe_slots(
+                self.key_lo, self.key_hi, q_lo, q_hi, table.max_probe, table.seed
+            )
+            out.append(slots.ge(0).to(torch.uint8).cpu().numpy())
+        return np.concatenate(out)
+
     @property
     def n_kmers_mapped(self) -> int:
         if self._stats:
@@ -192,3 +248,7 @@ class KmerMapper:
     def node_counts(self, max_frequency: int = 1000) -> np.ndarray:
         """Final per-node hit counts, uint32[max_node_id + 1]."""
         return self.index.node_counts(self.slot_counts(), max_frequency=max_frequency)
+
+    def kmer_counts(self) -> tuple[np.ndarray, np.ndarray]:
+        """Counter view: (unique kmers, their counts)."""
+        return self.index.kmer_counts(self.slot_counts())

@@ -105,6 +105,11 @@ def library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     lib.stream_count_launch.restype = ctypes.c_int
+    lib.gather_probe_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.gather_probe_launch.restype = ctypes.c_int
     # the dissection kernels of kmer_mapper_tpu_torch/scripts; each takes its
     # variant as an int
     lib.r2_kernel_dissect_launch.argtypes = (

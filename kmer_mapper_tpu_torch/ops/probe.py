@@ -1,0 +1,160 @@
+"""Gather probe: the pre-hashed library calls' small batches and every
+membership query. The torch counterpart of ``kmer_mapper_tpu/ops/probe.py``.
+
+For each raw query (the ``(lo, hi)`` words of a uint64 k-mer hash, as int32
+bit patterns) the probe mixes the words (``u32hash.feistel_mix``), finds the
+home bucket from the high bits of the mixed low word and walks the bucket's
+chain for ``max_probe`` rounds, comparing the mixed pair with the bucket's 8
+keys. A query that mixes to the all-ones empty sentinel never matches.
+
+* :func:`probe_count` adds one to the table slot of every valid query that
+  hits (``probe_hits`` + ``accumulate_scatter``);
+* :func:`probe_slots` returns the slot of each query, or -1 (``probe_slots``).
+
+On CUDA tensors both launch the hand-written kernel ``csrc/gather_probe.cu``
+(a failed build or launch raises); on CPU tensors they run their plain
+twins :func:`probe_count_reference` and :func:`probe_slots_reference`, which
+gather a bucket row per round and compare it with an (n, 8) lane mask, as
+``probe_hits`` does. Any other device raises.
+
+Table words are int32 bit patterns of shape (n_buckets, 8) in slot order;
+counts are int32 (n_buckets * 8,) whose bits equal the reference's wrapping
+uint32 counts.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import native
+from ..index.layout import BUCKET_KEYS, CHAIN_BLOCK, MAX_PROBE_HARD
+from .u32hash import (
+    MASK32, bucket_from_mlo_torch, feistel_mix_torch, from_int32_bits, to_int32_bits,
+)
+
+#: launches of the CUDA kernel (both modes) and calls of each plain twin
+#: since import; a run that must show which one ran resets them first
+launch_counts = {"gather_probe": 0, "probe_count_reference": 0, "probe_slots_reference": 0}
+
+_COUNT, _SLOTS = 0, 1  # the kernel's modes (csrc/gather_probe.cu)
+_MAX_BUCKETS = 1 << 29  # the kernel's bound: slots stay below 2**32
+
+
+def chain_next(b: torch.Tensor, step: int, n_buckets: int) -> torch.Tensor:
+    """Bucket ``step`` places down the chain of ``b``: chains wrap inside
+    aligned CHAIN_BLOCK-bucket blocks (``layout.chain_next``)."""
+    block = min(CHAIN_BLOCK, n_buckets)
+    return (b & ~(block - 1)) | ((b + step) & (block - 1))
+
+
+def _check(name, key_lo, key_hi, q_lo, q_hi, max_probe, **more):
+    """Raises ValueError unless the arguments fit the kernel's contract."""
+    n_buckets = key_lo.shape[0] if key_lo.dim() == 2 else -1
+    n = q_lo.shape[0] if q_lo.dim() == 1 else -1
+    expect = {
+        "key_lo": (key_lo, torch.int32, (n_buckets, BUCKET_KEYS)),
+        "key_hi": (key_hi, torch.int32, (n_buckets, BUCKET_KEYS)),
+        "q_lo": (q_lo, torch.int32, (n,)),
+        "q_hi": (q_hi, torch.int32, (n,)),
+    }
+    if "valid" in more:
+        expect["valid"] = (more["valid"], torch.bool, (n,))
+    if "counts" in more:
+        expect["counts"] = (more["counts"], torch.int32, (n_buckets * BUCKET_KEYS,))
+    for arg, (t, dtype, shape) in expect.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} is {t.dtype}{tuple(t.shape)}, expected {dtype}{shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} is not contiguous")
+        if t.device != key_lo.device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, keys on {key_lo.device}")
+    if n_buckets < 1 or n_buckets & (n_buckets - 1) or n_buckets > _MAX_BUCKETS:
+        raise ValueError(f"{name}: n_buckets={n_buckets} is not a power of two <= 2**29")
+    if not 1 <= max_probe <= MAX_PROBE_HARD:
+        raise ValueError(f"{name}: max_probe={max_probe} outside [1, {MAX_PROBE_HARD}]")
+    if key_lo.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {key_lo.device}")
+
+
+def probe_count(key_lo, key_hi, counts, q_lo, q_hi, valid, max_probe: int,
+                seed: int) -> torch.Tensor:
+    """counts[slot] += 1 for every valid query whose key the table holds;
+    updates ``counts`` in place and returns it."""
+    _check("probe_count", key_lo, key_hi, q_lo, q_hi, max_probe, valid=valid, counts=counts)
+    if counts.device.type == "cpu":
+        return probe_count_reference(key_lo, key_hi, counts, q_lo, q_hi, valid, max_probe, seed)
+    _launch(_COUNT, key_lo, key_hi, q_lo, q_hi, valid, counts, None, max_probe, seed)
+    return counts
+
+
+def probe_slots(key_lo, key_hi, q_lo, q_hi, max_probe: int, seed: int) -> torch.Tensor:
+    """int32[n]: the table slot (bucket * 8 + lane) holding each query's
+    key, or -1."""
+    if key_lo.shape[0] * BUCKET_KEYS > 1 << 31:
+        raise ValueError("probe_slots: a table of more than 2**31 slots has slots past int32")
+    _check("probe_slots", key_lo, key_hi, q_lo, q_hi, max_probe)
+    if key_lo.device.type == "cpu":
+        return probe_slots_reference(key_lo, key_hi, q_lo, q_hi, max_probe, seed)
+    out = torch.empty(q_lo.shape[0], dtype=torch.int32, device=key_lo.device)
+    _launch(_SLOTS, key_lo, key_hi, q_lo, q_hi, None, None, out, max_probe, seed)
+    return out
+
+
+def _launch(mode, key_lo, key_hi, q_lo, q_hi, valid, counts, out, max_probe, seed):
+    """One launch of ``csrc/gather_probe.cu`` on the tensors' device and
+    current stream; raises if the build or the launch fails."""
+    fn = native.library().gather_probe_launch
+    device = key_lo.device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(
+            key_lo.data_ptr(), key_hi.data_ptr(), q_lo.data_ptr(), q_hi.data_ptr(),
+            None if valid is None else valid.data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            None if out is None else out.data_ptr(),
+            q_lo.shape[0], key_lo.shape[0], max_probe, seed & MASK32, mode,
+            device.index, stream,
+        )
+    if rc:
+        raise RuntimeError(f"gather_probe kernel launch failed: {native.error_string(rc)}")
+    launch_counts["gather_probe"] += 1
+
+
+def _twin_slots(key_lo, key_hi, q_lo, q_hi, max_probe: int, seed: int) -> torch.Tensor:
+    """int64 slot per query or -1: ``probe_hits`` in plain torch, a row
+    gather and an 8-lane compare per round."""
+    n_buckets = key_lo.shape[0]
+    m_lo, m_hi = feistel_mix_torch(from_int32_bits(q_lo), from_int32_bits(q_hi), seed)
+    real = ~((m_lo == MASK32) & (m_hi == MASK32))
+    b0 = bucket_from_mlo_torch(m_lo, n_buckets)
+    w_lo, w_hi = to_int32_bits(m_lo)[:, None], to_int32_bits(m_hi)[:, None]
+    bucket = torch.zeros_like(b0)
+    mask = torch.zeros((q_lo.shape[0], BUCKET_KEYS), dtype=torch.bool, device=q_lo.device)
+    for p in range(max_probe):
+        b = chain_next(b0, p, n_buckets)
+        m = (key_lo[b] == w_lo) & (key_hi[b] == w_hi) & real[:, None]
+        # keys are unique in the table: at most one (bucket, lane) matches
+        bucket = torch.where(m.any(dim=1), b, bucket)
+        mask |= m
+    lane = mask.to(torch.uint8).argmax(dim=1)
+    return torch.where(mask.any(dim=1), bucket * BUCKET_KEYS + lane, -1)
+
+
+def probe_count_reference(key_lo, key_hi, counts, q_lo, q_hi, valid, max_probe: int,
+                          seed: int) -> torch.Tensor:
+    """Plain-torch twin of :func:`probe_count` (same contract, same result),
+    adding with wrapping 32-bit arithmetic."""
+    launch_counts["probe_count_reference"] += 1
+    slots = _twin_slots(key_lo, key_hi, q_lo, q_hi, max_probe, seed)
+    slots = slots[valid & (slots >= 0)]
+    if slots.numel():
+        slots, n_hits = torch.unique(slots, return_counts=True)
+        total = (counts[slots].to(torch.int64) & MASK32) + n_hits
+        counts[slots] = to_int32_bits(total & MASK32)
+    return counts
+
+
+def probe_slots_reference(key_lo, key_hi, q_lo, q_hi, max_probe: int,
+                          seed: int) -> torch.Tensor:
+    """Plain-torch twin of :func:`probe_slots`."""
+    launch_counts["probe_slots_reference"] += 1
+    return _twin_slots(key_lo, key_hi, q_lo, q_hi, max_probe, seed).to(torch.int32)

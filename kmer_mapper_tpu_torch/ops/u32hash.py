@@ -53,6 +53,15 @@ def feistel_mix(lo, hi, seed: int = 0):
     return L, R
 
 
+def feistel_unmix(m_lo, m_hi, seed: int = 0):
+    """Inverse of :func:`feistel_mix` (host side: the counter view)."""
+    L, R = m_lo, m_hi
+    for c in reversed(_FEISTEL_ROUNDS):
+        k = np.uint32((c + seed) & MASK32)
+        L, R = R ^ fmix32(L ^ k), L
+    return L, R
+
+
 def bucket_shift(n_buckets: int) -> int:
     """``m_lo >> bucket_shift(n)`` is the bucket id (32 for one bucket)."""
     assert n_buckets & (n_buckets - 1) == 0, "n_buckets must be a power of two"
@@ -74,6 +83,11 @@ def split_u64(kmers: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     lo = (k & np.uint64(MASK32)).astype(np.uint32)
     hi = (k >> np.uint64(32)).astype(np.uint32)
     return lo, hi
+
+
+def join_u64(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """(lo, hi) uint32 word pair -> uint64."""
+    return np.asarray(lo, dtype=np.uint64) | (np.asarray(hi, dtype=np.uint64) << np.uint64(32))
 
 
 # --- torch half: 32-bit words held in int64 -----------------------------------

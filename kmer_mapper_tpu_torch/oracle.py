@@ -1,7 +1,8 @@
 """Pure-numpy semantic core: the bit-exact specification the port is held to.
 
-A copy of the parts of ``kmer_mapper_tpu/oracle.py`` that the mapping path
-and its checks use, pinned identical by ``tests/test_torch_layout.py``.
+A copy of the parts of ``kmer_mapper_tpu/oracle.py`` that the mapping path,
+the library calls and their checks use, pinned identical by
+``tests/test_torch_layout.py`` and ``tests/test_torch_compat.py``.
 Semantics follow the reference implementation (ivargr/kmer_mapper):
 
 * 2-bit encoding A=0 C=1 G=2 T=3; ``N`` is read as ``A``.
@@ -169,3 +170,69 @@ def map_kmers_to_index(
         hit = (index.kmers[pos] == q) & (index.frequencies[pos] <= max_frequency)
         np.add.at(node_counts, index.nodes[pos[hit]], 1)
     return node_counts
+
+
+def in_index(index: KmerIndexArrays, kmers: np.ndarray) -> np.ndarray:
+    """Membership per query (``kmer_mapper/mapper.pyx:81-130``): True iff any
+    bucket entry stores an equal kmer. No frequency filter. Returns uint8[len]."""
+    kmers = np.asarray(kmers, dtype=np.uint64)
+    out = np.zeros(len(kmers), dtype=np.uint8)
+    if len(kmers) == 0:
+        return out
+    h = (kmers % np.uint64(index.modulo)).astype(np.int64)
+    starts = index.hashes_to_index[h].astype(np.int64)
+    lens = index.n_kmers[h].astype(np.int64)
+    max_len = int(lens.max()) if len(lens) else 0
+    for j in range(max_len):
+        live = j < lens
+        pos = starts[live] + j
+        out[live] |= (index.kmers[pos] == kmers[live]).astype(np.uint8)
+    return out
+
+
+def count_unique_kmers(
+    unique_kmers: np.ndarray, query_kmers: np.ndarray, counts: np.ndarray | None = None
+) -> np.ndarray:
+    """Counter semantics (npstructures.Counter / cucounter): count occurrences of
+    each key of ``unique_kmers`` among ``query_kmers``, accumulating into
+    ``counts``. Reference: ``kmer_mapper/gpu_counter.py`` and the
+    CounterKmerIndex path (``command_line_interface.py:46-48``)."""
+    unique_kmers = np.asarray(unique_kmers, dtype=np.uint64)
+    if counts is None:
+        counts = np.zeros(len(unique_kmers), dtype=np.uint32)
+    if len(unique_kmers) == 0 or len(np.asarray(query_kmers)) == 0:
+        return counts
+    order = np.argsort(unique_kmers, kind="stable")
+    sorted_keys = unique_kmers[order]
+    pos = np.searchsorted(sorted_keys, query_kmers)
+    pos = np.minimum(pos, len(sorted_keys) - 1)
+    hit = sorted_keys[pos] == np.asarray(query_kmers, dtype=np.uint64)
+    np.add.at(counts, order[pos[hit]], 1)
+    return counts
+
+
+def node_counts_from_kmer_counts(
+    entry_kmers: np.ndarray,
+    entry_nodes: np.ndarray,
+    unique_kmers: np.ndarray,
+    kmer_counts: np.ndarray,
+    min_nodes: int = 0,
+    entry_frequencies: np.ndarray | None = None,
+    max_frequency: int | None = None,
+) -> np.ndarray:
+    """Distribute per-unique-kmer counts to all index entries carrying that kmer,
+    then bincount by node (``kmer_mapper/gpu_counter.py:26-37``). With
+    ``entry_frequencies``/``max_frequency`` also applies the CPU path's per-entry
+    frequency filter, making the factorized result equal the CPU probe's."""
+    order = np.argsort(unique_kmers, kind="stable")
+    sorted_keys = unique_kmers[order]
+    pos = np.searchsorted(sorted_keys, entry_kmers)
+    pos = np.minimum(pos, len(sorted_keys) - 1)
+    hit = sorted_keys[pos] == np.asarray(entry_kmers, dtype=np.uint64)
+    weights = np.where(hit, kmer_counts[order[pos]], 0).astype(np.float64)
+    if entry_frequencies is not None and max_frequency is not None:
+        weights = np.where(entry_frequencies <= max_frequency, weights, 0.0)
+    out = np.bincount(
+        np.asarray(entry_nodes, dtype=np.int64), weights=weights, minlength=min_nodes + 1
+    )
+    return out.astype(np.uint32)

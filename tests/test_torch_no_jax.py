@@ -1,6 +1,6 @@
-"""The port and ``chip_smoke.py`` import, and the port maps, with jax and
-``kmer_mapper_tpu`` blocked: the machine it runs on has PyTorch and no
-JAX."""
+"""The port and ``chip_smoke.py`` import, and the port maps a file and
+answers the library calls, with jax and ``kmer_mapper_tpu`` blocked: the
+machine it runs on has PyTorch and no JAX."""
 import os
 import subprocess
 import sys
@@ -24,10 +24,13 @@ SCRIPT = textwrap.dedent(
     for script in ("r2_kernel_dissect", "r2_window_dissect", "r3_iter_floor",
                    "r9_dot_orient", "r9_step_parts", "r9_block_pipeline"):
         assert f"kmer_mapper_tpu_torch.scripts.{script}" in names, names
+    for module in ("compat", "mapper", "gpu_counter", "ops.probe", "ops.probe_cases",
+                   "index.pickled"):
+        assert f"kmer_mapper_tpu_torch.{module}" in names, names
     spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert callable(smoke.phase_tiles)
+    assert callable(smoke.phase_tiles) and callable(smoke.phase_library)
     from kmer_mapper_tpu_torch import oracle, pipeline
     from kmer_mapper_tpu_torch.index import kmer_index
 
@@ -43,6 +46,16 @@ SCRIPT = textwrap.dedent(
     got = pipeline.map_file(os.path.join(d, "i.npz"), os.path.join(d, "r.fq"),
                             device="cpu", k=21)
     assert (got == oracle.map_kmers_to_index(arrays, kmers)).all() and got.sum() > 0
+    from kmer_mapper_tpu_torch import gpu_counter, map_kmers_to_graph_index, in_graph_index
+
+    counts = map_kmers_to_graph_index(arrays, arrays.max_node_id(), kmers, device="cpu")
+    assert (counts == got).all()
+    member = in_graph_index(arrays, kmers, device="cpu")
+    assert (member == oracle.in_index(arrays, kmers)).all() and member.any()
+    counter = gpu_counter.GpuCounter.from_kmers_and_nodes(arrays.kmers, arrays.nodes, 21,
+                                                          device="cpu")
+    counter.count(kmers, count_revcomps=True)
+    assert counter.get_node_counts().sum() >= got.sum()
     blocked = ("jax", "jaxlib", "kmer_mapper_tpu")
     assert not [m for m in sys.modules if m.split(".")[0] in blocked and sys.modules[m]]
     print("OK", len(names))
@@ -58,4 +71,4 @@ def test_port_imports_and_maps_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().startswith("OK")
-    assert int(proc.stdout.split()[-1]) >= 15  # every module of the package
+    assert int(proc.stdout.split()[-1]) >= 21  # every module of the package

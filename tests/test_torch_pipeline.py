@@ -152,3 +152,54 @@ def test_cli_map_without_a_gpu_needs_device_cpu(tmp_path, monkeypatch, caplog):
     assert not (tmp_path / "out.npy").exists()
     cli.main(args + ["--device", "cpu"])
     assert np.load(tmp_path / "out.npy").sum() > 0
+
+
+def test_cli_convert_index_then_map(tmp_path):
+    """``convert-index`` writes the prebuilt table; mapping it gives the
+    counts that mapping the reference .npz gives, and the JAX package reads
+    the same file."""
+    rng = np.random.default_rng(23)
+    reads = _reads(rng, 300, [45] * 300, with_n=False)
+    path = tmp_path / "reads.fq"
+    _write(path, reads, "fastq", gz=False)
+    _, expect = _index_npz(rng, reads, 21, tmp_path / "index.npz")
+    cli.main(["convert-index", "-i", str(tmp_path / "index.npz"), "-o", str(tmp_path / "x.tpuidx")])
+    assert (tmp_path / "x.tpuidx.npz").exists()
+    common = ["-f", str(path), "-k", "21", "--device", "cpu"]
+    cli.main(["map", "-i", str(tmp_path / "x.tpuidx.npz"), "-o", str(tmp_path / "a"), *common])
+    cli.main(["map", "-i", str(tmp_path / "index.npz"), "-o", str(tmp_path / "b"), *common])
+    got = np.load(tmp_path / "a.npy")
+    np.testing.assert_array_equal(got, np.load(tmp_path / "b.npy"))
+    np.testing.assert_array_equal(got, expect)
+    ref_cli.main(["map", "-i", str(tmp_path / "x.tpuidx.npz"), "-f", str(path), "-k", "21",
+                  "-o", str(tmp_path / "ref")])
+    np.testing.assert_array_equal(got, np.load(tmp_path / "ref.npy"))
+
+
+def test_cli_map_index_bundle_and_precedence(tmp_path, caplog):
+    """``-b`` maps a bundle's kmer_index; ``-i`` wins where both are given;
+    with neither, map exits non-zero."""
+    import io
+    import zipfile
+
+    rng = np.random.default_rng(24)
+    reads = _reads(rng, 200, [40] * 200, with_n=False)
+    path = tmp_path / "reads.fq"
+    _write(path, reads, "fastq", gz=False)
+    _, expect = _index_npz(rng, reads, 21, tmp_path / "index.npz")
+    with zipfile.ZipFile(tmp_path / "bundle.zip", "w") as zf:
+        zf.writestr("kmer_index.npz", (tmp_path / "index.npz").read_bytes())
+    other = io.BytesIO()
+    ref_ki.save_reference_npz(other, ref_oracle.build_kmer_index(
+        np.arange(5, dtype=np.uint64), np.arange(5, dtype=np.int32), 7))
+    (tmp_path / "other.npz").write_bytes(other.getvalue())
+    common = ["-f", str(path), "-k", "21", "--device", "cpu"]
+    cli.main(["map", "-b", str(tmp_path / "bundle.zip"), "-o", str(tmp_path / "b"), *common])
+    np.testing.assert_array_equal(np.load(tmp_path / "b.npy"), expect)
+    cli.main(["map", "-i", str(tmp_path / "index.npz"), "-b", str(tmp_path / "other.npz"),
+              "-o", str(tmp_path / "ib"), *common])
+    np.testing.assert_array_equal(np.load(tmp_path / "ib.npy"), expect)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["map", "-o", str(tmp_path / "none"), *common])
+    assert exc.value.code == 1
+    assert "Either a kmer index (-i) or an index bundle (-b)" in caplog.text
