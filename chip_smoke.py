@@ -34,7 +34,19 @@ result line):
      the numpy oracle, with the launch counts zeroed before and read after
      (no twin may run); a second call on 2^26 hashes that must reuse the
      cached mapper, timed; the gather kernel against its twins on every
-     hazard case; the device ms of both routes at 2^12 ... 2^24 hashes.
+     hazard case; the device ms of both routes at 2^12 ... 2^24 hashes;
+  9. file feed: the reads of phase 5's 8 chunks written as one FASTQ (~1.1
+     GB), the first chunk's as FASTQ, .fq.gz (zlib level 1) and BGZF, each
+     mapped through ``kmer_mapper_tpu_torch.cli map``: (a) the numpy framer
+     on the one-chunk file, (b) the native loader with -t 1 and (c) with
+     -t 8 and --profile-dir on the 8-chunk file, (f) as (c) without the
+     profiler, (d) the .fq.gz and (e) the BGZF file; every node-count
+     vector must equal a fresh map_chunk pass
+     over the same chunks, stream_count must have launched and its twin not,
+     and the native loader must have framed (b)-(f). Prints each run's wall
+     seconds, bases and k-mers per second, the seconds the mapping loop
+     waited on the host feed and the gzip decoder; from (c)'s trace, the
+     device's busy share of the mapping window.
 The line before the last is a JSON object describing each kernel, with its
 bound: the larger of its bytes over 3.35 TB/s (the H100 SXM's memory rate)
 and its 32-bit integer operations over the card's INT32 rate (SMs x 64
@@ -45,6 +57,7 @@ from __future__ import annotations
 
 import functools
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -375,7 +388,7 @@ def phase_steady_state(torch, np, chunks, index, device) -> dict:
     return {
         "kernel_rates": kernel_rates, "twin_rates": twin_rates, "stage_ms": stage_ms,
         "ms": ms[0], "plain_ms": ms[1], "max_abs_err": max_err,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms": bound_ms, "bound_by": bound_by, "dev_chunks": dev_chunks,
     }
 
 
@@ -859,6 +872,205 @@ def phase_library(torch, np, arrays, rng, device) -> dict:
     }
 
 
+def fastq_bytes(np, chunk, first_id: int) -> bytes:
+    """The chunk's fixed-length reads as FASTQ records of one width:
+    '@' and a 9-digit id, the read, '+', a quality line of 'I'."""
+    n = chunk.n_reads
+    head = 11  # '@', 9 digits, newline
+    rec = np.empty((n, head + 2 * READ_LEN + 4), dtype=np.uint8)
+    rec[:, 0] = ord("@")
+    ids = np.arange(first_id, first_id + n, dtype=np.int64)
+    for d in range(9):
+        rec[:, 9 - d] = ord("0") + (ids // 10**d) % 10
+    rec[:, 10] = ord("\n")
+    rec[:, head : head + READ_LEN] = chunk.bases.reshape(n, READ_LEN)
+    rec[:, head + READ_LEN : head + READ_LEN + 3] = np.frombuffer(b"\n+\n", dtype=np.uint8)
+    rec[:, head + READ_LEN + 3 : -1] = ord("I")
+    rec[:, -1] = ord("\n")
+    return rec.tobytes()
+
+
+def write_bgzf(path, payload: bytes, block_out: int = 60_000, level: int = 6) -> None:
+    """A BGZF file (bgzip's container): independent gzip members of at most
+    ``block_out`` input bytes, each with the BC/BSIZE extra field, then the
+    empty BGZF end-of-file member."""
+    import struct
+    import zlib
+
+    with open(path, "wb") as f:
+        for off in range(0, len(payload), block_out):
+            chunk = payload[off : off + block_out]
+            co = zlib.compressobj(level, zlib.DEFLATED, -15)
+            data = co.compress(chunk) + co.flush()
+            bsize = len(data) + 18 + 8 - 1  # header (12 + 6 extra) + data + crc/isize
+            header = (b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff" + struct.pack("<H", 6)
+                      + b"BC" + struct.pack("<HH", 2, bsize))
+            f.write(header + data + struct.pack("<II", zlib.crc32(chunk),
+                                                len(chunk) & 0xFFFFFFFF))
+        f.write(bytes.fromhex("1f8b08040000000000ff0600424302001b0003000000000000000000"))
+
+
+def trace_busy_share(profile_dir: str) -> tuple[float, float, int]:
+    """(busy share, window ms, stream_count launches) of the torch.profiler
+    trace in ``profile_dir``. The window runs from the first ``map_chunk``
+    region on the host to the end of the last device activity; busy is the
+    union of the kernels, copies and sets on the device inside it."""
+    import glob
+
+    files = glob.glob(os.path.join(profile_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"file feed: expected one trace in {profile_dir}, found {files}")
+    with open(files[0]) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    steps = [float(e["ts"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == "map_chunk"]
+    if not device or not steps:
+        raise AssertionError("file feed: the trace holds no device activity or no map_chunk")
+    start, end = min(steps), max(stop for _, stop in device)
+    busy, cursor = 0.0, start
+    for a, b in device:
+        a, b = max(a, cursor), min(b, end)
+        if b > a:
+            busy += b - a
+            cursor = b
+    launches = sum(1 for e in events
+                   if e.get("cat") == "kernel" and "block_count_kernel" in e.get("name", ""))
+    return busy / (end - start), (end - start) / 1e3, launches
+
+
+class RunFigures(logging.Handler):
+    """Keeps the figures of the latest ``map_file``, read off its timing
+    record (``record.figures``)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.figures = None
+
+    def emit(self, record):
+        if hasattr(record, "figures"):
+            self.figures = record.figures
+
+
+def phase_file_feed(torch, np, chunks, dev_chunks, index, device) -> dict:
+    """The file path as a user runs it: the CLI on FASTQ, .fq.gz and BGZF
+    files of phase 5's reads, each held to a fresh map_chunk pass over the
+    same chunks, with the launch and frame counts zeroed before each run and
+    read after it."""
+    import gzip
+
+    from kmer_mapper_tpu_torch import cli, pipeline
+    from kmer_mapper_tpu_torch.io import gzio, native
+    from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
+    from kmer_mapper_tpu_torch.ops import stream_probe
+    from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_feed_")
+    try:
+        index_path = os.path.join(workdir, "index.tpuidx.npz")
+        index.to_file(index_path)
+        paths = {name: os.path.join(workdir, name) for name in
+                 ("reads8.fq", "reads1.fq", "reads1.fq.gz", "reads1.bgzf.fq.gz")}
+        first_id = 0
+        with open(paths["reads8.fq"], "wb") as f:
+            for i, chunk in enumerate(chunks):
+                payload = fastq_bytes(np, chunk, first_id)
+                first_id += chunk.n_reads
+                f.write(payload)
+                if i == 0:
+                    first = payload
+        with open(paths["reads1.fq"], "wb") as f:
+            f.write(first)
+        with open(paths["reads1.fq.gz"], "wb") as f:
+            f.write(gzip.compress(first, compresslevel=1))
+        write_bgzf(paths["reads1.bgzf.fq.gz"], first, level=1)
+        del first
+        sizes = {name: os.path.getsize(p) for name, p in paths.items()}
+        log(f"file feed: {os.cpu_count()} host cores; wrote {sizes} bytes in "
+            f"{time.perf_counter() - t_phase:.1f} s; "
+            f"gzip decoders: .fq.gz {gzio.decoder_name(paths['reads1.fq.gz'])}, "
+            f"BGZF {gzio.decoder_name(paths['reads1.bgzf.fq.gz'])}")
+
+        config = MapperConfig(k=K, buf=CUDA_BUF, max_reads=max(1024, CUDA_BUF // 32),
+                              read_len=READ_LEN)
+
+        def reference(n_chunks):
+            mapper = KmerMapper(index, config, device)
+            for words, nb, _ in dev_chunks[:n_chunks]:
+                mapper.map_chunk(words, None, nb, strided=True)
+            return mapper.node_counts()
+
+        expect = {1: reference(1), len(dev_chunks): reference(len(dev_chunks))}
+        profile_dir = os.path.join(workdir, "trace")
+        runs = [
+            ("a", "numpy framer, -t 1", "reads1.fq", 1, ["-t", "1"], True),
+            ("b", "native, -t 1", "reads8.fq", len(dev_chunks), ["-t", "1"], False),
+            ("c", "native, -t 8, --profile-dir", "reads8.fq", len(dev_chunks),
+             ["-t", "8", "--profile-dir", profile_dir], False),
+            ("f", "native, -t 8, no profiler", "reads8.fq", len(dev_chunks), ["-t", "8"],
+             False),
+            ("d", ".fq.gz, -t 8", "reads1.fq.gz", 1, ["-t", "8"], False),
+            ("e", "BGZF, -t 8", "reads1.bgzf.fq.gz", 1, ["-t", "8"], False),
+        ]
+        out = {}
+        catch = RunFigures()
+        pipeline_log = logging.getLogger(pipeline.__name__)
+        pipeline_log.addHandler(catch)
+        pipeline_log.setLevel(logging.INFO)
+        for tag, what, name, n_chunks, flags, no_native in runs:
+            catch.figures = None
+            counts_path = os.path.join(workdir, f"counts_{tag}.npy")
+            for key in stream_probe.launch_counts:
+                stream_probe.launch_counts[key] = 0
+            native.frame_counts["buffers"] = 0
+            if no_native:
+                os.environ["KMT_NO_NATIVE"] = "1"
+            try:
+                t = time.perf_counter()
+                cli.main(["map", "-i", index_path, "-f", paths[name], "-k", str(K),
+                          "-o", counts_path, "--device", str(device), *flags])
+                wall = time.perf_counter() - t
+            finally:
+                os.environ.pop("KMT_NO_NATIVE", None)
+            run = dict(catch.figures)
+            launches = dict(stream_probe.launch_counts)
+            framed = native.frame_counts["buffers"]
+            if not np.array_equal(np.load(counts_path), expect[n_chunks]):
+                raise AssertionError(f"file feed ({tag}) {what}: node counts differ from "
+                                     "the map_chunk reference")
+            if launches["stream_count"] < run["chunks"] or launches["stream_count_reference"]:
+                raise AssertionError(f"file feed ({tag}): stream_count did not run alone: "
+                                     f"{launches} for {run['chunks']} chunks")
+            if (framed > 0) == no_native:
+                raise AssertionError(f"file feed ({tag}): the native loader framed {framed} "
+                                     "buffers")
+            decoder = gzio.decoder_name(paths[name]) if name.endswith(".gz") else "none"
+            run.update(wall_s=wall, framed=framed, launches=launches["stream_count"],
+                       decoder=decoder)
+            out[tag] = run
+            log(f"file feed ({tag}) {what}: {sizes[name]} bytes, {run['chunks']} chunks, "
+                f"wall {wall:.3f} s ({run['bases'] / wall / 1e6:.1f} M bases/s, "
+                f"{run['kmers'] / wall / 1e6:.1f} M k-mers/s); mapping loop "
+                f"{run['map_s']:.3f} s ({run['bases'] / run['map_s'] / 1e6:.1f} M bases/s, "
+                f"{run['kmers'] / run['map_s'] / 1e6:.1f} M k-mers/s), waited "
+                f"{run['queue_wait_s']:.3f} s on the host feed; decoder {decoder}; native "
+                f"buffers {framed}; stream_count {launches['stream_count']}; counts == reference")
+        pipeline_log.removeHandler(catch)
+        share, window_ms, traced = trace_busy_share(profile_dir)
+        if traced < out["c"]["chunks"]:
+            raise AssertionError(f"file feed (c): the trace holds {traced} stream_count "
+                                 f"launches for {out['c']['chunks']} chunks")
+        out["c"].update(busy_share=share, window_ms=window_ms)
+        log(f"file feed (c) trace: device busy {100 * share:.1f}% of a {window_ms:.1f} ms "
+            f"mapping window; {traced} stream_count launches traced")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"file feed: phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -889,6 +1101,7 @@ def main() -> int:
     dissect = phase_dissect(torch, np, device)
     tiles = phase_tiles(torch, np, device)
     library = phase_library(torch, np, e2e["arrays"], rng, device)
+    phase_file_feed(torch, np, chunks, steady["dev_chunks"], e2e["index"], device)
     kernels = [{
         "name": "stream_count",
         "route": "cuda",

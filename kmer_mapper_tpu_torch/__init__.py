@@ -1,10 +1,11 @@
 """kmer_mapper_tpu on PyTorch and CUDA.
 
 ``kmer_mapper_tpu`` ported to torch, with its TPU kernels rewritten by hand
-in CUDA C++ for Hopper (``csrc/``): the fixed-read-length file path, the
-pre-hashed library calls and every index form. The package imports torch
-and numpy and never jax or ``kmer_mapper_tpu``; its numpy host layers are
-copies of the JAX package's, held identical to them by
+in CUDA C++ for Hopper (``csrc/``): the file path with its native host
+loader (``native/``, built with g++ at first use), the pre-hashed library
+calls, the reference's entry functions and every index form. The package
+imports torch and numpy and never jax or ``kmer_mapper_tpu``; its numpy
+host layers are copies of the JAX package's, held identical to them by
 ``tests/test_torch_*.py``. Importing it builds nothing: the kernels are
 built with nvcc at their first launch.
 

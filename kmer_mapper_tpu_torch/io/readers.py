@@ -2,15 +2,17 @@
 
 A copy of the numpy paths of ``kmer_mapper_tpu/io/readers.py``: raw bytes
 are read in blocks, records are framed with vectorized newline scans, and a
-partial trailing record is carried into the next block. Gzip input is
-decoded by the standard library's ``gzip`` module. Pinned bit-identical to
-the original by ``tests/test_torch_pipeline.py``.
+partial trailing record is carried into the next block. Gzip input decodes
+through ``io/gzio.py``. Pinned bit-identical to the original by
+``tests/test_torch_pipeline.py``. The native C++ loader (``io/native.py``)
+gives the same buffers in one pass.
 """
 from __future__ import annotations
 
 import dataclasses
-import gzip
 import io
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -69,11 +71,83 @@ def detect_format(path: str, peek: bytes | None = None) -> str:
     raise ValueError(f"cannot determine sequence format of {path}")
 
 
-def open_bytes(path: str) -> io.BufferedIOBase:
-    """Binary stream of the (decompressed) file bytes."""
+def open_bytes(path: str) -> io.RawIOBase:
+    """Binary stream of the (decompressed) file bytes. Gzip input decodes
+    through the best decoder the host has (``io/gzio.py``); a serial decoder
+    runs in its own thread, so decoding overlaps framing and device work."""
     if str(path).endswith(".gz"):
-        return gzip.open(path, "rb")
+        from . import gzio
+
+        stream = gzio.open_gzip(path)
+        if isinstance(stream, gzio.BgzfReader):
+            return stream  # already decodes on a pool
+        return _ThreadedReader(stream)
     return open(path, "rb")
+
+
+def put_unless_stopped(q: queue.Queue, item, stop: threading.Event) -> bool:
+    """Put ``item`` into the bounded queue ``q`` unless ``stop`` is set first
+    (the consumer went away); True if it was put. Every producer thread of
+    the file path puts through this, so none blocks forever on a full queue."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.2)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+class _ThreadedReader(io.RawIOBase):
+    """Reads a source stream in a background thread into a small bounded
+    queue of blocks."""
+
+    _BLOCK = 1 << 20
+    _DEPTH = 8
+
+    def __init__(self, source):
+        self._source = source
+        self._queue: queue.Queue = queue.Queue(maxsize=self._DEPTH)
+        self._stop = threading.Event()
+        self._buf = bytearray()  # in-place head removal; bytes += is quadratic
+        self._done = False
+        self._thread = threading.Thread(target=self._pump, daemon=True)
+        self._thread.start()
+
+    def _pump(self):
+        try:
+            while True:
+                block = self._source.read(self._BLOCK)
+                if not put_unless_stopped(self._queue, block, self._stop) or not block:
+                    return
+        except BaseException as exc:  # re-raised by read()
+            put_unless_stopped(self._queue, exc, self._stop)
+
+    def read(self, n=-1):
+        if n is None or n < 0:
+            raise ValueError("a streaming reader needs bounded reads")
+        while len(self._buf) < n and not self._done:
+            item = self._queue.get()
+            if isinstance(item, BaseException):
+                raise item
+            if not item:
+                self._done = True
+                break
+            self._buf += item
+        out = bytes(self._buf[:n])
+        del self._buf[:n]
+        return out
+
+    def close(self):
+        self._stop.set()
+        self._thread.join()
+        try:
+            self._source.close()
+        finally:
+            super().close()
+
+    def readable(self):
+        return True
 
 
 def _gather_ragged(buf: np.ndarray, starts: np.ndarray, lengths: np.ndarray) -> np.ndarray:
@@ -262,11 +336,19 @@ def restride_packed(
     """Continuous 2-bit packing -> the stride-padded layout of
     ``pack_for_device(read_len=...)``, bit-exactly: read r's bases start at
     bit ``2*read_len*r`` of the continuous stream and move to a word-aligned
-    stride of ``read_stride(read_len)`` bases, padded with 'A' (code 0)."""
+    stride of ``read_stride(read_len)`` bases, padded with 'A' (code 0). The
+    native ``kmh_restride`` does it where the loader library is available,
+    numpy otherwise."""
     stride = read_stride(read_len)
     npr = stride // 16
     R = int(n_reads)
     assert R <= rows
+    if R:
+        from . import native
+
+        out = native.restride_native(packed, R, read_len, rows)
+        if out is not None:
+            return out
     out = np.zeros(rows * npr, dtype=np.uint32)
     if R == 0:
         return out

@@ -125,16 +125,21 @@ class KmerMapper:
         )
 
     def _words(self, packed) -> torch.Tensor:
-        """Packed words (uint32 numpy, or int32 bit patterns already in a
-        tensor) -> int64-held words on the mapper's device."""
+        """Packed words (uint32 numpy, or int32 bit patterns in a tensor on
+        the mapper's device or in page-locked host memory) -> int64-held
+        words on the mapper's device. A page-locked tensor is copied
+        asynchronously: the caller keeps it unchanged until the stream has
+        passed this chunk (``pipeline.PinnedRing``)."""
         if isinstance(packed, np.ndarray):
             if packed.dtype != np.uint32:
                 raise TypeError(f"packed words must be uint32, got {packed.dtype}")
             packed = self._to_device(packed)
+        elif packed.dtype == torch.int32 and packed.device.type == "cpu" and packed.is_pinned():
+            packed = packed.to(self.device, non_blocking=True)
         elif packed.dtype != torch.int32 or packed.device != self.device:
             raise TypeError(
-                f"packed tensor must be int32 on {self.device}, got "
-                f"{packed.dtype} on {packed.device}"
+                f"packed tensor must be int32 on {self.device} or in page-locked "
+                f"host memory, got {packed.dtype} on {packed.device}"
             )
         return from_int32_bits(packed)
 

@@ -1,11 +1,16 @@
 """End-to-end mapping: file -> framed, packed chunks -> device step -> node counts.
 
-The torch counterpart of ``kmer_mapper_tpu/pipeline.py:map_file``. A host
-thread reads, frames and packs fixed-shape buffers while the device maps the
-previous one; the "reduce" is the device-resident count state.
+The torch counterpart of ``kmer_mapper_tpu/pipeline.py``. Host threads read,
+decode, frame and pack fixed-shape buffers (the native C++ loader, else the
+numpy framer; ``reader_workers`` byte regions in parallel) while the device
+maps the previous ones; the "reduce" is the device-resident count state. On
+CUDA the producer stages each buffer in page-locked host memory, so the
+upload in ``KmerMapper.map_chunk`` is asynchronous and the consumer thread
+only enqueues work.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
 import queue
@@ -19,6 +24,9 @@ import torch
 from .index.kmer_index import KmerIndex, load_index
 from .io import readers
 from .models.mapper import KmerMapper, MapperConfig
+from .ops.hashing import read_stride
+from .utils import profiling
+from .utils.timing import log_memory_usage_now, span
 
 logger = logging.getLogger(__name__)
 
@@ -32,17 +40,11 @@ CPU_BUF_FLOOR = 1 << 16
 def _producer(chunk_iter: Iterator, out_queue: queue.Queue, stop: threading.Event):
     try:
         for item in chunk_iter:
-            while not stop.is_set():
-                try:
-                    out_queue.put(item, timeout=0.2)
-                    break
-                except queue.Full:
-                    continue
-            if stop.is_set():
+            if not readers.put_unless_stopped(out_queue, item, stop):
                 return
-        out_queue.put(None)
+        readers.put_unless_stopped(out_queue, None, stop)
     except BaseException as exc:  # re-raised on the consumer side
-        out_queue.put(exc)
+        readers.put_unless_stopped(out_queue, exc, stop)
 
 
 def prefetch(iterator: Iterator, depth: int = 4) -> Iterator:
@@ -63,6 +65,47 @@ def prefetch(iterator: Iterator, depth: int = 4) -> Iterator:
         stop.set()
 
 
+class PinnedRing:
+    """Page-locked host buffers that packed chunks are staged in on their way
+    to the card. A buffer goes back to the ring with a CUDA event recorded
+    on ``device``'s current stream once the chunk's work (its upload first)
+    was enqueued there; the producer waits on that event before it writes
+    the buffer again. The event goes on the mapper's device whatever the
+    thread's current device is: one recorded elsewhere would complete before
+    the upload it guards."""
+
+    def __init__(self, n_buffers: int, n_words: int, device: torch.device):
+        self.device = device
+        self._free: queue.Queue = queue.Queue()
+        for _ in range(n_buffers):
+            self._free.put((torch.empty(n_words, dtype=torch.int32, pin_memory=True), None))
+
+    def staged(self, packed_iter: Iterable) -> Iterator[tuple]:
+        """(buffer, chunk) pairs: each chunk with its packed words copied into
+        a free page-locked buffer (the chunk's first element is then a view
+        of it). Runs in the producer thread."""
+        for packed, *rest in packed_iter:
+            buf, event = self._free.get()
+            if buf is None:  # closed
+                return
+            if event is not None:
+                event.synchronize()
+            view = buf[: len(packed)]
+            view.numpy()[:] = packed.view(np.int32)
+            yield buf, (view, *rest)
+
+    def release(self, buf: torch.Tensor) -> None:
+        """Return ``buf`` after its chunk's work was enqueued on the device's
+        current stream. Runs in the consumer thread."""
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self._free.put((buf, event))
+
+    def close(self) -> None:
+        """Wake a producer waiting for a buffer; it stops."""
+        self._free.put((None, None))
+
+
 def map_file(
     index: KmerIndex | str,
     reads_path: str,
@@ -73,41 +116,101 @@ def map_file(
     max_frequency: int = 1000,
     map_reverse_complements: bool = False,
     queue_depth: int = 4,
+    strict_bases: bool = False,
+    profile_dir: str | None = None,
+    reader_workers: int = 1,
 ) -> np.ndarray:
     """Map all k-mers of a FASTA/FASTQ(.gz) file against the index on
-    ``device``; returns the per-node hit counts (uint32[max_node_id+1])."""
+    ``device``; returns the per-node hit counts (uint32[max_node_id+1]).
+
+    With ``strict_bases`` any non-ACGTN base raises (the reference's
+    bionumpy DNAEncoding does); by default such bases encode as A with a
+    warning. ``profile_dir`` writes a ``torch.profiler`` trace of the
+    mapping loop there, one ``map_chunk`` region per chunk.
+    ``reader_workers`` frames an uncompressed file in that many byte regions
+    in parallel (the reference's ``-t``; ``io/parallel_reader.py``).
+
+    The mapping loop's figures (chunks, bases, k-mers, its seconds and the
+    seconds it waited on the host feed) ride on the INFO record of its
+    timing line as ``record.figures``."""
     t_start = time.perf_counter()
+    device = torch.device(device)
     index = load_index(index)
     mapper, packed = make_mapper_and_chunks(
         index, reads_path, k=k, chunk_size=chunk_size,
         map_reverse_complements=map_reverse_complements, device=device,
+        reader_workers=reader_workers,
     )
-    t_map = time.perf_counter()
-    n_chunks = 0
-    for packed_codes, lengths, n_bases, _, n_invalid, strided in prefetch(
-        packed, depth=queue_depth
-    ):
-        mapper.map_chunk(packed_codes, lengths, n_bases, n_invalid, strided=strided)
-        n_chunks += 1
-        if n_chunks % 200 == 0:
-            logger.info("chunk %d", n_chunks)
-    n_kmers = mapper.n_kmers_mapped  # waits for the last chunk's step
+    ring = None
+    if device.type == "cuda":
+        ring = PinnedRing(queue_depth + 2, _max_words(mapper.config), mapper.device)
+        feed = ring.staged(packed)
+    else:
+        feed = ((None, chunk) for chunk in packed)
+    n_chunks = n_bases_total = 0
+    waited = 0.0
+    chunks = prefetch(feed, depth=queue_depth)
+    try:
+        with profiling.trace(profile_dir) if profile_dir else contextlib.nullcontext():
+            t_map = time.perf_counter()  # after the profiler started
+            while True:
+                t0 = time.perf_counter()
+                item = next(chunks, None)
+                waited += time.perf_counter() - t0
+                if item is None:
+                    break
+                buf, (packed_codes, lengths, n_bases, _, n_invalid, strided) = item
+                if strict_bases and n_invalid:
+                    raise ValueError(
+                        f"{n_invalid} invalid (non-ACGTN) bases in input "
+                        "(--strict-bases; the reference's DNAEncoding would raise too)"
+                    )
+                with profiling.step_annotation("map_chunk") if profile_dir else (
+                        contextlib.nullcontext()):
+                    mapper.map_chunk(packed_codes, lengths, n_bases, n_invalid, strided=strided)
+                if buf is not None:
+                    ring.release(buf)
+                n_chunks += 1
+                n_bases_total += n_bases
+                if n_chunks % 200 == 0:
+                    logger.info("chunk %d", n_chunks)
+            n_kmers = mapper.n_kmers_mapped  # waits for the last chunk's step
+            if device.type == "cuda":
+                torch.cuda.synchronize(mapper.device)
+            map_s = time.perf_counter() - t_map  # before the trace is written
+    finally:
+        chunks.close()
+        if ring is not None:
+            ring.close()
+    figures = dict(chunks=n_chunks, bases=n_bases_total, kmers=n_kmers, map_s=map_s,
+                   queue_wait_s=waited)
     logger.info(
-        "Time spent only on hashing and counting hashes: %.4f",
-        time.perf_counter() - t_map,
+        "Time spent only on hashing and counting hashes: %.4f (waited %.4f on the "
+        "host feed)", map_s, waited, extra={"figures": figures},
     )
     if mapper.n_invalid_bases:
         logger.warning(
             "%d invalid (non-ACGTN) bases were encoded as A", mapper.n_invalid_bases
         )
-    slot_counts = mapper.slot_counts()
-    node_counts = index.node_counts(slot_counts, max_frequency=max_frequency)
+    with span("node count finalization", logging.INFO):
+        slot_counts = mapper.slot_counts()
+        node_counts = index.node_counts(slot_counts, max_frequency=max_frequency)
+    log_memory_usage_now("after mapping")
     n_hits = int(slot_counts.sum(dtype=np.uint64))
     logger.info(
         "Mapped %d kmers (%d index hits) from %d chunks on %s in %.3f sec total",
         n_kmers, n_hits, n_chunks, mapper.device, time.perf_counter() - t_start,
     )
     return node_counts
+
+
+def _max_words(config: MapperConfig) -> int:
+    """Words of the largest packed buffer the config's chunks can have."""
+    words = config.buf // 16 + 2
+    if config.read_len:
+        rows = readers.strided_rows(config.buf, config.read_len)
+        words = max(words, rows * (read_stride(config.read_len) // 16))
+    return words
 
 
 def make_mapper_and_chunks(
@@ -117,6 +220,7 @@ def make_mapper_and_chunks(
     chunk_size: int,
     map_reverse_complements: bool,
     device,
+    reader_workers: int = 1,
 ) -> tuple[KmerMapper, Iterable]:
     """The device mapper plus the packed host chunk iterator.
 
@@ -138,7 +242,9 @@ def make_mapper_and_chunks(
         )
 
     rl_hint = _peek_read_len(reads_path, k)
-    chunks = iter(packed_chunk_iterator(reads_path, make_config(rl_hint), chunk_size))
+    chunks = iter(packed_chunk_iterator(
+        reads_path, make_config(rl_hint), chunk_size, reader_workers
+    ))
     first = next(chunks, None)
     mapper = KmerMapper(
         index, make_config(rl_hint or _detect_read_len(first, k)), device
@@ -154,7 +260,7 @@ def _strided_chunks(packed_iter, config: MapperConfig):
     layout on the way."""
     rows = readers.strided_rows(config.buf, config.read_len) if config.read_len else 0
     for tup in packed_iter:
-        if len(tup) == 6:  # pack_for_device(read_len=...) already decided
+        if len(tup) == 6:  # the packer was given read_len and already decided
             yield tup
             continue
         packed, lengths, n_bases, n_reads, n_invalid = tup
@@ -178,17 +284,78 @@ def _chunk_is_fixed(lengths, n_bases, read_len: int) -> bool:
     return bool(np.all(lengths[:n] == read_len)) and not np.any(lengths[n:])
 
 
-def packed_chunk_iterator(reads_path: str, config: MapperConfig, chunk_size: int):
-    """Framed and packed device buffers of a reads file (numpy framer)."""
+def packed_chunk_iterator(
+    reads_path: str, config: MapperConfig, chunk_size: int, reader_workers: int = 1
+):
+    """Framed and packed device buffers of a reads file: the native C++
+    loader where it is available (``io/native.py``), else the numpy framer;
+    both give the same buffers.
+
+    ``reader_workers > 1`` frames an uncompressed file as up to that many
+    byte regions in parallel (``io/parallel_reader.py``), each of at least
+    two bytes per base of the device buffer, about one buffer of FASTQ:
+    every region ends in a partly filled buffer, which costs the device a
+    whole step, so a file of about one buffer stays one region. Chunk
+    boundaries then
+    differ from a sequential read's, but every buffer maps on its own and
+    counts add, so node counts are the same. Gzipped input stays sequential
+    (a gzip stream cannot seek; BGZF decodes on several cores anyway)."""
+    from .io import native
+
     fmt = readers.detect_format(reads_path)
-    stream = readers.open_bytes(reads_path)
-    try:
-        chunks = readers.read_chunks(stream, fmt=fmt, min_chunk_size=chunk_size)
-        yield from readers.pack_for_device(
-            chunks, config.buf, config.max_reads, config.k, read_len=config.read_len
+
+    def stream_iter(stream):
+        if native.available():
+            yield from native.pack_stream_native(
+                stream, fmt, config.buf, config.max_reads, config.k,
+                block_bytes=chunk_size, read_len=config.read_len,
+            )
+            return
+        try:
+            chunks = readers.read_chunks(stream, fmt=fmt, min_chunk_size=chunk_size)
+            yield from readers.pack_for_device(
+                chunks, config.buf, config.max_reads, config.k, read_len=config.read_len
+            )
+        finally:
+            stream.close()
+
+    if reader_workers > 1 and not str(reads_path).endswith(".gz"):
+        from .io import parallel_reader
+
+        return parallel_reader.parallel_packed_iterator(
+            reads_path, fmt,
+            lambda region: stream_iter(parallel_reader.RangeReader(reads_path, *region)),
+            reader_workers,
+            min_region=2 * config.buf,
         )
-    finally:
-        stream.close()
+    return stream_iter(readers.open_bytes(reads_path))
+
+
+def map_sequences(
+    index: KmerIndex | str,
+    sequences: list[str],
+    k: int = 31,
+    max_frequency: int = 1000,
+    *,
+    device,
+    revcomp: bool = False,
+) -> np.ndarray:
+    """Map in-memory sequences on ``device``; returns the per-node hit counts
+    (``kmer_mapper_tpu.pipeline.map_sequences``)."""
+    index = load_index(index)
+    flat = "".join(sequences)
+    chunk = readers.SequenceChunk(
+        bases=np.frombuffer(flat.encode(), dtype=np.uint8),
+        read_starts=np.cumsum([0] + [len(s) for s in sequences[:-1]]).astype(np.int64),
+    )
+    buf = _round_up(max(len(flat), 1 << 10), 1 << 10)
+    config = MapperConfig(k=k, buf=buf, max_reads=max(16, len(sequences)), revcomp=revcomp)
+    mapper = KmerMapper(index, config, device)
+    for packed, lengths, n_bases, _, n_invalid in readers.pack_for_device(
+        iter([chunk]), config.buf, config.max_reads, config.k
+    ):
+        mapper.map_chunk(packed, lengths, n_bases, n_invalid)
+    return mapper.node_counts(max_frequency=max_frequency)
 
 
 def _detect_read_len(first_chunk, k: int) -> int:

@@ -116,10 +116,20 @@ def test_kernel_slots_past_2_31(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("workers", [1, 4])
 @pytest.mark.parametrize("kind", ["fixed_fastq", "ragged_fasta_gz", "fixed_revcomp"])
-def test_map_file_on_cuda_matches_oracle(kind, cuda_device, tmp_path):
+def test_map_file_on_cuda_matches_oracle(kind, workers, cuda_device, tmp_path):
     """The file path on the GPU: the plane step, the ragged step and
-    revcomp all reach the kernel and give the oracle's node counts."""
+    revcomp all reach the kernel and give the oracle's node counts, with
+    one framing worker and with four (a file this small stays one region;
+    buffers staged in page-locked host memory either way)."""
+    got, want = _map_file_case(kind, workers, cuda_device, tmp_path)
+    np.testing.assert_array_equal(got, want)
+
+
+def _map_file_case(kind, workers, device, tmp_path):
+    """Node counts of ``pipeline.map_file`` on ``device`` for one file kind,
+    and the oracle's."""
     import gzip
 
     from kmer_mapper_tpu_torch import oracle, pipeline
@@ -145,8 +155,63 @@ def test_map_file_on_cuda_matches_oracle(kind, cuda_device, tmp_path):
     kmer_index.save_reference_npz(tmp_path / "index.npz", arrays)
     before = stream_probe.launch_counts["stream_count"]
     got = pipeline.map_file(
-        str(tmp_path / "index.npz"), str(path), device=cuda_device, k=k,
-        map_reverse_complements=revcomp,
+        str(tmp_path / "index.npz"), str(path), device=device, k=k,
+        map_reverse_complements=revcomp, reader_workers=workers,
     )
     assert stream_probe.launch_counts["stream_count"] > before
-    np.testing.assert_array_equal(got, oracle.map_kmers_to_index(arrays, kmers))
+    return got, oracle.map_kmers_to_index(arrays, kmers)
+
+
+def _two_devices():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+
+
+@pytest.mark.cuda
+def test_pinned_ring_event_waits_on_the_mappers_device():
+    """With another device current, the ring's event still follows the
+    mapper's stream: it is pending while that stream is busy. One recorded
+    on the idle current device would complete at once and let the producer
+    overwrite a buffer whose upload is still queued."""
+    from kmer_mapper_tpu_torch import pipeline
+
+    _two_devices()
+    mapper_device = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        ring = pipeline.PinnedRing(1, 1024, mapper_device)
+        buf, _ = ring._free.get()
+        with torch.cuda.device(mapper_device):
+            torch.cuda._sleep(1 << 30)  # about half a second of the mapper's stream
+        ring.release(buf)
+        _, event = ring._free.get()
+        assert not event.query()
+        event.synchronize()
+        assert event.query()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fixed_fastq", "ragged_fasta_gz"])
+def test_map_file_on_a_device_that_is_not_current(kind, tmp_path):
+    _two_devices()
+    with torch.cuda.device(0):
+        got, want = _map_file_case(kind, 1, torch.device("cuda", 1), tmp_path)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_pinned_ring_records_on_the_mappers_stream(monkeypatch):
+    """The ring records its event on the current stream of the mapper's
+    device, not of the thread's current device (no card needed: the CUDA
+    calls are stood in for)."""
+    from kmer_mapper_tpu_torch import pipeline
+
+    recorded = []
+
+    class Event:
+        def record(self, stream=None):
+            recorded.append(stream)
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: ("stream", device))
+    ring = pipeline.PinnedRing(0, 16, torch.device("cuda", 1))
+    ring.release(torch.zeros(16, dtype=torch.int32))
+    assert recorded == [("stream", torch.device("cuda", 1))]

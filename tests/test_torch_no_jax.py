@@ -25,12 +25,15 @@ SCRIPT = textwrap.dedent(
                    "r9_dot_orient", "r9_step_parts", "r9_block_pipeline"):
         assert f"kmer_mapper_tpu_torch.scripts.{script}" in names, names
     for module in ("compat", "mapper", "gpu_counter", "ops.probe", "ops.probe_cases",
-                   "index.pickled"):
+                   "index.pickled", "io.native", "io.gzio", "io.parallel_reader",
+                   "command_line_interface", "util", "encodings", "tools",
+                   "utils.timing", "utils.profiling"):
         assert f"kmer_mapper_tpu_torch.{module}" in names, names
     spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     assert callable(smoke.phase_tiles) and callable(smoke.phase_library)
+    assert callable(smoke.phase_file_feed)
     from kmer_mapper_tpu_torch import oracle, pipeline
     from kmer_mapper_tpu_torch.index import kmer_index
 
@@ -46,6 +49,25 @@ SCRIPT = textwrap.dedent(
     got = pipeline.map_file(os.path.join(d, "i.npz"), os.path.join(d, "r.fq"),
                             device="cpu", k=21)
     assert (got == oracle.map_kmers_to_index(arrays, kmers)).all() and got.sum() > 0
+    # the native loader over two byte regions, and a BGZF file
+    from kmer_mapper_tpu_torch.io import gzio, native, parallel_reader
+    assert native.available()
+    big = os.path.join(d, "r2.fq")  # ~290 KB: two regions of 64 K-base buffers
+    with open(big, "w") as f:
+        f.write("".join(f"@{i}\\n{s}\\n+\\n{'I' * 40}\\n" for i, s in enumerate(reads * 64)))
+    before = native.frame_counts["buffers"]
+    got2 = pipeline.map_file(os.path.join(d, "i.npz"), big, device="cpu", k=21,
+                             chunk_size=1 << 12, reader_workers=2)
+    assert len(parallel_reader.split_regions(
+        big, "fastq", 2, min_region=2 * pipeline.CPU_BUF_FLOOR)) == 2
+    assert native.frame_counts["buffers"] >= before + 2
+    assert (got2 == 64 * got).all()
+    payload = open(os.path.join(d, "r.fq"), "rb").read()
+    smoke.write_bgzf(os.path.join(d, "r.fq.gz"), payload, block_out=1000)
+    assert gzio.is_bgzf(os.path.join(d, "r.fq.gz"))
+    got3 = pipeline.map_file(os.path.join(d, "i.npz"), os.path.join(d, "r.fq.gz"),
+                             device="cpu", k=21)
+    assert (got3 == got).all()
     from kmer_mapper_tpu_torch import gpu_counter, map_kmers_to_graph_index, in_graph_index
 
     counts = map_kmers_to_graph_index(arrays, arrays.max_node_id(), kmers, device="cpu")
