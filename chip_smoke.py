@@ -8,14 +8,20 @@ result line):
   1. environment: torch, CUDA, the card's name and power limit, nvcc;
   2. build the CUDA kernels from kmer_mapper_tpu_torch/csrc with nvcc;
   3. the stream-count kernel against its plain-torch twin and the host
-     oracle on every hazard case of its contract (exact equality);
+     oracle on every hazard case of its contract, and the two hash-key
+     kernels (plane and ragged) against theirs on every case of
+     ops/hash_keys_cases.py (exact equality, the keys in the same order);
   4. the main path as a user runs it: ``kmer_mapper_tpu_torch.cli map`` on
      a FASTQ of 10^5 151-bp reads against the bench index (~2.6M unique
      31-mers in 2^20 buckets); node counts must equal the numpy oracle's
-     modulo-index probe, and the kernel must have run;
+     modulo-index probe, and the plane hash-key kernel and the count kernel
+     must have run (no twin);
   5. steady state on 8 distinct device-resident 64 Mi-base chunks of 151-bp
      reads: k-mers per second through KmerMapper.map_chunk and through the
-     same stages with the plain twin, per-stage milliseconds, equal counts;
+     same stages with the plain twins, per-stage milliseconds (hash keys,
+     sort, offsets, count), equal counts, one chunk's node counts == the
+     oracle's; then the ragged step the same way on the same bases cut into
+     reads of 100-151 bp (8 chunks, each one continuous buffer);
   6. dissect: the three dissection scripts of kmer_mapper_tpu_torch.scripts
      run as a user runs them, at their full sizes (their kernels must have
      launched); then every variant of each kernel against its twin, bit for
@@ -40,10 +46,11 @@ result line):
      mapped through ``kmer_mapper_tpu_torch.cli map``: (a) the numpy framer
      on the one-chunk file, (b) the native loader with -t 1 and (c) with
      -t 8 and --profile-dir on the 8-chunk file, (f) as (c) without the
-     profiler, (d) the .fq.gz and (e) the BGZF file; every node-count
-     vector must equal a fresh map_chunk pass
-     over the same chunks, stream_count must have launched and its twin not,
-     and the native loader must have framed (b)-(f). Prints each run's wall
+     profiler, (d) the .fq.gz and (e) the BGZF file, and (g) the first
+     ragged chunk's reads as FASTQ; every node-count vector must equal a
+     fresh map_chunk pass over the same chunks, stream_count and the hash-key
+     kernel of the run's step must have launched and no twin, and the
+     native loader must have framed (b)-(g). Prints each run's wall
      seconds, bases and k-mers per second, the seconds the mapping loop
      waited on the host feed and the gzip decoder; from (c)'s trace, the
      device's busy share of the mapping window.
@@ -81,6 +88,12 @@ LIB_TIMED = 1 << 26  # hashes of the timed map_kmers_to_graph_index call
 LIB_GATHER = 1 << 16  # a map_hashes batch on the gather route
 LIB_COUNTER = 1 << 22  # hashes counted by GpuCounter (and their revcomps)
 CROSSOVER = [1 << e for e in range(12, 25, 2)]  # batch sizes timed on both routes
+RAGGED_MIN, RAGGED_MAX = 100, 151  # read lengths of the ragged steady state
+#: INT32 operations a forward key of the hash-key kernels, counted from
+#: csrc/hash_keys.cu: the window (2 funnel shifts, 2 masks), the Feistel mix
+#: (3 rounds of fmix32's 3 shifts, 3 xors and 2 multiplies plus 2 xors), the
+#: key's xor and the store's address and loop (about 4)
+HASH_OPS = 40
 
 
 def log(msg: str) -> None:
@@ -201,6 +214,53 @@ def phase_hazards(torch, device) -> int:
     return max_err
 
 
+def key_err(a, b) -> int:
+    """Largest |a - b| over two int64 key tensors of one shape, exactly."""
+    if a.shape != b.shape:
+        raise AssertionError(f"key tensors of shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    bad = (a != b).nonzero().squeeze(1)[:4096]
+    return max((abs(x - y) for x, y in zip(a[bad].tolist(), b[bad].tolist())), default=0)
+
+
+def phase_hash_hazards(torch, np, device) -> dict:
+    """Each hash-key kernel against its twin (the same keys in the same
+    order) and the host oracle (sorted) on every case of
+    ops/hash_keys_cases.py; returns the largest absolute difference between
+    kernel and twin keys per kernel (must be 0)."""
+    from kmer_mapper_tpu_torch.ops import hash_keys_cases, hashing
+
+    max_err = {"plane_hash_keys": 0, "ragged_hash_keys": 0}
+    n_cases = dict.fromkeys(max_err, 0)
+    n_keys = dict.fromkeys(max_err, 0)
+    t = time.perf_counter()
+    for case in hash_keys_cases.cases():
+        name = "ragged_hash_keys" if case.ragged else "plane_hash_keys"
+        got = getattr(hashing, name)(*case.inputs(device))
+        twin = getattr(hashing, f"{name}_reference")(*case.inputs(device))
+        err = key_err(got, twin)
+        max_err[name] = max(max_err[name], err)
+        if err or not np.array_equal(np.sort(got.cpu().numpy()), case.expected_keys()):
+            raise AssertionError(f"hash hazard {case.name}: kernel, twin and oracle disagree")
+        n_cases[name] += 1
+        n_keys[name] += got.numel()
+    log(f"hash hazards: {n_cases} cases ({n_keys} keys), kernel == twin (same order) == "
+        f"oracle (sorted) in {time.perf_counter() - t:.1f} s")
+    return max_err
+
+
+def hash_bound(n_read_bytes: int, n_keys: int) -> tuple[float, str]:
+    """A hash-key kernel's bound without reverse complements: its inputs
+    read once, its 8-byte keys written once, HASH_OPS INT32 operations a
+    key."""
+    return bound(n_read_bytes + 8 * n_keys, HASH_OPS * n_keys)
+
+
+def zero_launch_counts(*modules) -> None:
+    for m in modules:
+        for name in m.launch_counts:
+            m.launch_counts[name] = 0
+
+
 def make_chunks(np, rng, n_chunks: int, n_reads: int):
     """Random 151-bp reads, as framed SequenceChunks."""
     from kmer_mapper_tpu_torch.io.readers import SequenceChunk
@@ -228,7 +288,7 @@ def phase_end_to_end(torch, np, chunk0, rng, workdir) -> dict:
     from kmer_mapper_tpu_torch import cli, oracle
     from kmer_mapper_tpu_torch.index import kmer_index
     from kmer_mapper_tpu_torch.io import readers
-    from kmer_mapper_tpu_torch.ops import stream_probe
+    from kmer_mapper_tpu_torch.ops import hashing, stream_probe
     from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
 
     t = time.perf_counter()
@@ -250,32 +310,83 @@ def phase_end_to_end(torch, np, chunk0, rng, workdir) -> dict:
         f"written in {time.perf_counter() - t:.1f} s")
 
     out = os.path.join(workdir, "counts.npy")
-    for name in stream_probe.launch_counts:
-        stream_probe.launch_counts[name] = 0
+    zero_launch_counts(stream_probe, hashing)
     t = time.perf_counter()
     cli.main(["map", "-i", index_path, "-f", fq, "-k", str(K), "-o", out])
     seconds = time.perf_counter() - t
-    launches = dict(stream_probe.launch_counts)
+    launches = {**stream_probe.launch_counts, **hashing.launch_counts}
     got = np.load(out)
 
     n_chunks = -(-E2E_READS // readers.strided_rows(CUDA_BUF, READ_LEN))
-    if launches["stream_count"] < n_chunks or launches["stream_count_reference"]:
-        raise AssertionError(f"main path did not run the kernel: {launches}")
+    twins = [name for name, n in launches.items() if "reference" in name and n]
+    if (launches["stream_count"] < n_chunks or launches["plane_hash_keys"] < n_chunks
+            or launches["ragged_hash_keys"] or twins):
+        raise AssertionError(f"main path did not run the kernels alone: {launches}")
     expect = oracle.map_kmers_to_index(arrays, fixed_read_kmers(np, reads.reshape(-1)))
     if not np.array_equal(got, expect):
         raise AssertionError("e2e: CLI node counts differ from the numpy oracle")
     log(f"e2e: cli map on {torch.cuda.get_device_name(0)} in {seconds:.2f} s "
         f"(index build included); {int(got.sum())} node hits == oracle; "
         f"launches {launches}")
-    return {"launches": launches["stream_count"], "arrays": arrays,
+    return {"launches": launches["stream_count"],
+            "hash_launches": launches["plane_hash_keys"], "arrays": arrays,
             "index": kmer_index.KmerIndex.from_arrays(arrays)}
 
 
-def phase_steady_state(torch, np, chunks, index, device) -> dict:
+def timed_rates(torch, fn, kmers_per_window: int) -> list[float]:
+    """k-mers per second of N_WINDOWS calls of ``fn`` after a warm-up call,
+    host clock around work that ends in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(N_WINDOWS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        rates.append(kmers_per_window / (time.perf_counter() - t0))
+    return rates
+
+
+def stage_split(torch, dev_chunks, stages) -> dict:
+    """Mean device ms a chunk of each stage, CUDA events around each; a
+    stage takes and returns the state of the chunk's step."""
+    stage_ms = dict.fromkeys((name for name, _ in stages), 0.0)
+    for chunk in dev_chunks:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+        ev[0].record()
+        state = chunk
+        for i, (_, fn) in enumerate(stages):
+            state = fn(state)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(stage_ms):
+            stage_ms[name] += ev[i].elapsed_time(ev[i + 1]) / len(dev_chunks)
+    return stage_ms
+
+
+def oracle_check(np, index, arrays, config, device, packed_chunk, kmers, what):
+    """One chunk (words, lengths, n_bases) through a fresh mapper: node
+    counts == the oracle's on its k-mers."""
+    from kmer_mapper_tpu_torch import oracle
+    from kmer_mapper_tpu_torch.models.mapper import KmerMapper
+
+    t = time.perf_counter()
+    mapper = KmerMapper(index, config, device)
+    words, lengths, n_bases = packed_chunk
+    mapper.map_chunk(words, lengths, n_bases, strided=bool(config.read_len))
+    got = mapper.node_counts()
+    expect = oracle.map_kmers_to_index(arrays, kmers)
+    if not np.array_equal(got, expect):
+        raise AssertionError(f"{what}: one chunk's node counts differ from the oracle's")
+    log(f"{what}: chunk 0 ({len(kmers)} k-mers, {int(got.sum())} node hits) == oracle "
+        f"in {time.perf_counter() - t:.1f} s")
+
+
+def phase_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     from kmer_mapper_tpu_torch.io import readers
     from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
     from kmer_mapper_tpu_torch.ops import hashing, stream_probe
-    from kmer_mapper_tpu_torch.ops.u32hash import bucket_shift, from_int32_bits
+    from kmer_mapper_tpu_torch.ops.u32hash import bucket_shift
     from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
 
     config = MapperConfig(
@@ -293,6 +404,7 @@ def phase_steady_state(torch, np, chunks, index, device) -> dict:
     log(f"steady: {len(chunks)} chunks of {n_bases} bases packed and moved in "
         f"{time.perf_counter() - t:.1f} s")
     kmers_per_chunk = n_reads * (READ_LEN - K + 1)
+    seed = index.table.seed
 
     mapper = KmerMapper(index, config, device)
     n_buckets = index.table.n_buckets
@@ -303,11 +415,9 @@ def phase_steady_state(torch, np, chunks, index, device) -> dict:
             mapper.map_chunk(words, None, nb, strided=True)
 
     def sorted_queries(words, n_reads):
-        """The plain stages before the count: hash + mix, sort, offsets."""
-        m_lo, m_hi = hashing.plane_hash_mixed(
-            from_int32_bits(words), K, READ_LEN, n_reads, index.table.seed
-        )
-        keys = stream_probe.sort_mixed(m_lo, m_hi)
+        """The plain stages before the count: the hash twin, sort, offsets."""
+        keys = torch.sort(hashing.plane_hash_keys_reference(
+            words, K, READ_LEN, n_reads, seed)).values
         return keys, stream_probe.count_offsets(keys, n_buckets, bpb)
 
     twin_counts = torch.zeros_like(mapper.counts)
@@ -320,57 +430,52 @@ def phase_steady_state(torch, np, chunks, index, device) -> dict:
                 mapper.block_probe, shift, bpb,
             )
 
-    def rate(fn):
-        fn()  # warm-up window
-        torch.cuda.synchronize()
-        rates = []
-        for _ in range(N_WINDOWS):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            rates.append(kmers_per_chunk * len(dev_chunks) / (time.perf_counter() - t0))
-        return rates
-
-    kernel_rates = rate(run_mapper)
-    twin_rates = rate(run_twin)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(hashing, stream_probe)
+    kernel_rates = timed_rates(torch, run_mapper, kmers_per_chunk * len(dev_chunks))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**hashing.launch_counts, **stream_probe.launch_counts}
+    twin_rates = timed_rates(torch, run_twin, kmers_per_chunk * len(dev_chunks))
     # both ran 1 + N_WINDOWS windows over the same chunks from zero counts
     if not torch.equal(mapper.counts, twin_counts):
         raise AssertionError("steady: kernel path and twin path counts differ")
+    n_steps = (1 + N_WINDOWS) * len(dev_chunks)
+    if (launches["plane_hash_keys"] != n_steps or launches["stream_count"] != n_steps
+            or launches["ragged_hash_keys"]
+            or any(n for name, n in launches.items() if "reference" in name)):
+        raise AssertionError(f"steady: map_chunk did not run the kernels alone: {launches}")
     if not int(mapper.counts.ne(0).sum()):
         raise AssertionError("steady: no table hits at all")
     log(f"steady: kernel path {[f'{r / 1e6:.1f}' for r in kernel_rates]} Mk/s, "
         f"twin path {[f'{r / 1e6:.1f}' for r in twin_rates]} Mk/s "
-        f"({len(dev_chunks)} chunks x {kmers_per_chunk} k-mers per window); counts equal")
+        f"({len(dev_chunks)} chunks x {kmers_per_chunk} k-mers per window); counts equal; "
+        f"peak device memory {peak / 2**30:.2f} GiB in the kernel path's windows; "
+        f"launches {launches}")
+    words0, nb0, nr0 = dev_chunks[0]
+    oracle_check(np, index, arrays, config, device, (words0, None, nb0),
+                 fixed_read_kmers(np, chunks[0].bases), "steady")
 
     # per-stage device time over one window, CUDA events around each stage
-    names = ("hash_mix", "sort", "offsets", "kernel", "twin_count")
-    stage_ms = {n: 0.0 for n in names}
     scratch = torch.zeros_like(mapper.counts)
-    for words, _, nr in dev_chunks:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        ev[0].record()
-        m_lo, m_hi = hashing.plane_hash_mixed(
-            from_int32_bits(words), K, READ_LEN, nr, index.table.seed
-        )
-        ev[1].record()
-        keys = stream_probe.sort_mixed(m_lo, m_hi)
-        ev[2].record()
-        off = stream_probe.count_offsets(keys, n_buckets, bpb)
-        ev[3].record()
-        count_args = (mapper.key_lo, mapper.key_hi, scratch, keys, off,
-                      mapper.block_probe, shift, bpb)
-        stream_probe.stream_count(*count_args)
-        ev[4].record()
-        stream_probe.stream_count_reference(*count_args)
-        ev[5].record()
-        torch.cuda.synchronize()
-        for i, n in enumerate(names):
-            stage_ms[n] += ev[i].elapsed_time(ev[i + 1]) / len(dev_chunks)
+
+    def count(state, fn):
+        keys, off = state
+        fn(mapper.key_lo, mapper.key_hi, scratch, keys, off, mapper.block_probe, shift, bpb)
+        return state
+
+    stage_ms = stage_split(torch, dev_chunks, [
+        ("hash_keys", lambda c: hashing.plane_hash_keys(c[0], K, READ_LEN, c[2], seed)),
+        ("sort", lambda keys: torch.sort(keys).values),
+        ("offsets", lambda keys: (keys, stream_probe.count_offsets(keys, n_buckets, bpb))),
+        ("kernel", lambda st: count(st, stream_probe.stream_count)),
+        ("twin_count", lambda st: count(st, stream_probe.stream_count_reference)),
+    ])
     log("steady: per-chunk stage ms " + ", ".join(f"{n} {v:.3f}" for n, v in stage_ms.items()))
 
     # kernel vs twin alone on one chunk's sorted keys: the result from
     # fresh counts, then the median device time of 5 calls (median_ms)
-    keys, off = sorted_queries(dev_chunks[0][0], dev_chunks[0][2])
+    keys, off = sorted_queries(words0, nr0)
     outs, ms = [], []
     for fn in (stream_probe.stream_count, stream_probe.stream_count_reference):
         c = torch.zeros_like(mapper.counts)
@@ -385,11 +490,163 @@ def phase_steady_state(torch, np, chunks, index, device) -> dict:
         index.table.max_probe, int(outs[0].ne(0).sum()))
     log(f"steady: stream_count on {keys.numel()} queries: kernel {ms[0]:.3f} ms, "
         f"twin {ms[1]:.3f} ms (median of 5); bound {bound_ms:.4f} ms by {bound_by}")
+
+    # the plane hash-key kernel alone on one chunk, against its twin
+    hash_args = (words0, K, READ_LEN, nr0, seed)
+    got = hashing.plane_hash_keys(*hash_args)
+    hash_err = key_err(got, hashing.plane_hash_keys_reference(*hash_args))
+    if hash_err:
+        raise AssertionError("steady: plane_hash_keys and its twin disagree on one chunk")
+    hash_ms = median_ms(lambda: hashing.plane_hash_keys(*hash_args))
+    hash_plain_ms = median_ms(lambda: hashing.plane_hash_keys_reference(*hash_args), reps=3)
+    npr = hashing.read_stride(READ_LEN) // 16
+    hash_bound_ms, hash_bound_by = hash_bound(4 * nr0 * npr, got.numel())
+    log(f"steady: plane_hash_keys on {nr0} reads ({got.numel()} keys): kernel {hash_ms:.4f} "
+        f"ms, twin {hash_plain_ms:.3f} ms; bound {hash_bound_ms:.4f} ms by {hash_bound_by}")
+    del got, keys
     return {
         "kernel_rates": kernel_rates, "twin_rates": twin_rates, "stage_ms": stage_ms,
         "ms": ms[0], "plain_ms": ms[1], "max_abs_err": max_err,
         "bound_ms": bound_ms, "bound_by": bound_by, "dev_chunks": dev_chunks,
+        "hash": {"ms": hash_ms, "plain_ms": hash_plain_ms, "max_abs_err": hash_err,
+                 "bound_ms": hash_bound_ms, "bound_by": hash_bound_by},
     }
+
+
+def ragged_chunks(np, rng, chunks):
+    """Phase 5's bases cut into reads of RAGGED_MIN..RAGGED_MAX bp: the
+    whole reads that fit in each chunk's bases."""
+    from kmer_mapper_tpu_torch.io.readers import SequenceChunk
+
+    out = []
+    for chunk in chunks:
+        lengths = rng.integers(RAGGED_MIN, RAGGED_MAX + 1, chunk.n_bases // RAGGED_MIN + 1)
+        lengths = lengths[: np.searchsorted(np.cumsum(lengths), chunk.n_bases, side="right")]
+        starts = np.cumsum(lengths) - lengths
+        out.append(SequenceChunk(bases=chunk.bases[: int(lengths.sum())], read_starts=starts))
+    return out
+
+
+def ragged_read_kmers(np, chunk):
+    """Oracle k-mer hashes of a chunk's ragged reads: the oracle's hash of
+    the whole stream at the windows that end inside their read."""
+    from kmer_mapper_tpu_torch import oracle
+
+    h = oracle.kmer_hashes(oracle.encode_bytes(chunk.bases), K)
+    n_win = np.maximum(chunk.read_lengths - K + 1, 0)
+    first = np.cumsum(n_win) - n_win
+    t = np.arange(int(n_win.sum())) - np.repeat(first, n_win)
+    return h[np.repeat(chunk.read_starts, n_win) + t]
+
+
+def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
+    """The ragged step at full size: ``chunks`` (reads of 100-151 bp) packed
+    continuously into 64 Mi-base buffers, words and the lengths of their
+    reads on the device, through KmerMapper.map_chunk and through the same
+    stages with the plain twins, equal counts; one chunk's node counts
+    against the oracle; the stage split and the ragged hash-key kernel
+    against its twin."""
+    from kmer_mapper_tpu_torch.io import readers
+    from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
+    from kmer_mapper_tpu_torch.ops import hashing, stream_probe
+    from kmer_mapper_tpu_torch.ops.u32hash import bucket_shift
+    from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
+
+    config = MapperConfig(k=K, buf=CUDA_BUF, max_reads=max(1024, CUDA_BUF // 32))
+    t = time.perf_counter()
+    dev_chunks = []
+    n_kmers = 0
+    for chunk in chunks:
+        (packed, lengths, n_bases, n_reads, _), = readers.pack_for_device(
+            iter([chunk]), config.buf, config.max_reads, K)
+        dev_chunks.append((torch.from_numpy(packed.view(np.int32)).to(device),
+                           torch.from_numpy(lengths[:n_reads].astype(np.int32)).to(device),
+                           n_bases))
+        n_kmers += int(np.maximum(lengths.astype(np.int64) - K + 1, 0).sum())
+    log(f"ragged: {len(chunks)} chunks of {RAGGED_MIN}-{RAGGED_MAX} bp reads (chunk 0: "
+        f"{chunks[0].n_reads} reads, {chunks[0].n_bases} bases) packed and moved in "
+        f"{time.perf_counter() - t:.1f} s")
+    seed = index.table.seed
+    mapper = KmerMapper(index, config, device)
+    n_buckets = index.table.n_buckets
+    shift, bpb = bucket_shift(n_buckets), min(128, n_buckets)
+
+    def run_mapper():
+        for words, lengths, nb in dev_chunks:
+            mapper.map_chunk(words, lengths, nb)
+
+    twin_counts = torch.zeros_like(mapper.counts)
+
+    def run_twin():
+        for words, lengths, nb in dev_chunks:
+            keys = torch.sort(hashing.ragged_hash_keys_reference(words, lengths, nb, K,
+                                                                 seed)).values
+            stream_probe.stream_count_reference(
+                mapper.key_lo, mapper.key_hi, twin_counts, keys,
+                stream_probe.count_offsets(keys, n_buckets, bpb), mapper.block_probe, shift,
+                bpb)
+
+    zero_launch_counts(hashing, stream_probe)
+    kernel_rates = timed_rates(torch, run_mapper, n_kmers)
+    launches = {**hashing.launch_counts, **stream_probe.launch_counts}
+    twin_rates = timed_rates(torch, run_twin, n_kmers)
+    if not torch.equal(mapper.counts, twin_counts):
+        raise AssertionError("ragged: kernel path and twin path counts differ")
+    n_steps = (1 + N_WINDOWS) * len(dev_chunks)
+    if (launches["ragged_hash_keys"] != n_steps or launches["stream_count"] != n_steps
+            or launches["plane_hash_keys"]
+            or any(n for name, n in launches.items() if "reference" in name)):
+        raise AssertionError(f"ragged: map_chunk did not run the kernels alone: {launches}")
+    ms_chunk = [n_kmers / r / len(dev_chunks) * 1e3 for r in kernel_rates]
+    log(f"ragged: kernel path {[f'{r / 1e6:.1f}' for r in kernel_rates]} Mk/s "
+        f"({[f'{m:.3f}' for m in ms_chunk]} ms a chunk), twin path "
+        f"{[f'{r / 1e6:.1f}' for r in twin_rates]} Mk/s ({len(dev_chunks)} chunks, "
+        f"{n_kmers} k-mers a window); counts equal; launches {launches}")
+    words0, lengths0, nb0 = dev_chunks[0]
+    oracle_check(np, index, arrays, config, device, dev_chunks[0],
+                 ragged_read_kmers(np, chunks[0]), "ragged")
+
+    scratch = torch.zeros_like(mapper.counts)
+
+    def offsets(chunk):
+        words, lengths, _ = chunk
+        starts, offs = hashing.ragged_offsets(lengths, K)
+        return words, starts, offs, int(offs[-1])
+
+    def count(keys, fn):
+        off = stream_probe.count_offsets(keys, n_buckets, bpb)
+        fn(mapper.key_lo, mapper.key_hi, scratch, keys, off, mapper.block_probe, shift, bpb)
+        return keys
+
+    stage_ms = stage_split(torch, dev_chunks, [
+        ("offsets_and_sync", offsets),
+        ("hash_keys", lambda st: hashing._ragged_launch(*st, K, seed, False)),
+        ("sort", lambda keys: torch.sort(keys).values),
+        ("count_offsets_and_kernel", lambda keys: count(keys, stream_probe.stream_count)),
+    ])
+    log("ragged: per-chunk stage ms " + ", ".join(f"{n} {v:.3f}" for n, v in stage_ms.items()))
+
+    # the ragged hash-key kernel alone on one chunk (offsets made once),
+    # against its twin
+    words0, starts, offs, n_valid = offsets(dev_chunks[0])
+    got = hashing.ragged_hash_keys(words0, lengths0, nb0, K, seed)
+    twin_args = (words0, lengths0, nb0, K, seed)
+    hash_err = key_err(got, hashing.ragged_hash_keys_reference(*twin_args))
+    if hash_err or got.numel() != n_valid:
+        raise AssertionError("ragged: ragged_hash_keys and its twin disagree on one chunk")
+    hash_ms = median_ms(lambda: hashing._ragged_launch(words0, starts, offs, n_valid, K, seed,
+                                                       False))
+    wrapper_ms = median_ms(lambda: hashing.ragged_hash_keys(*twin_args))
+    plain_ms = median_ms(lambda: hashing.ragged_hash_keys_reference(*twin_args), reps=3)
+    # the function's inputs: the words and one int32 length a read
+    bound_ms, bound_by = hash_bound(4 * (words0.numel() + lengths0.numel()), got.numel())
+    log(f"ragged: ragged_hash_keys on {chunks[0].n_reads} reads ({got.numel()} keys): kernel "
+        f"{hash_ms:.4f} ms, with offsets and sync {wrapper_ms:.4f} ms, twin {plain_ms:.3f} ms; "
+        f"bound {bound_ms:.4f} ms by {bound_by}")
+    del got
+    return {"kernel_rates": kernel_rates, "ms_chunk": ms_chunk, "dev_chunks": dev_chunks,
+            "hash": {"ms": hash_ms, "plain_ms": plain_ms, "max_abs_err": hash_err,
+                     "bound_ms": bound_ms, "bound_by": bound_by}}
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -953,17 +1210,26 @@ class RunFigures(logging.Handler):
             self.figures = record.figures
 
 
-def phase_file_feed(torch, np, chunks, dev_chunks, index, device) -> dict:
+def ragged_fastq_bytes(np, chunk) -> bytes:
+    """A chunk's reads of any length as FASTQ: '@r' and an id, the read,
+    '+', a quality line of 'I'."""
+    ends = chunk.read_starts + chunk.read_lengths
+    return b"".join(b"@r%d\n%s\n+\n%s\n" % (i, chunk.bases[s:e].tobytes(), b"I" * (e - s))
+                    for i, (s, e) in enumerate(zip(chunk.read_starts, ends)))
+
+
+def phase_file_feed(torch, np, chunks, dev_chunks, ragged, index, device) -> dict:
     """The file path as a user runs it: the CLI on FASTQ, .fq.gz and BGZF
-    files of phase 5's reads, each held to a fresh map_chunk pass over the
-    same chunks, with the launch and frame counts zeroed before each run and
-    read after it."""
+    files of phase 5's reads and on a FASTQ of the first ragged chunk's
+    reads (``ragged``: its SequenceChunk and device chunk), each held to a
+    fresh map_chunk pass over the same chunks, with the launch and frame
+    counts zeroed before each run and read after it."""
     import gzip
 
     from kmer_mapper_tpu_torch import cli, pipeline
     from kmer_mapper_tpu_torch.io import gzio, native
     from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
-    from kmer_mapper_tpu_torch.ops import stream_probe
+    from kmer_mapper_tpu_torch.ops import hashing, stream_probe
     from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
 
     t_phase = time.perf_counter()
@@ -972,7 +1238,8 @@ def phase_file_feed(torch, np, chunks, dev_chunks, index, device) -> dict:
         index_path = os.path.join(workdir, "index.tpuidx.npz")
         index.to_file(index_path)
         paths = {name: os.path.join(workdir, name) for name in
-                 ("reads8.fq", "reads1.fq", "reads1.fq.gz", "reads1.bgzf.fq.gz")}
+                 ("reads8.fq", "reads1.fq", "reads1.fq.gz", "reads1.bgzf.fq.gz",
+                  "ragged1.fq")}
         first_id = 0
         with open(paths["reads8.fq"], "wb") as f:
             for i, chunk in enumerate(chunks):
@@ -987,6 +1254,9 @@ def phase_file_feed(torch, np, chunks, dev_chunks, index, device) -> dict:
             f.write(gzip.compress(first, compresslevel=1))
         write_bgzf(paths["reads1.bgzf.fq.gz"], first, level=1)
         del first
+        ragged_chunk, ragged_dev = ragged
+        with open(paths["ragged1.fq"], "wb") as f:
+            f.write(ragged_fastq_bytes(np, ragged_chunk))
         sizes = {name: os.path.getsize(p) for name, p in paths.items()}
         log(f"file feed: {os.cpu_count()} host cores; wrote {sizes} bytes in "
             f"{time.perf_counter() - t_phase:.1f} s; "
@@ -1002,28 +1272,33 @@ def phase_file_feed(torch, np, chunks, dev_chunks, index, device) -> dict:
                 mapper.map_chunk(words, None, nb, strided=True)
             return mapper.node_counts()
 
-        expect = {1: reference(1), len(dev_chunks): reference(len(dev_chunks))}
+        ragged_mapper = KmerMapper(index, MapperConfig(k=K, buf=CUDA_BUF,
+                                                       max_reads=config.max_reads), device)
+        ragged_mapper.map_chunk(*ragged_dev)
+        expect = {"one": reference(1), "all": reference(len(dev_chunks)),
+                  "ragged": ragged_mapper.node_counts()}
         profile_dir = os.path.join(workdir, "trace")
+        # tag, what, file, expected counts, flags, numpy framer, the step's kernel
         runs = [
-            ("a", "numpy framer, -t 1", "reads1.fq", 1, ["-t", "1"], True),
-            ("b", "native, -t 1", "reads8.fq", len(dev_chunks), ["-t", "1"], False),
-            ("c", "native, -t 8, --profile-dir", "reads8.fq", len(dev_chunks),
-             ["-t", "8", "--profile-dir", profile_dir], False),
-            ("f", "native, -t 8, no profiler", "reads8.fq", len(dev_chunks), ["-t", "8"],
-             False),
-            ("d", ".fq.gz, -t 8", "reads1.fq.gz", 1, ["-t", "8"], False),
-            ("e", "BGZF, -t 8", "reads1.bgzf.fq.gz", 1, ["-t", "8"], False),
+            ("a", "numpy framer, -t 1", "reads1.fq", "one", ["-t", "1"], True, "plane"),
+            ("b", "native, -t 1", "reads8.fq", "all", ["-t", "1"], False, "plane"),
+            ("c", "native, -t 8, --profile-dir", "reads8.fq", "all",
+             ["-t", "8", "--profile-dir", profile_dir], False, "plane"),
+            ("f", "native, -t 8, no profiler", "reads8.fq", "all", ["-t", "8"], False,
+             "plane"),
+            ("d", ".fq.gz, -t 8", "reads1.fq.gz", "one", ["-t", "8"], False, "plane"),
+            ("e", "BGZF, -t 8", "reads1.bgzf.fq.gz", "one", ["-t", "8"], False, "plane"),
+            ("g", "ragged FASTQ, -t 8", "ragged1.fq", "ragged", ["-t", "8"], False, "ragged"),
         ]
         out = {}
         catch = RunFigures()
         pipeline_log = logging.getLogger(pipeline.__name__)
         pipeline_log.addHandler(catch)
         pipeline_log.setLevel(logging.INFO)
-        for tag, what, name, n_chunks, flags, no_native in runs:
+        for tag, what, name, expect_key, flags, no_native, step in runs:
             catch.figures = None
             counts_path = os.path.join(workdir, f"counts_{tag}.npy")
-            for key in stream_probe.launch_counts:
-                stream_probe.launch_counts[key] = 0
+            zero_launch_counts(stream_probe, hashing)
             native.frame_counts["buffers"] = 0
             if no_native:
                 os.environ["KMT_NO_NATIVE"] = "1"
@@ -1035,20 +1310,24 @@ def phase_file_feed(torch, np, chunks, dev_chunks, index, device) -> dict:
             finally:
                 os.environ.pop("KMT_NO_NATIVE", None)
             run = dict(catch.figures)
-            launches = dict(stream_probe.launch_counts)
+            launches = {**stream_probe.launch_counts, **hashing.launch_counts}
             framed = native.frame_counts["buffers"]
-            if not np.array_equal(np.load(counts_path), expect[n_chunks]):
+            if not np.array_equal(np.load(counts_path), expect[expect_key]):
                 raise AssertionError(f"file feed ({tag}) {what}: node counts differ from "
                                      "the map_chunk reference")
-            if launches["stream_count"] < run["chunks"] or launches["stream_count_reference"]:
-                raise AssertionError(f"file feed ({tag}): stream_count did not run alone: "
+            other = "ragged" if step == "plane" else "plane"
+            if (launches["stream_count"] < run["chunks"]
+                    or launches[f"{step}_hash_keys"] < run["chunks"]
+                    or launches[f"{other}_hash_keys"]
+                    or any(n for key, n in launches.items() if "reference" in key)):
+                raise AssertionError(f"file feed ({tag}): the kernels did not run alone: "
                                      f"{launches} for {run['chunks']} chunks")
             if (framed > 0) == no_native:
                 raise AssertionError(f"file feed ({tag}): the native loader framed {framed} "
                                      "buffers")
             decoder = gzio.decoder_name(paths[name]) if name.endswith(".gz") else "none"
             run.update(wall_s=wall, framed=framed, launches=launches["stream_count"],
-                       decoder=decoder)
+                       hash_launches=launches[f"{step}_hash_keys"], decoder=decoder)
             out[tag] = run
             log(f"file feed ({tag}) {what}: {sizes[name]} bytes, {run['chunks']} chunks, "
                 f"wall {wall:.3f} s ({run['bases'] / wall / 1e6:.1f} M bases/s, "
@@ -1056,7 +1335,8 @@ def phase_file_feed(torch, np, chunks, dev_chunks, index, device) -> dict:
                 f"{run['map_s']:.3f} s ({run['bases'] / run['map_s'] / 1e6:.1f} M bases/s, "
                 f"{run['kmers'] / run['map_s'] / 1e6:.1f} M k-mers/s), waited "
                 f"{run['queue_wait_s']:.3f} s on the host feed; decoder {decoder}; native "
-                f"buffers {framed}; stream_count {launches['stream_count']}; counts == reference")
+                f"buffers {framed}; stream_count {launches['stream_count']}, {step}_hash_keys "
+                f"{launches[f'{step}_hash_keys']}; counts == reference")
         pipeline_log.removeHandler(catch)
         share, window_ms, traced = trace_busy_share(profile_dir)
         if traced < out["c"]["chunks"]:
@@ -1084,6 +1364,7 @@ def main() -> int:
     phase_build()
     log("tolerance: every comparison is exact integer equality (max_abs_err 0)")
     max_err = phase_hazards(torch, device)
+    hash_err = phase_hash_hazards(torch, np, device)
     rng = np.random.default_rng(0)
     from kmer_mapper_tpu_torch.io.readers import strided_rows
     from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
@@ -1094,14 +1375,28 @@ def main() -> int:
         e2e = phase_end_to_end(torch, np, chunks[0], rng, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    steady = phase_steady_state(torch, np, chunks, e2e["index"], device)
+    steady = phase_steady_state(torch, np, chunks, e2e["index"], e2e["arrays"], device)
     log(f"summary on {smi}: kernel path median "
         f"{sorted(steady['kernel_rates'])[N_WINDOWS // 2] / 1e6:.1f} Mk/s, twin path median "
         f"{sorted(steady['twin_rates'])[N_WINDOWS // 2] / 1e6:.1f} Mk/s")
+    ragged_reads = ragged_chunks(np, rng, chunks)
+    ragged = phase_ragged_steady_state(torch, np, ragged_reads, e2e["index"], e2e["arrays"],
+                                       device)
     dissect = phase_dissect(torch, np, device)
     tiles = phase_tiles(torch, np, device)
     library = phase_library(torch, np, e2e["arrays"], rng, device)
-    phase_file_feed(torch, np, chunks, steady["dev_chunks"], e2e["index"], device)
+    feed = phase_file_feed(torch, np, chunks, steady["dev_chunks"],
+                           (ragged_reads[0], ragged["dev_chunks"][0]), e2e["index"], device)
+    hash_keys = [
+        dict(name="plane_hash_keys", replaces="kmer_mapper_tpu/ops/hashing.py:82 (XLA)",
+             launches=e2e["hash_launches"], **steady["hash"]),
+        dict(name="ragged_hash_keys", replaces="kmer_mapper_tpu/ops/hashing.py:41 (XLA)",
+             launches=feed["g"]["hash_launches"], **ragged["hash"]),
+    ]
+    for entry in hash_keys:
+        entry.update(route="cuda", source="kmer_mapper_tpu_torch/csrc/hash_keys.cu",
+                     max_abs_err=max(entry["max_abs_err"], hash_err[entry["name"]]),
+                     library_ms=None)  # no single PyTorch call hashes, mixes and keys
     kernels = [{
         "name": "stream_count",
         "route": "cuda",
@@ -1114,7 +1409,7 @@ def main() -> int:
         "bound_ms": steady["bound_ms"],
         "bound_by": steady["bound_by"],
         "library_ms": None,  # no single PyTorch call counts slot hits
-    }, *dissect, *tiles, library]
+    }, *hash_keys, *dissect, *tiles, library]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -31,6 +31,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "u32mix.cuh"
+
 namespace {
 
 constexpr int kBucketKeys = 8;
@@ -42,31 +44,14 @@ constexpr uint32_t kEmpty = 0xFFFFFFFFu;
 
 enum Mode : int { kCount = 0, kSlots = 1 };
 
-// murmur3 finalizer (u32hash.fmix32)
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
 // The slot of the key equal to raw query (lo, hi), or -1.
 __device__ __forceinline__ int64_t find_slot(const uint4* __restrict__ key_lo,
                                              const uint32_t* __restrict__ key_hi,
                                              uint32_t lo, uint32_t hi, int shift,
                                              uint32_t mask, int max_probe,
                                              uint32_t seed) {
-  // u32hash.feistel_mix: (L, R) <- (R, L ^ fmix32(R ^ (c + seed)))
-  const uint32_t rounds[3] = {0x9E3779B9u, 0x85EBCA6Bu, 0xC2B2AE35u};
   uint32_t L = lo, R = hi;
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    const uint32_t t = L ^ fmix32(R ^ (rounds[r] + seed));
-    L = R;
-    R = t;
-  }
+  kmt_mix::feistel_mix(L, R, seed);
   if (L == kEmpty && R == kEmpty) return -1;
   // shifting a 32-bit word by 32 is undefined: one bucket holds every key
   const uint32_t b0 = shift >= 32 ? 0u : L >> shift;

@@ -1,11 +1,13 @@
 """The mapper: a device-resident table and count state fed one packed chunk
 at a time. The torch counterpart of ``kmer_mapper_tpu/models/mapper.py``.
 
-    stride-padded packed reads -> plane hash + Feistel mix -> sort
-        -> chain-block offsets -> stream-count kernel -> slot counts
+    stride-padded packed reads -> hash-key kernel (plane hash + Feistel mix
+        + sort key of each valid window) -> sort -> chain-block offsets
+        -> stream-count kernel -> slot counts
 
-Chunks whose reads are not all ``read_len`` long take the ragged step
-(rolling hash + read-boundary window mask), which gives identical counts.
+Chunks whose reads are not all ``read_len`` long take the ragged step (the
+ragged hash-key kernel: the windows that lie in one read), which gives
+identical counts.
 Pre-hashed uint64 k-mers (the library calls) take :meth:`KmerMapper.map_hashes`
 and :meth:`KmerMapper.in_index`:
 
@@ -48,37 +50,29 @@ class MapperConfig:
 
 
 def chunk_step(key_lo, key_hi, counts, packed, lengths, n_bases: int, *,
-               config: MapperConfig, seed: int, block_probe) -> torch.Tensor:
+               config: MapperConfig, seed: int, block_probe) -> int:
     """Ragged step over a continuously packed chunk: folds the chunk's hits
-    into ``counts`` in place and returns its valid-window count (a device
-    scalar). ``packed`` is int64-held words[buf // 16 + 2], ``lengths``
-    int64[max_reads] with zero padding."""
-    k = config.k
-    lo, hi = hashing.rolling_kmer_hash_packed(packed, k)
-    starts = torch.cumsum(lengths, 0) - lengths
-    valid = hashing.window_mask(starts, n_bases, k, config.buf)
-    n_valid = valid.sum()
-    if config.revcomp:
-        rlo, rhi = hashing.revcomp_lo_hi(lo, hi, k)
-        lo, hi = torch.cat([lo, rlo]), torch.cat([hi, rhi])
-        valid = torch.cat([valid, valid])
-    stream_probe.stream_probe_count(
-        key_lo, key_hi, counts, lo, hi, valid, seed, block_probe
+    into ``counts`` in place and returns its valid-window count. ``packed``
+    is int32 words[buf // 16 + 2], ``lengths`` the int32 lengths of the
+    chunk's reads (zero padding after them is allowed, and scanned), both on
+    the table's device."""
+    keys = hashing.ragged_hash_keys(
+        packed, lengths, n_bases, config.k, seed, revcomp=config.revcomp
     )
-    return n_valid
+    stream_probe.stream_probe_count_keys(key_lo, key_hi, counts, keys, block_probe)
+    return keys.shape[0] // (2 if config.revcomp else 1)
 
 
 def plane_chunk_step(key_lo, key_hi, counts, packed, n_reads: int, *,
                      config: MapperConfig, seed: int, block_probe) -> int:
     """Fixed-read-length step over stride-padded packing
-    (``pack_for_device(read_len=L)``): folds the hits into ``counts`` in
-    place and returns the valid-window count."""
-    m_lo, m_hi = hashing.plane_hash_mixed(
+    (``pack_for_device(read_len=L)``, int32 words on the table's device):
+    folds the hits of the first ``n_reads`` rows into ``counts`` in place
+    and returns the valid-window count."""
+    keys = hashing.plane_hash_keys(
         packed, config.k, config.read_len, n_reads, seed, revcomp=config.revcomp
     )
-    stream_probe.stream_probe_count_mixed(
-        key_lo, key_hi, counts, m_lo, m_hi, block_probe
-    )
+    stream_probe.stream_probe_count_keys(key_lo, key_hi, counts, keys, block_probe)
     return n_reads * (config.read_len - config.k + 1)
 
 
@@ -124,24 +118,34 @@ class KmerMapper:
             self.device
         )
 
+    def _staged(self, x: torch.Tensor, what: str) -> torch.Tensor:
+        """An int32 tensor on the mapper's device, or in page-locked host
+        memory and then copied asynchronously: the caller keeps it unchanged
+        until the stream has passed this chunk (``pipeline.PinnedRing``)."""
+        if x.dtype == torch.int32 and x.device.type == "cpu" and x.is_pinned():
+            return x.to(self.device, non_blocking=True)
+        if x.dtype != torch.int32 or x.device != self.device:
+            raise TypeError(
+                f"{what} tensor must be int32 on {self.device} or in page-locked "
+                f"host memory, got {x.dtype} on {x.device}"
+            )
+        return x
+
     def _words(self, packed) -> torch.Tensor:
-        """Packed words (uint32 numpy, or int32 bit patterns in a tensor on
-        the mapper's device or in page-locked host memory) -> int64-held
-        words on the mapper's device. A page-locked tensor is copied
-        asynchronously: the caller keeps it unchanged until the stream has
-        passed this chunk (``pipeline.PinnedRing``)."""
+        """Packed words (uint32 numpy, or int32 bit patterns in a tensor, see
+        :meth:`_staged`) -> int32 bit patterns on the mapper's device."""
         if isinstance(packed, np.ndarray):
             if packed.dtype != np.uint32:
                 raise TypeError(f"packed words must be uint32, got {packed.dtype}")
-            packed = self._to_device(packed)
-        elif packed.dtype == torch.int32 and packed.device.type == "cpu" and packed.is_pinned():
-            packed = packed.to(self.device, non_blocking=True)
-        elif packed.dtype != torch.int32 or packed.device != self.device:
-            raise TypeError(
-                f"packed tensor must be int32 on {self.device} or in page-locked "
-                f"host memory, got {packed.dtype} on {packed.device}"
-            )
-        return from_int32_bits(packed)
+            return self._to_device(packed)
+        return self._staged(packed, "packed")
+
+    def _lengths(self, lengths) -> torch.Tensor:
+        """Read lengths (a numpy integer array, or an int32 tensor, see
+        :meth:`_staged`) -> int32 on the mapper's device."""
+        if isinstance(lengths, np.ndarray):
+            return torch.from_numpy(np.ascontiguousarray(lengths, np.int32)).to(self.device)
+        return self._staged(lengths, "lengths")
 
     def map_chunk(self, packed, lengths, n_bases: int, n_invalid: int = 0,
                   strided: bool = False) -> None:
@@ -150,7 +154,9 @@ class KmerMapper:
         ``strided=True`` marks a buffer from ``pack_for_device(...,
         read_len=L)`` in the stride-padded layout (every read exactly
         ``config.read_len`` long): it takes the plane step. Continuous
-        buffers take the ragged step."""
+        buffers take the ragged step, which reads ``lengths``: pass those of
+        the chunk's ``n_reads`` reads (``lengths[:n_reads]``); zero padding
+        after them gives the same counts but costs a scan of the padding."""
         self.n_invalid_bases += n_invalid
         words = self._words(packed)
         table = self.index.table
@@ -162,7 +168,7 @@ class KmerMapper:
             n_reads = n_bases // self.config.read_len
             self._stats.append(plane_chunk_step(*step_args, n_reads, **step_kw))
             return
-        lengths = torch.from_numpy(np.asarray(lengths, dtype=np.int64)).to(self.device)
+        lengths = self._lengths(lengths)
         self._stats.append(chunk_step(*step_args, lengths, n_bases, **step_kw))
 
     def _hash_pieces(self, kmers):

@@ -110,6 +110,17 @@ def library() -> ctypes.CDLL:
                                  ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
     lib.gather_probe_launch.restype = ctypes.c_int
+    lib.plane_hash_keys_launch.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+        + [ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.ragged_hash_keys_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    for fn in (lib.plane_hash_keys_launch, lib.ragged_hash_keys_launch):
+        fn.restype = ctypes.c_int
     # the dissection kernels of kmer_mapper_tpu_torch/scripts; each takes its
     # variant as an int
     lib.r2_kernel_dissect_launch.argtypes = (

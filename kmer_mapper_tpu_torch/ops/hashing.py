@@ -10,13 +10,35 @@ reference's, first base least significant:
 
 Packed input is one continuous 2-bit stream: base i occupies bits
 [2i, 2i+2) of word i // 16.
+
+Both chunk steps hash through one wrapper each, which turns packed words
+(int32 bit patterns) into the int64 sort keys (``stream_probe.sort_key``)
+of exactly the valid windows:
+
+* :func:`plane_hash_keys`, the strided fixed-read-length buffer;
+* :func:`ragged_hash_keys`, the continuous buffer of reads of any length.
+
+On a CUDA tensor each launches its hand-written kernel in
+``csrc/hash_keys.cu`` (a failed build or launch raises); on a CPU tensor it
+runs its plain twin (:func:`plane_hash_keys_reference`,
+:func:`ragged_hash_keys_reference`), the plain code below restricted to the
+valid rows and windows. Any other device raises. Kernel and twin write the
+keys in the same order.
 """
 from __future__ import annotations
 
 import torch
 
-from .stream_probe import INVALID_WORD
-from .u32hash import MASK32, feistel_mix_torch
+from .. import native
+from .stream_probe import INVALID_WORD, sort_key
+from .u32hash import MASK32, feistel_mix_torch, from_int32_bits
+
+#: launches of the CUDA kernels and calls of their plain twins since import;
+#: a run that must show which one ran resets them first
+launch_counts = {
+    "plane_hash_keys": 0, "plane_hash_keys_reference": 0,
+    "ragged_hash_keys": 0, "ragged_hash_keys_reference": 0,
+}
 
 
 def _masks(k: int) -> tuple[int, int]:
@@ -35,6 +57,39 @@ def _window_words(w0, w1, w2, p: int, k: int):
     else:
         lo = w0 & lo_mask
         hi = w1 & hi_mask
+    return lo, hi
+
+
+def rolling_kmer_hash(codes: torch.Tensor, k: int):
+    """(lo, hi) int64[n] from base codes int64[n + k] (the chunk padded by
+    at least k): entry t is the hash of window [t, t+k), as k shifted-slice
+    ORs. The caller masks windows that cross reads."""
+    assert 1 <= k <= 31
+    n = codes.shape[0] - k
+    lo = codes.new_zeros(n)
+    hi = codes.new_zeros(n)
+    for m in range(k):
+        c = codes[m : m + n]
+        if 2 * m < 32:
+            lo = lo | (c << 2 * m)
+        else:
+            hi = hi | (c << (2 * m - 32))
+    return lo, hi
+
+
+def rolling_revcomp_hash(codes: torch.Tensor, k: int):
+    """Reverse-complement hash of each window of :func:`rolling_kmer_hash`:
+    base t+k-1-m complemented (3 - c) at bits 2m."""
+    assert 1 <= k <= 31
+    n = codes.shape[0] - k
+    lo = codes.new_zeros(n)
+    hi = codes.new_zeros(n)
+    for m in range(k):
+        c = 3 - codes[k - 1 - m : k - 1 - m + n]
+        if 2 * m < 32:
+            lo = lo | (c << 2 * m)
+        else:
+            hi = hi | (c << (2 * m - 32))
     return lo, hi
 
 
@@ -144,3 +199,166 @@ def window_mask(
     same_read = cum[k - 1 : k - 1 + buf] == cum[:buf]
     t = torch.arange(buf, device=read_starts.device)
     return same_read & (t + k <= n_bases)
+
+
+def _check_words(name: str, packed: torch.Tensor, min_words: int = 1) -> None:
+    if packed.dtype != torch.int32 or packed.dim() != 1 or packed.shape[0] < min_words:
+        raise ValueError(f"{name}: packed is {packed.dtype}{tuple(packed.shape)}, expected "
+                         f"int32 words (at least {min_words})")
+    if not packed.is_contiguous():
+        raise ValueError(f"{name}: packed is not contiguous")
+    if packed.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {packed.device}")
+
+
+def _raise_on(name: str, rc: int) -> None:
+    if rc:
+        raise RuntimeError(f"{name} kernel launch failed: {native.error_string(rc)}")
+
+
+def plane_hash_keys(packed: torch.Tensor, k: int, read_len: int, n_reads: int, seed: int,
+                    revcomp: bool = False) -> torch.Tensor:
+    """int64 sort keys of every window of reads 0 .. n_reads-1 of a strided
+    buffer (``pack_for_device(read_len=...)``: int32 words, one read per row
+    of ``read_stride(read_len) // 16`` words). Rows past ``n_reads`` are
+    neither hashed nor written: ``n_reads * (read_len - k + 1)`` keys (twice
+    that with ``revcomp``), in :func:`plane_hash_mixed`'s (window combo,
+    read) order, reverse complements after the forward keys. Unsorted."""
+    _check_words("plane_hash_keys", packed)
+    if not 1 <= k <= 31 or read_len < k:
+        raise ValueError(f"plane_hash_keys: k={k}, read_len={read_len} (need 1 <= k <= 31, "
+                         "k <= read_len)")
+    npr = read_stride(read_len) // 16
+    if not 0 <= n_reads <= packed.shape[0] // npr:
+        raise ValueError(f"plane_hash_keys: {n_reads} reads in a buffer of "
+                         f"{packed.shape[0] // npr} rows")
+    if packed.device.type == "cpu":
+        return plane_hash_keys_reference(packed, k, read_len, n_reads, seed, revcomp)
+    return _plane_launch(packed, k, read_len, n_reads, seed, revcomp)
+
+
+def _plane_launch(packed, k: int, read_len: int, n_reads: int, seed: int,
+                  revcomp: bool) -> torch.Tensor:
+    """The keys from one launch of ``plane_hash_keys_kernel`` on the
+    tensor's device and current stream (none for no keys); raises if the
+    build or the launch fails."""
+    npr = read_stride(read_len) // 16
+    n_keys = n_reads * (read_len - k + 1) * (2 if revcomp else 1)
+    keys = torch.empty(n_keys, dtype=torch.int64, device=packed.device)
+    if not n_keys:
+        return keys
+    fn = native.library().plane_hash_keys_launch
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(packed.data_ptr(), keys.data_ptr(), n_reads, npr, read_len, k, seed & MASK32,
+                int(revcomp), packed.device.index, stream)
+    _raise_on("plane_hash_keys", rc)
+    launch_counts["plane_hash_keys"] += 1
+    return keys
+
+
+def plane_hash_keys_reference(packed: torch.Tensor, k: int, read_len: int, n_reads: int,
+                              seed: int, revcomp: bool = False) -> torch.Tensor:
+    """Plain-torch twin of :func:`plane_hash_keys`: :func:`plane_hash_mixed`
+    on the buffer's first ``n_reads`` rows, then the sort key."""
+    launch_counts["plane_hash_keys_reference"] += 1
+    if n_reads == 0:
+        return torch.empty(0, dtype=torch.int64, device=packed.device)
+    rows = packed[: n_reads * (read_stride(read_len) // 16)]
+    m_lo, m_hi = plane_hash_mixed(from_int32_bits(rows), k, read_len, n_reads, seed, revcomp)
+    return sort_key(m_lo, m_hi)
+
+
+def _check_ragged(packed, lengths, n_bases: int, k: int) -> None:
+    _check_words("ragged_hash_keys", packed, min_words=3)
+    if lengths.dtype != torch.int32 or lengths.dim() != 1 or not lengths.is_contiguous():
+        raise ValueError(f"ragged_hash_keys: lengths is {lengths.dtype}{tuple(lengths.shape)}, "
+                         "expected contiguous int32 read lengths")
+    if lengths.device != packed.device:
+        raise ValueError(f"ragged_hash_keys: lengths on {lengths.device}, words on "
+                         f"{packed.device}")
+    if not 1 <= k <= 31:
+        raise ValueError(f"ragged_hash_keys: k={k} outside [1, 31]")
+    if not 0 <= n_bases <= (packed.shape[0] - 2) * 16:
+        raise ValueError(f"ragged_hash_keys: {n_bases} bases in a buffer of "
+                         f"{(packed.shape[0] - 2) * 16}")
+
+
+def _premise(total: int, n_bases: int) -> None:
+    """The reads tile the buffer's bases, where a read's own windows are
+    exactly :func:`window_mask`'s."""
+    if total != n_bases:
+        raise ValueError(f"ragged_hash_keys: the read lengths add up to {total}, "
+                         f"the buffer holds {n_bases} bases")
+
+
+def ragged_hash_keys(packed: torch.Tensor, lengths: torch.Tensor, n_bases: int, k: int,
+                     seed: int, revcomp: bool = False) -> torch.Tensor:
+    """int64 sort keys of the valid windows of a continuously packed buffer
+    (``pack_for_device`` without ``read_len``: int32 words[buf // 16 + 2],
+    the reads back to back from base 0; ``lengths`` the int32 lengths of
+    its reads, adding up to ``n_bases``; zero padding after them is allowed
+    but the offsets and the kernel cover it too). A window is valid when it
+    lies in one read (:func:`window_mask`). The keys of the valid windows in buffer
+    order, then their reverse complements with ``revcomp``; unsorted.
+
+    On CUDA, the output offset of each read is an exclusive ``cumsum`` of
+    ``max(0, len - k + 1)`` on the device; its total sizes the output, so the
+    wrapper reads it back (one host sync a call)."""
+    _check_ragged(packed, lengths, n_bases, k)
+    if packed.device.type == "cpu":
+        _premise(int(lengths.sum()), n_bases)
+        return ragged_hash_keys_reference(packed, lengths, n_bases, k, seed, revcomp)
+    starts, offs = ragged_offsets(lengths, k)
+    n_valid = total = 0
+    if lengths.numel():  # the one host sync: the valid windows size the output
+        n_valid, total = torch.stack([offs[-1], starts[-1] + lengths[-1]]).tolist()
+    _premise(total, n_bases)
+    return _ragged_launch(packed, starts, offs, n_valid, k, seed, revcomp)
+
+
+def ragged_offsets(lengths: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """int32 (starts[n], offs[n + 1]) on the lengths' device: each read's
+    first base and the exclusive prefix sum of its window counts
+    ``max(0, len - k + 1)``, whose last entry is the number of valid
+    windows."""
+    starts = torch.cumsum(lengths, 0, dtype=torch.int32) - lengths
+    offs = torch.cumsum(torch.clamp(lengths - (k - 1), min=0), 0, dtype=torch.int32)
+    return starts, torch.cat([offs.new_zeros(1), offs])
+
+
+def _ragged_launch(packed, starts, offs, n_valid: int, k: int, seed: int,
+                   revcomp: bool) -> torch.Tensor:
+    """The keys from one launch of ``ragged_hash_keys_kernel`` on the
+    tensors' device and current stream (none for no valid window); raises
+    if the build or the launch fails."""
+    keys = torch.empty(n_valid * (2 if revcomp else 1), dtype=torch.int64,
+                       device=packed.device)
+    if not n_valid:
+        return keys
+    fn = native.library().ragged_hash_keys_launch
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(packed.data_ptr(), packed.shape[0], starts.data_ptr(), offs.data_ptr(),
+                starts.shape[0], keys.data_ptr(), n_valid, k, seed & MASK32, int(revcomp),
+                packed.device.index, stream)
+    _raise_on("ragged_hash_keys", rc)
+    launch_counts["ragged_hash_keys"] += 1
+    return keys
+
+
+def ragged_hash_keys_reference(packed: torch.Tensor, lengths: torch.Tensor, n_bases: int,
+                               k: int, seed: int, revcomp: bool = False) -> torch.Tensor:
+    """Plain-torch twin of :func:`ragged_hash_keys`: the rolling hash of
+    every base, :func:`window_mask`, the reverse complements and the mix of
+    the valid windows, then the sort key."""
+    launch_counts["ragged_hash_keys_reference"] += 1
+    lo, hi = rolling_kmer_hash_packed(from_int32_bits(packed), k)
+    lengths = lengths.to(torch.int64)
+    starts = torch.cumsum(lengths, 0) - lengths
+    valid = window_mask(starts, n_bases, k, lo.shape[0])
+    lo, hi = lo[valid], hi[valid]
+    if revcomp:
+        rlo, rhi = revcomp_lo_hi(lo, hi, k)
+        lo, hi = torch.cat([lo, rlo]), torch.cat([hi, rhi])
+    return sort_key(*feistel_mix_torch(lo, hi, seed))

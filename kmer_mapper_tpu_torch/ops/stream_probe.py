@@ -5,6 +5,8 @@
    unsigned order of the pair, and the all-ones invalid pair becomes the
    largest key and sorts last. The bucket id is the high bits of m_lo, so
    the sorted keys are grouped by bucket and by 128-bucket chain block.
+   The chunk steps get their keys straight from the hash kernels of
+   ``ops/hashing.py``, which write valid queries only.
 2. ``block_offsets`` finds each chain block's window of sorted keys;
    ``count_offsets`` ends every window at the invalid tail, for the count.
 3. ``stream_count`` adds, for every valid query, one to the table slot that
@@ -230,10 +232,11 @@ def _count_sorted(key_lo, key_hi, counts, sorted_keys, block_probe):
     )
 
 
-def stream_probe_count_mixed(key_lo, key_hi, counts, m_lo, m_hi, block_probe):
-    """Stream path for pre-mixed, pre-masked, unsorted queries: sort ->
-    block offsets -> stream count. Updates ``counts`` in place."""
-    return _count_sorted(key_lo, key_hi, counts, sort_mixed(m_lo, m_hi), block_probe)
+def stream_probe_count_keys(key_lo, key_hi, counts, keys, block_probe):
+    """Stream path for the unsorted sort keys of valid queries (the hash
+    kernels' output, ``hashing.plane_hash_keys`` / ``ragged_hash_keys``):
+    sort -> count offsets -> stream count. Updates ``counts`` in place."""
+    return _count_sorted(key_lo, key_hi, counts, torch.sort(keys).values, block_probe)
 
 
 def stream_probe_count(key_lo, key_hi, counts, q_lo, q_hi, valid, seed: int,

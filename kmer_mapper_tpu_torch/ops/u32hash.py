@@ -15,6 +15,7 @@ import torch
 
 _C1 = 0x85EBCA6B
 _C2 = 0xC2B2AE35
+_GOLDEN = 0x9E3779B9
 #: Feistel round constants (arbitrary odd words; one per round)
 _FEISTEL_ROUNDS = (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35)
 MASK32 = 0xFFFFFFFF
@@ -62,6 +63,12 @@ def feistel_unmix(m_lo, m_hi, seed: int = 0):
     return L, R
 
 
+def mix64(lo, hi, seed: int = 0):
+    """Avalanche-mix a 64-bit value given as uint32 (lo, hi) -> uint32."""
+    h = fmix32(hi ^ np.uint32((_GOLDEN + seed) & MASK32))
+    return fmix32(lo ^ h)
+
+
 def bucket_shift(n_buckets: int) -> int:
     """``m_lo >> bucket_shift(n)`` is the bucket id (32 for one bucket)."""
     assert n_buckets & (n_buckets - 1) == 0, "n_buckets must be a power of two"
@@ -75,6 +82,12 @@ def bucket_from_mlo(m_lo, n_buckets: int):
     if shift >= 32:
         return np.uint32(0) * m_lo
     return m_lo >> np.uint32(shift)
+
+
+def bucket_of(lo, hi, n_buckets: int, seed: int = 0):
+    """Bucket id in [0, n_buckets) of uint32 (lo, hi); n_buckets must be a
+    power of two."""
+    return bucket_from_mlo(feistel_mix(lo, hi, seed)[0], n_buckets)
 
 
 def split_u64(kmers: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -118,6 +131,17 @@ def feistel_mix_torch(lo: torch.Tensor, hi: torch.Tensor, seed: int = 0):
     for c in _FEISTEL_ROUNDS:
         L, R = R, L ^ fmix32_torch(R ^ ((c + seed) & MASK32))
     return L, R
+
+
+def mix64_torch(lo: torch.Tensor, hi: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """:func:`mix64` on int64-held words."""
+    return fmix32_torch(lo ^ fmix32_torch(hi ^ ((_GOLDEN + seed) & MASK32)))
+
+
+def bucket_of_torch(lo: torch.Tensor, hi: torch.Tensor, n_buckets: int,
+                    seed: int = 0) -> torch.Tensor:
+    """:func:`bucket_of` on int64-held words."""
+    return bucket_from_mlo_torch(feistel_mix_torch(lo, hi, seed)[0], n_buckets)
 
 
 def bucket_from_mlo_torch(m_lo: torch.Tensor, n_buckets: int) -> torch.Tensor:

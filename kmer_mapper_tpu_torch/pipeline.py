@@ -67,39 +67,51 @@ def prefetch(iterator: Iterator, depth: int = 4) -> Iterator:
 
 class PinnedRing:
     """Page-locked host buffers that packed chunks are staged in on their way
-    to the card. A buffer goes back to the ring with a CUDA event recorded
-    on ``device``'s current stream once the chunk's work (its upload first)
-    was enqueued there; the producer waits on that event before it writes
-    the buffer again. The event goes on the mapper's device whatever the
-    thread's current device is: one recorded elsewhere would complete before
-    the upload it guards."""
+    to the card: the packed words, and for a buffer that takes the ragged
+    step the lengths of its reads as int32 (room for ``n_lengths``, pinned
+    when the slot first takes a ragged buffer). A buffer goes back to the
+    ring with a CUDA event recorded on ``device``'s current stream once the
+    chunk's work (its uploads first) was enqueued there; the producer waits
+    on that event before it writes the buffer again. The event goes on the
+    mapper's device whatever the thread's current device is: one recorded
+    elsewhere would complete before the upload it guards."""
 
-    def __init__(self, n_buffers: int, n_words: int, device: torch.device):
+    def __init__(self, n_buffers: int, n_words: int, device: torch.device, *,
+                 n_lengths: int):
         self.device = device
+        self.n_lengths = n_lengths
         self._free: queue.Queue = queue.Queue()
         for _ in range(n_buffers):
-            self._free.put((torch.empty(n_words, dtype=torch.int32, pin_memory=True), None))
+            slot = [torch.empty(n_words, dtype=torch.int32, pin_memory=True), None]
+            self._free.put((slot, None))
 
     def staged(self, packed_iter: Iterable) -> Iterator[tuple]:
-        """(buffer, chunk) pairs: each chunk with its packed words copied into
-        a free page-locked buffer (the chunk's first element is then a view
-        of it). Runs in the producer thread."""
-        for packed, *rest in packed_iter:
-            buf, event = self._free.get()
-            if buf is None:  # closed
+        """(slot, chunk) pairs: each chunk (``_strided_chunks``' 6-tuples)
+        with its packed words, and unless it is strided the lengths of its
+        ``n_reads`` reads, copied into a free page-locked slot (those
+        elements are then views of it). Runs in the producer thread."""
+        for packed, lengths, n_bases, n_reads, n_invalid, strided in packed_iter:
+            slot, event = self._free.get()
+            if slot is None:  # closed
                 return
             if event is not None:
                 event.synchronize()
-            view = buf[: len(packed)]
-            view.numpy()[:] = packed.view(np.int32)
-            yield buf, (view, *rest)
+            words = slot[0][: len(packed)]
+            words.numpy()[:] = packed.view(np.int32)
+            if not strided:  # the ragged step reads the lengths
+                if slot[1] is None:
+                    slot[1] = torch.empty(self.n_lengths, dtype=torch.int32, pin_memory=True)
+                staged_lengths = slot[1][:n_reads]
+                staged_lengths.numpy()[:] = lengths[:n_reads]
+                lengths = staged_lengths
+            yield slot, (words, lengths, n_bases, n_reads, n_invalid, strided)
 
-    def release(self, buf: torch.Tensor) -> None:
-        """Return ``buf`` after its chunk's work was enqueued on the device's
+    def release(self, slot) -> None:
+        """Return ``slot`` after its chunk's work was enqueued on the device's
         current stream. Runs in the consumer thread."""
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
-        self._free.put((buf, event))
+        self._free.put((slot, event))
 
     def close(self) -> None:
         """Wake a producer waiting for a buffer; it stops."""
@@ -143,7 +155,8 @@ def map_file(
     )
     ring = None
     if device.type == "cuda":
-        ring = PinnedRing(queue_depth + 2, _max_words(mapper.config), mapper.device)
+        ring = PinnedRing(queue_depth + 2, _max_words(mapper.config), mapper.device,
+                          n_lengths=mapper.config.max_reads)
         feed = ring.staged(packed)
     else:
         feed = ((None, chunk) for chunk in packed)
@@ -159,7 +172,7 @@ def map_file(
                 waited += time.perf_counter() - t0
                 if item is None:
                     break
-                buf, (packed_codes, lengths, n_bases, _, n_invalid, strided) = item
+                slot, (packed_codes, lengths, n_bases, _, n_invalid, strided) = item
                 if strict_bases and n_invalid:
                     raise ValueError(
                         f"{n_invalid} invalid (non-ACGTN) bases in input "
@@ -168,8 +181,8 @@ def map_file(
                 with profiling.step_annotation("map_chunk") if profile_dir else (
                         contextlib.nullcontext()):
                     mapper.map_chunk(packed_codes, lengths, n_bases, n_invalid, strided=strided)
-                if buf is not None:
-                    ring.release(buf)
+                if slot is not None:
+                    ring.release(slot)
                 n_chunks += 1
                 n_bases_total += n_bases
                 if n_chunks % 200 == 0:
@@ -351,10 +364,10 @@ def map_sequences(
     buf = _round_up(max(len(flat), 1 << 10), 1 << 10)
     config = MapperConfig(k=k, buf=buf, max_reads=max(16, len(sequences)), revcomp=revcomp)
     mapper = KmerMapper(index, config, device)
-    for packed, lengths, n_bases, _, n_invalid in readers.pack_for_device(
+    for packed, lengths, n_bases, n_reads, n_invalid in readers.pack_for_device(
         iter([chunk]), config.buf, config.max_reads, config.k
     ):
-        mapper.map_chunk(packed, lengths, n_bases, n_invalid)
+        mapper.map_chunk(packed, lengths[:n_reads], n_bases, n_invalid)
     return mapper.node_counts(max_frequency=max_frequency)
 
 

@@ -178,7 +178,7 @@ def test_pinned_ring_event_waits_on_the_mappers_device():
     _two_devices()
     mapper_device = torch.device("cuda", 1)
     with torch.cuda.device(0):
-        ring = pipeline.PinnedRing(1, 1024, mapper_device)
+        ring = pipeline.PinnedRing(1, 1024, mapper_device, n_lengths=16)
         buf, _ = ring._free.get()
         with torch.cuda.device(mapper_device):
             torch.cuda._sleep(1 << 30)  # about half a second of the mapper's stream
@@ -212,6 +212,54 @@ def test_pinned_ring_records_on_the_mappers_stream(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "Event", Event)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: ("stream", device))
-    ring = pipeline.PinnedRing(0, 16, torch.device("cuda", 1))
+    ring = pipeline.PinnedRing(0, 16, torch.device("cuda", 1), n_lengths=16)
     ring.release(torch.zeros(16, dtype=torch.int32))
     assert recorded == [("stream", torch.device("cuda", 1))]
+
+
+def test_pinned_ring_stages_ragged_lengths(monkeypatch):
+    """The ring stages the lengths of a ragged buffer's ``n_reads`` reads as
+    int32 beside its words, in a lengths buffer it pins when a slot first
+    takes a ragged buffer (a strided buffer's step never reads the lengths,
+    so they stay as they are and pin nothing), and hands a slot out again
+    only after waiting on the event its last chunk recorded (no card
+    needed: page-locked memory and the CUDA calls are stood in for)."""
+    from kmer_mapper_tpu_torch import pipeline
+
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, pin_memory=False, **kw: empty(*a, **kw))
+    waits = []
+
+    class Event:
+        def record(self, stream=None):
+            pass
+
+        def synchronize(self):
+            waits.append(self)
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    ring = pipeline.PinnedRing(1, 64, torch.device("cuda", 0), n_lengths=16)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(0, 100, 16).astype(np.uint16)
+    chunks = [
+        (rng.integers(0, 1 << 32, 64, dtype=np.uint64).astype(np.uint32), lengths.copy(), 120,
+         8, 0, True),
+        (rng.integers(0, 1 << 32, 40, dtype=np.uint64).astype(np.uint32), lengths, 700, 9, 2,
+         False),
+    ]
+    staged = ring.staged(iter(chunks))
+    slot, (words, lens, *rest) = next(staged)
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), chunks[0][0])
+    assert lens is chunks[0][1] and rest == [120, 8, 0, True]
+    assert slot[1] is None and not waits  # no lengths pinned for a strided buffer
+    ring.release(slot)
+    slot2, (words2, lens2, *rest2) = next(staged)
+    assert slot2 is slot and len(waits) == 1  # the one slot came back after its event
+    assert words2.dtype == lens2.dtype == torch.int32
+    np.testing.assert_array_equal(words2.numpy().view(np.uint32), chunks[1][0])
+    np.testing.assert_array_equal(lens2.numpy(), lengths[:9].astype(np.int32))
+    assert slot[1].shape == (16,)
+    assert words2.data_ptr() == slot[0].data_ptr() and lens2.data_ptr() == slot[1].data_ptr()
+    assert rest2 == [700, 9, 2, False]

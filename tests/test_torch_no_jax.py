@@ -27,13 +27,14 @@ SCRIPT = textwrap.dedent(
     for module in ("compat", "mapper", "gpu_counter", "ops.probe", "ops.probe_cases",
                    "index.pickled", "io.native", "io.gzio", "io.parallel_reader",
                    "command_line_interface", "util", "encodings", "tools",
-                   "utils.timing", "utils.profiling"):
+                   "utils.timing", "utils.profiling", "ops.hashing", "ops.hash_keys_cases"):
         assert f"kmer_mapper_tpu_torch.{module}" in names, names
     spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     assert callable(smoke.phase_tiles) and callable(smoke.phase_library)
     assert callable(smoke.phase_file_feed)
+    assert callable(smoke.phase_hash_hazards) and callable(smoke.phase_ragged_steady_state)
     from kmer_mapper_tpu_torch import oracle, pipeline
     from kmer_mapper_tpu_torch.index import kmer_index
 
@@ -49,6 +50,18 @@ SCRIPT = textwrap.dedent(
     got = pipeline.map_file(os.path.join(d, "i.npz"), os.path.join(d, "r.fq"),
                             device="cpu", k=21)
     assert (got == oracle.map_kmers_to_index(arrays, kmers)).all() and got.sum() > 0
+    # both chunk steps hash through the twins on the CPU, never a kernel
+    from kmer_mapper_tpu_torch.ops import hashing
+    assert hashing.launch_counts["plane_hash_keys_reference"] > 0
+    ragged = [s[: 25 + i % 15] for i, s in enumerate(reads)]
+    r_kmers = oracle.kmer_hashes_ragged(
+        oracle.encode_bytes(np.frombuffer("".join(ragged).encode(), np.uint8)),
+        np.array([len(s) for s in ragged]), 21)
+    got_r = pipeline.map_sequences(os.path.join(d, "i.npz"), ragged, k=21, device="cpu")
+    assert (got_r == oracle.map_kmers_to_index(arrays, r_kmers)).all() and got_r.sum() > 0
+    assert hashing.launch_counts["ragged_hash_keys_reference"] > 0
+    assert not hashing.launch_counts["plane_hash_keys"]
+    assert not hashing.launch_counts["ragged_hash_keys"]
     # the native loader over two byte regions, and a BGZF file
     from kmer_mapper_tpu_torch.io import gzio, native, parallel_reader
     assert native.available()

@@ -68,14 +68,18 @@ def test_block_offsets_match_jax(n_buckets):
 
 
 def test_count_offsets_end_at_the_invalid_tail(monkeypatch):
-    """The ragged step turns every window that crosses a read boundary into
-    the all-ones pair, which sorts last. The offsets that reach the count
-    end at the first such key, ``block_offsets`` of the same keys still
-    equals JAX's, and the node counts equal the oracle's."""
+    """The plain ragged hash turns every window that crosses a read boundary
+    into the all-ones pair, which sorts last: the count offsets end at the
+    first such key. The ragged step's hash kernel writes the valid windows
+    only, so the keys that reach its count hold no such key and its offsets
+    are ``block_offsets``; those still equal JAX's, and the node counts
+    equal the oracle's."""
     from kmer_mapper_tpu_torch import oracle
     from kmer_mapper_tpu_torch.index import kmer_index
     from kmer_mapper_tpu_torch.io import readers
     from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
+    from kmer_mapper_tpu_torch.ops import hashing
+    from kmer_mapper_tpu_torch.ops.u32hash import from_int32_bits
 
     rng = np.random.default_rng(31)
     k = 15
@@ -107,14 +111,27 @@ def test_count_offsets_end_at_the_invalid_tail(monkeypatch):
     n_buckets = mapper.index.table.n_buckets
     bpb = min(layout.CHAIN_BLOCK, n_buckets)
     assert len(seen) == len(chunks)
-    for keys, off in seen:
-        first_invalid = int(np.searchsorted(keys.numpy(), stream_probe.INVALID_KEY))
-        assert first_invalid < keys.numel()  # the chunk has an invalid tail
-        assert (keys[:first_invalid] != stream_probe.INVALID_KEY).all()
-        assert int(off[-1]) == int(off.max()) == first_invalid
+    for (keys, off), (packed, lens, n_bases, _, _) in zip(seen, chunks):
+        assert (keys != stream_probe.INVALID_KEY).all()  # valid windows only
         full = stream_probe.block_offsets(keys, n_buckets, bpb)
         assert int(full[-1]) == keys.numel()
-        np.testing.assert_array_equal(off.numpy(), np.minimum(full.numpy(), first_invalid))
-        sorted_lo = stream_probe.split_key(keys)[0].numpy().astype(np.uint32)
-        expect = ref_sp.block_offsets(jnp.asarray(sorted_lo), n_buckets, bpb)
-        np.testing.assert_array_equal(full.numpy(), np.asarray(expect))
+        np.testing.assert_array_equal(off.numpy(), full.numpy())
+        # the same chunk hashed plainly, every base a window: an invalid tail
+        lo, hi = hashing.rolling_kmer_hash_packed(
+            from_int32_bits(torch.from_numpy(packed.view(np.int32))), k)
+        lens64 = torch.from_numpy(lens.astype(np.int64))
+        valid = hashing.window_mask(torch.cumsum(lens64, 0) - lens64, n_bases, k, config.buf)
+        plain = stream_probe.sort_queries(lo, hi, valid, mapper.index.table.seed)
+        plain_off = stream_probe.count_offsets(plain, n_buckets, bpb)
+        first_invalid = int(np.searchsorted(plain.numpy(), stream_probe.INVALID_KEY))
+        assert first_invalid == keys.numel() < plain.numel()  # the chunk has an invalid tail
+        assert torch.equal(plain[:first_invalid], keys)
+        assert int(plain_off[-1]) == int(plain_off.max()) == first_invalid
+        plain_full = stream_probe.block_offsets(plain, n_buckets, bpb)
+        assert int(plain_full[-1]) == plain.numel()
+        np.testing.assert_array_equal(plain_off.numpy(),
+                                      np.minimum(plain_full.numpy(), first_invalid))
+        for sorted_keys, got in ((keys, full), (plain, plain_full)):
+            sorted_lo = stream_probe.split_key(sorted_keys)[0].numpy().astype(np.uint32)
+            expect = ref_sp.block_offsets(jnp.asarray(sorted_lo), n_buckets, bpb)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(expect))
