@@ -34,13 +34,19 @@ result line):
      them, at their full sizes (their kernels must have launched); then
      every variant against its twin, bit for bit, with hits;
   8. library: the pre-hashed calls on the bench index, as KAGE calls them:
-     compat.map_kmers_to_graph_index on 2^24 hashes (stream route),
-     in_graph_index on 2^24 (gather kernel), map_hashes on 2^16 (gather
-     route) and GpuCounter with reverse complements on 2^22, each equal to
-     the numpy oracle, with the launch counts zeroed before and read after
-     (no twin may run); a second call on 2^26 hashes that must reuse the
-     cached mapper, timed; the gather kernel against its twins on every
-     hazard case; the device ms of both routes at 2^12 ... 2^24 hashes;
+     compat.map_kmers_to_graph_index on 2^24 hashes, in_graph_index on
+     2^24, map_hashes on 2^16 and GpuCounter with reverse complements on
+     2^22, each equal to the numpy oracle, with the launch counts zeroed
+     before and read after (the gather kernel must run, stream_count and
+     the twins not); a second call on 2^26 hashes that must reuse the
+     cached mapper, timed and split into upload, kernel and node counts;
+     one piece's upload, pageable and page-locked; the gather kernel
+     against its twins on every hazard case; the device ms of the stream
+     and gather routes at 2^12 ... 2^26 hashes; both modes' ms, rounds a
+     query, bounds and row-traffic times at 2^24 on the bench index, a
+     skewed, a hit-only and a miss-only batch, and a table of 2^23 buckets
+     (ten times the L2). (The design points of the gather kernel are
+     timed on demand by kmer_mapper_tpu_torch.scripts.gather_probe_dissect.)
   9. file feed: the reads of phase 5's 8 chunks written as one FASTQ (~1.1
      GB), the first chunk's as FASTQ, .fq.gz (zlib level 1) and BGZF, each
      mapped through ``kmer_mapper_tpu_torch.cli map``: (a) the numpy framer
@@ -85,9 +91,11 @@ INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 units
 DISSECT_POLY_A = 200_000  # poly-A queries in one window, phase 6
 LIB_HASHES = 1 << 24  # hashes of the library calls held to the oracle, phase 8
 LIB_TIMED = 1 << 26  # hashes of the timed map_kmers_to_graph_index call
-LIB_GATHER = 1 << 16  # a map_hashes batch on the gather route
+LIB_GATHER = 1 << 16  # a small map_hashes batch
 LIB_COUNTER = 1 << 22  # hashes counted by GpuCounter (and their revcomps)
-CROSSOVER = [1 << e for e in range(12, 25, 2)]  # batch sizes timed on both routes
+CROSSOVER = [1 << e for e in range(12, 27, 2)]  # batch sizes timed on both routes
+LARGE_TABLE_KEYS = 1 << 24  # random keys of the table ten times the L2, phase 8
+LARGE_TABLE_BUCKETS = 1 << 23  # 537 MB of key words
 RAGGED_MIN, RAGGED_MAX = 100, 151  # read lengths of the ragged steady state
 #: INT32 operations a forward key of the hash-key kernels, counted from
 #: csrc/hash_keys.cu: the window (2 funnel shifts, 2 masks), the Feistel mix
@@ -215,7 +223,7 @@ def phase_hazards(torch, device) -> int:
 
 
 def key_err(a, b) -> int:
-    """Largest |a - b| over two int64 key tensors of one shape, exactly."""
+    """Largest |a - b| over two integer tensors of one shape, exactly."""
     if a.shape != b.shape:
         raise AssertionError(f"key tensors of shapes {tuple(a.shape)} and {tuple(b.shape)}")
     bad = (a != b).nonzero().squeeze(1)[:4096]
@@ -903,38 +911,64 @@ def phase_tiles(torch, np, device) -> list[dict]:
     return out
 
 
-def gather_bound(index, q_lo, q_hi, slots) -> tuple[float, float, str, float]:
-    """(mean rounds, bound ms, "bytes" or "operations", row-traffic ms) of
-    the gather probe's slots mode on these queries. Rounds per query: up to
-    the hit, the table's max_probe for a miss, none for the sentinel. Bytes:
-    the 8 bytes of each query's words read once, each bucket the run touches
-    read once (32 bytes of lo and 32 of hi words) and 4 bytes of slot
-    written per query; operations: 30 for the Feistel mix of each query (3
-    rounds of fmix32 and two xors) and 9 per round taken (8 lane compares
-    and the bucket). The row-traffic time is the same bytes with every
-    round's 64-byte row read again, as a gather that caches nothing would."""
+def gather_bound(key_lo, table, block_probe, queries, slots) -> dict:
+    """The gather probe's work on these raw int64 queries (``slots``: the
+    slot of each, or -1): mean rounds a query under the block bounds and
+    under the table's max_probe alone (hits: up to the hit; misses: the
+    walk's bound; the sentinel: none), and each mode's bound and row-traffic
+    time. Bytes of the slots mode's bound: each query's 8 bytes read once,
+    the 32 bytes of lo words of each bucket the run touches read once, the
+    32 bytes of hi words only of the buckets where some query's lo word
+    matched (a round without a lo match reads no hi word), 4 bytes of slot
+    written per query; of the counts mode's: the queries, the same rows,
+    and the count of each slot hit read and written once (8 bytes), no slot
+    output. Operations: 30 for the Feistel mix of each query (3 rounds of
+    fmix32 and two xors) and 9 per round taken (8 lane compares and the
+    bucket). The row-traffic time is the same bytes with every round's
+    32-byte lo row and every lo-matched round's 32-byte hi sector read
+    again, and in counts mode every hit's count read and written, as a
+    gather that caches nothing would."""
     import torch
 
     from kmer_mapper_tpu_torch.ops import probe
-    from kmer_mapper_tpu_torch.ops.u32hash import (
-        MASK32, bucket_from_mlo_torch, feistel_mix_torch, from_int32_bits,
-    )
+    from kmer_mapper_tpu_torch.ops.u32hash import to_int32_bits
 
-    table = index.table
-    n, n_buckets, bpb = q_lo.numel(), table.n_buckets, min(128, table.n_buckets)
-    m_lo, m_hi = feistel_mix_torch(from_int32_bits(q_lo), from_int32_bits(q_hi), table.seed)
-    b0 = bucket_from_mlo_torch(m_lo, n_buckets)
+    n, n_buckets = queries.numel(), table.n_buckets
+    bpb = min(128, n_buckets)
+    b0, m_lo, _, walk = probe.query_rounds(queries, table.max_probe, table.seed, n_buckets,
+                                           block_probe)
+    _, _, _, unbounded = probe.query_rounds(queries, table.max_probe, table.seed, n_buckets)
     slots = slots.long()
-    rounds = torch.where(slots >= 0, ((slots // 8 - b0) & (bpb - 1)) + 1, table.max_probe)
-    rounds = torch.where((m_lo == MASK32) & (m_hi == MASK32), 0, rounds)
-    touched = torch.zeros(n_buckets, dtype=torch.bool, device=q_lo.device)
+    hit = slots >= 0
+    to_hit = ((slots // 8 - b0) & (bpb - 1)) + 1
+    rounds = torch.where(hit, to_hit, walk)
+    old_rounds = torch.where(hit, to_hit, unbounded)
+    w_lo = to_int32_bits(m_lo)
+    touched = torch.zeros(n_buckets, dtype=torch.bool, device=queries.device)
+    hi_touched = torch.zeros_like(touched)
+    n_lo_matched = 0  # rounds whose row holds the query's lo word
     for p in range(table.max_probe):
         sel = rounds > p
-        touched[probe.chain_next(b0[sel], p, n_buckets)] = True
-    n_rounds = int(rounds.sum())
-    ms, by = bound(12 * n + 64 * int(touched.sum()), 30 * n + 9 * n_rounds)
-    row_ms = (12 * n + 64 * n_rounds) / HBM_BYTES_PER_S * 1e3
-    return n_rounds / max(n, 1), ms, by, row_ms
+        b = probe.chain_next(b0[sel], p, n_buckets)
+        touched[b] = True
+        matched = (key_lo[b] == w_lo[sel][:, None]).any(dim=1)
+        hi_touched[b[matched]] = True
+        n_lo_matched += int(matched.sum())
+    n_rounds, n_touched, n_hi = int(rounds.sum()), int(touched.sum()), int(hi_touched.sum())
+    n_hits, n_slots_hit = int(hit.sum()), int(torch.unique(slots[hit]).numel())
+    n_ops = 30 * n + 9 * n_rounds
+    rows = 32 * n_touched + 32 * n_hi
+    slots_ms, slots_by = bound(12 * n + rows, n_ops)
+    count_ms, count_by = bound(8 * n + rows + 8 * n_slots_hit, n_ops)
+    row_traffic = 32 * n_rounds + 32 * n_lo_matched
+    return {
+        "rounds": n_rounds / max(n, 1), "old_rounds": int(old_rounds.sum()) / max(n, 1),
+        "hits": n_hits, "touched": n_touched, "hi_touched": n_hi, "slots_hit": n_slots_hit,
+        "slots_bound_ms": slots_ms, "slots_bound_by": slots_by,
+        "count_bound_ms": count_ms, "count_bound_by": count_by,
+        "slots_row_ms": (12 * n + row_traffic) / HBM_BYTES_PER_S * 1e3,
+        "count_row_ms": (8 * n + row_traffic + 8 * n_hits) / HBM_BYTES_PER_S * 1e3,
+    }
 
 
 def library_hashes(np, rng, arrays, n: int, shuffle: bool = True):
@@ -946,26 +980,83 @@ def library_hashes(np, rng, arrays, n: int, shuffle: bool = True):
     return q
 
 
+def probe_report(torch, what: str, key_lo, key_hi, table, block_probe, queries) -> dict:
+    """Both modes of the gather kernel on one batch: == the twins, warm and
+    cold device ms, the twins' ms, rounds, bounds and row-traffic times."""
+    from kmer_mapper_tpu_torch.ops import probe
+    from kmer_mapper_tpu_torch.scripts import cold_ms
+
+    args = (key_lo, key_hi, queries, table.max_probe, table.seed)
+    kw = dict(block_probe=block_probe)
+    cold = functools.partial(cold_ms, device=key_lo.device)
+    slots = probe.probe_slots(*args, **kw)
+    twin = probe.probe_slots_reference(*args, block_probe=block_probe)
+    counts = torch.zeros(table.n_slots, dtype=torch.int32, device=key_lo.device)
+    count_args = (key_lo, key_hi, counts, queries, table.max_probe, table.seed)
+    probe.probe_count(*count_args, **kw)
+    twin_counts = probe.probe_count_reference(
+        key_lo, key_hi, torch.zeros_like(counts), queries, table.max_probe, table.seed,
+        block_probe=block_probe)
+    err = max(key_err(slots, twin), key_err(counts, twin_counts))
+    if err:
+        raise AssertionError(f"library: gather kernel != twin on {what}")
+    r = gather_bound(key_lo, table, block_probe, queries, slots)
+    r.update(
+        err=err,
+        slots_ms=median_ms(lambda: probe.probe_slots(*args, **kw)),
+        slots_cold_ms=cold(lambda: probe.probe_slots(*args, **kw)),
+        count_ms=median_ms(lambda: probe.probe_count(*count_args, **kw)),
+        count_cold_ms=cold(lambda: probe.probe_count(*count_args, **kw)),
+        slots_plain_ms=median_ms(lambda: probe.probe_slots_reference(
+            *args, block_probe=block_probe), reps=3),
+        count_plain_ms=median_ms(lambda: probe.probe_count_reference(
+            *count_args, block_probe=block_probe), reps=3),
+    )
+    log(f"library: gather_probe on {what}, {queries.numel()} queries ({r['hits']} hits), "
+        f"== twins: slots {r['slots_ms']:.4f} ms warm, {r['slots_cold_ms']:.4f} cold (twin "
+        f"{r['slots_plain_ms']:.3f}); counts {r['count_ms']:.4f} warm, "
+        f"{r['count_cold_ms']:.4f} cold (twin {r['count_plain_ms']:.3f}); "
+        f"{r['rounds']:.4f} rounds a query ({r['old_rounds']:.4f} under max_probe "
+        f"{table.max_probe} alone); {r['touched']} buckets touched ({r['hi_touched']} with a "
+        f"lo match), {r['slots_hit']} slots hit; bound slots {r['slots_bound_ms']:.4f} ms by "
+        f"{r['slots_bound_by']}, counts {r['count_bound_ms']:.4f} ms by "
+        f"{r['count_bound_by']}; row traffic slots {r['slots_row_ms']:.4f} ms, counts "
+        f"{r['count_row_ms']:.4f} ms")
+    return r
+
+
 def phase_library(torch, np, arrays, rng, device) -> dict:
     """The pre-hashed library path at the sizes a KAGE caller passes, on the
-    bench index: compat calls, map_hashes on the gather route and
-    GpuCounter, each against the numpy oracle with every launch count
-    zeroed before and read after (no twin may run); the gather kernel
-    against its twins on every hazard case; the crossover of the two routes
-    of map_hashes; the gather kernel's time and bound."""
+    bench index: compat calls, map_hashes and GpuCounter, each against the
+    numpy oracle with every launch count zeroed before and read after
+    (gather_probe must run, stream_count and the twins not); the 2^26 call
+    split into upload, kernel and node counts; the upload of one piece
+    from pageable and from page-locked memory; the gather kernel against
+    its twins on every hazard case; the stream route against the gather
+    route at 2^12 ... 2^26 hashes; the kernel's time, rounds and bounds in
+    both modes at 2^24 on the bench index, a table of 2^23 buckets (10x the
+    L2), a skewed, a hit-only and a miss-only batch."""
+    import statistics
+
     from kmer_mapper_tpu_torch import compat, gpu_counter, oracle
     from kmer_mapper_tpu_torch.ops import probe, probe_cases, stream_probe
-    from kmer_mapper_tpu_torch.ops.u32hash import from_int32_bits
+    from kmer_mapper_tpu_torch.scripts.gather_probe_dissect import probe_batch, random_table
+    from kmer_mapper_tpu_torch.ops.u32hash import MASK32
 
     def launches():
         return {**stream_probe.launch_counts, **probe.launch_counts}
 
-    def require(before, rose: str, what: str):
+    path_launches = 0  # gather_probe launches of the calls below, as a user makes them
+
+    def require(before, what: str):
+        nonlocal path_launches
         now = launches()
         twins = {k: now[k] - before[k] for k in now if "reference" in k and now[k] != before[k]}
-        if now[rose] <= before[rose] or twins:
-            raise AssertionError(f"library: {what} did not run {rose} alone: "
+        if (now["gather_probe"] <= before["gather_probe"] or twins
+                or now["stream_count"] != before["stream_count"]):
+            raise AssertionError(f"library: {what} did not run gather_probe alone: "
                                  f"before {before}, after {now}")
+        path_launches += now["gather_probe"] - before["gather_probe"]
 
     t_phase = time.perf_counter()
     for m in (probe, stream_probe):
@@ -976,20 +1067,21 @@ def phase_library(torch, np, arrays, rng, device) -> dict:
     t = time.perf_counter()
     got = compat.map_kmers_to_graph_index(arrays, kmers=q)
     first_s = time.perf_counter() - t
-    require(before, "stream_count", "map_kmers_to_graph_index")
+    require(before, "map_kmers_to_graph_index")
     t = time.perf_counter()
     if not np.array_equal(got, oracle.map_kmers_to_index(arrays, q)):
         raise AssertionError("library: map_kmers_to_graph_index != oracle.map_kmers_to_index")
     oracle_s = time.perf_counter() - t
     index = compat._as_index(arrays)
     mapper = compat._shared_mapper(index)
+    table = index.table
     table_ptr = mapper.key_lo.data_ptr()
     log(f"library: map_kmers_to_graph_index on {len(q)} hashes (table build and upload "
         f"included) in {first_s:.2f} s; {int(got.sum())} node hits == oracle "
         f"({oracle_s:.1f} s)")
 
     # a second call with the same index object: the cached mapper and its
-    # device table, timed on LIB_TIMED hashes
+    # device table, timed on LIB_TIMED hashes, then its stages alone
     big = library_hashes(np, rng, arrays, LIB_TIMED, shuffle=False)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -999,29 +1091,60 @@ def phase_library(torch, np, arrays, rng, device) -> dict:
     got_big = compat.map_kmers_to_graph_index(arrays, kmers=big)
     big_s = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated() - base
-    require(before, "stream_count", "the timed map_kmers_to_graph_index")
+    require(before, "the timed map_kmers_to_graph_index")
     if compat._shared_mapper(index) is not mapper or mapper.key_lo.data_ptr() != table_ptr:
         raise AssertionError("library: the second call did not reuse the cached mapper")
     if int(got_big.sum()) < LIB_TIMED // 2:
         raise AssertionError("library: the timed call counted too few hits")
-    # its host stages alone: words split and uploaded, node counts
     t = time.perf_counter()
-    words = list(mapper._hash_pieces(big))
+    pieces = list(mapper._hash_pieces(big))
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t
+    mapper.reset_counts()
     t = time.perf_counter()
-    mapper.node_counts()
+    for piece in pieces:
+        probe.probe_count(mapper.key_lo, mapper.key_hi, mapper.counts, piece, table.max_probe,
+                          table.seed, block_probe=mapper.block_probe)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t
+    t = time.perf_counter()
+    if not np.array_equal(mapper.node_counts(), got_big):
+        raise AssertionError("library: the split stages of the timed call count otherwise")
     finalize_s = time.perf_counter() - t
     log(f"library: second call on {LIB_TIMED} hashes, same mapper and table: "
-        f"{big_s:.3f} s host clock, {LIB_TIMED / big_s / 1e6:.1f} M hashes/s (split and "
-        f"upload alone {upload_s:.3f} s, node counts alone {finalize_s:.3f} s); peak device "
-        f"memory above the table {peak / 2**30:.2f} GiB ({peak / LIB_TIMED:.1f} B a hash, "
-        f"HASH_PIECE {mapper.HASH_PIECE})")
-    del big, got_big, words
+        f"{big_s:.3f} s host clock, {LIB_TIMED / big_s / 1e6:.1f} M hashes/s; its stages "
+        f"alone (host clock): upload {upload_s:.4f} s, kernel {kernel_s:.4f} s, node counts "
+        f"{finalize_s:.4f} s, the rest {big_s - upload_s - kernel_s - finalize_s:.4f} s; "
+        f"peak device memory above the table {peak / 2**30:.2f} GiB ({peak / LIB_TIMED:.1f} "
+        f"B a hash, HASH_PIECE {mapper.HASH_PIECE})")
+    # one piece's upload from pageable memory (what _hash_pieces does) and
+    # through a page-locked buffer (a host copy, then the DMA)
+    host = torch.from_numpy(big.view(np.int64))
+    t = time.perf_counter()
+    pinned = torch.empty(host.shape, dtype=torch.int64, pin_memory=True)
+    alloc_s = time.perf_counter() - t
+    timing = {"pageable": [], "page-locked": []}
+    for _ in range(3):
+        for how in timing:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if how == "pageable":
+                on_card = host.to(device)
+            else:
+                pinned.copy_(host)
+                on_card = pinned.to(device, non_blocking=True)
+            torch.cuda.synchronize()
+            timing[how].append(time.perf_counter() - t)
+            del on_card
+    log(f"library: upload of one {host.numel() * 8 / 2**20:.0f} MiB piece, median of 3: "
+        f"pageable {statistics.median(timing['pageable']):.4f} s, through a page-locked "
+        f"buffer {statistics.median(timing['page-locked']):.4f} s (copy in and DMA; the "
+        f"buffer's allocation {alloc_s:.4f} s once)")
+    del big, got_big, pieces, pinned, host
 
     before = launches()
     member = compat.in_graph_index(arrays, q)
-    require(before, "gather_probe", "in_graph_index")
+    require(before, "in_graph_index")
     if not np.array_equal(member, oracle.in_index(arrays, q)):
         raise AssertionError("library: in_graph_index != oracle.in_index")
     log(f"library: in_graph_index on {len(q)} hashes == oracle ({int(member.sum())} in)")
@@ -1030,64 +1153,65 @@ def phase_library(torch, np, arrays, rng, device) -> dict:
     before = launches()
     mapper.reset_counts()
     mapper.map_hashes(small)
-    require(before, "gather_probe", "map_hashes on the gather route")
-    if launches()["stream_count"] != before["stream_count"]:
-        raise AssertionError("library: a gather-route batch launched stream_count")
+    require(before, "map_hashes")
     if not np.array_equal(mapper.node_counts(), oracle.map_kmers_to_index(arrays, small)):
-        raise AssertionError("library: map_hashes (gather route) != oracle")
-    log(f"library: map_hashes on {LIB_GATHER} hashes (gather route) == oracle")
+        raise AssertionError("library: map_hashes != oracle")
+    log(f"library: map_hashes on {LIB_GATHER} hashes == oracle")
 
     counted = q[:LIB_COUNTER]
     before = launches()
     counter = gpu_counter.GpuCounter.from_kmers_and_nodes(arrays.kmers, arrays.nodes, K)
     counter.count(counted, count_revcomps=True)
     got_nodes = counter.get_node_counts()
-    require(before, "stream_count", "GpuCounter.count")
+    require(before, "GpuCounter.count")
     unique = np.unique(arrays.kmers)
     expect = oracle.node_counts_from_kmer_counts(
         arrays.kmers, arrays.nodes, unique, oracle.count_unique_kmers(
             unique, np.concatenate([counted, oracle.revcomp_hash(counted, K)])))
     if not np.array_equal(got_nodes, expect):
         raise AssertionError("library: GpuCounter != numpy node_counts_from_kmer_counts")
-    path_launches = launches()
     log(f"library: GpuCounter.count({LIB_COUNTER} hashes, count_revcomps=True) == numpy "
-        f"path ({int(got_nodes.sum())} node hits); launches on the library path "
-        f"{path_launches}")
+        f"path ({int(got_nodes.sum())} node hits); gather_probe launched {path_launches} "
+        f"times by these calls, stream_count and the twins never: {launches()}")
 
-    # the kernel against its twins on every hazard case (launches not counted)
+    # the kernel against its twins and the loop on every hazard case, in both
+    # modes (launches not counted)
     max_err = 0
-    for case in probe_cases.cases():
-        slots = probe.probe_slots(*case.slot_args(device))
-        counts = probe.probe_count(*case.count_args(device))
-        twin_slots = probe.probe_slots_reference(*case.slot_args(device))
-        twin_counts = probe.probe_count_reference(*case.count_args(device))
-        max_err = max(max_err, int(np.abs(slots.cpu().numpy().astype(np.int64)
-                                          - twin_slots.cpu().numpy()).max(initial=0)),
-                      int(np.abs(_u32(counts) - _u32(twin_counts)).max(initial=0)))
-        if (max_err or not np.array_equal(slots.cpu().numpy(), case.expected_slots())
-                or not np.array_equal(_u32(counts), case.expected_counts())):
-            raise AssertionError(f"library: gather hazard {case.name}: kernel, twin and loop differ")
-    log(f"library: gather_probe == twin == numpy loop on {len(probe_cases.cases())} hazard "
-        "cases, both modes")
+    cases = probe_cases.cases()
+    for case in cases:
+        s_args, s_kw = case.slot_args(device)
+        twin_slots = probe.probe_slots_reference(*s_args, **s_kw).cpu().numpy()
+        slots = probe.probe_slots(*s_args, **s_kw).cpu().numpy()
+        c_args, c_kw = case.count_args(device)
+        twin_counts = _u32(probe.probe_count_reference(*c_args, **c_kw))
+        c_args, c_kw = case.count_args(device)
+        counts = _u32(probe.probe_count(*c_args, **c_kw))
+        max_err = max(max_err, int(np.abs(slots.astype(np.int64) - twin_slots).max(initial=0)),
+                      int(np.abs(counts - twin_counts).max(initial=0)))
+        if (max_err or not np.array_equal(slots, case.expected_slots())
+                or not np.array_equal(counts, case.expected_counts())):
+            raise AssertionError(f"library: gather hazard {case.name}: kernel, twin and loop "
+                                 "differ")
+    log(f"library: gather_probe == twins == numpy loop on {len(cases)} hazard cases, both "
+        "modes")
 
-    # the crossover of the two routes, on device-resident query words
-    table = index.table
-    lo32 = torch.from_numpy(np.ascontiguousarray(q.astype(np.uint32)).view(np.int32)).to(device)
-    hi32 = torch.from_numpy(np.ascontiguousarray((q >> np.uint64(32)).astype(np.uint32))
-                            .view(np.int32)).to(device)
-    valid = torch.ones(len(q), dtype=torch.bool, device=device)
+    # the stream route (mix, sort, stream_count) against the gather route on
+    # device-resident raw words, up to a whole piece
+    raw = probe_batch(rng, arrays.kmers, LIB_TIMED, 0.5, device=device)
+    lo, hi = raw & MASK32, (raw >> 32) & MASK32
+    valid = torch.ones(raw.numel(), dtype=torch.bool, device=device)
     scratch = torch.zeros_like(mapper.counts)
 
     def stream_route(n, counts):
         return lambda: stream_probe.stream_probe_count(
-            mapper.key_lo, mapper.key_hi, counts, from_int32_bits(lo32[:n]),
-            from_int32_bits(hi32[:n]), valid[:n], table.seed, mapper.block_probe)
+            mapper.key_lo, mapper.key_hi, counts, lo[:n], hi[:n], valid[:n], table.seed,
+            mapper.block_probe)
 
     def gather_route(n, counts):
-        return lambda: probe.probe_count(mapper.key_lo, mapper.key_hi, counts, lo32[:n],
-                                         hi32[:n], valid[:n], table.max_probe, table.seed)
+        return lambda: probe.probe_count(mapper.key_lo, mapper.key_hi, counts, raw[:n],
+                                         table.max_probe, table.seed,
+                                         block_probe=mapper.block_probe)
 
-    crossover = []
     log("library: crossover, device ms of one map_hashes piece on each route "
         "(median of 5)")
     for n in CROSSOVER:
@@ -1096,35 +1220,49 @@ def phase_library(torch, np, arrays, rng, device) -> dict:
         gather_route(n, b)()
         if not torch.equal(a, b):
             raise AssertionError(f"library: stream and gather routes differ at n={n}")
-        row = (n, median_ms(stream_route(n, scratch)), median_ms(gather_route(n, scratch)))
-        crossover.append(row)
-        log(f"  n = 2^{n.bit_length() - 1:2d}: stream {row[1]:8.4f} ms  gather {row[2]:8.4f} ms")
+        row = (median_ms(stream_route(n, scratch)), median_ms(gather_route(n, scratch)))
+        log(f"  n = 2^{n.bit_length() - 1:2d}: stream {row[0]:8.4f} ms  gather {row[1]:8.4f} ms")
+    del lo, hi, valid, raw, scratch
+    torch.cuda.empty_cache()
 
-    # the kernel line: in_graph_index's shape, LIB_HASHES queries in slots mode
-    slots_args = (mapper.key_lo, mapper.key_hi, lo32, hi32, table.max_probe, table.seed)
-    slots = probe.probe_slots(*slots_args)
-    twin = probe.probe_slots_reference(*slots_args)
-    max_err = max(max_err, int((slots.long() - twin.long()).abs().max()))
-    if max_err:
-        raise AssertionError("library: gather kernel != twin at the library's shape")
-    ms = median_ms(lambda: probe.probe_slots(*slots_args))
-    plain_ms = median_ms(lambda: probe.probe_slots_reference(*slots_args), reps=3)
-    mean_rounds, bound_ms, bound_by, row_ms = gather_bound(index, lo32, hi32, slots)
-    count_args = (mapper.key_lo, mapper.key_hi, scratch, lo32, hi32, valid, table.max_probe,
-                  table.seed)
-    count_ms = median_ms(lambda: probe.probe_count(*count_args))
-    count_plain_ms = median_ms(lambda: probe.probe_count_reference(*count_args), reps=3)
-    log(f"library: gather_probe on {len(q)} queries, slots: kernel {ms:.4f} ms, twin "
-        f"{plain_ms:.3f} ms; counts: kernel {count_ms:.4f} ms, twin {count_plain_ms:.3f} ms; "
-        f"{mean_rounds:.3f} rounds a query; bound {bound_ms:.4f} ms by {bound_by} (every "
-        f"touched bucket read once), {row_ms:.4f} ms with every round's row read")
+    # the kernel line: in_graph_index's shape, LIB_HASHES queries in slots
+    # mode on the bench index, and the same batch in counts mode
+    queries = torch.from_numpy(q.view(np.int64)).to(device)
+    lib = probe_report(torch, "the bench index (2^24, half hits)", mapper.key_lo,
+                       mapper.key_hi, table, mapper.block_probe, queries)
+    max_err = max(max_err, lib["err"])
+    for what, hit_share, hot_share in (("a skewed batch (25% one key, the rest half hits)",
+                                        0.5, 0.25),
+                                       ("a hit-only batch", 1.0, 0.0),
+                                       ("a miss-only batch", 0.0, 0.0)):
+        batch = probe_batch(rng, arrays.kmers, LIB_HASHES, hit_share, hot_share, device)
+        r = probe_report(torch, what, mapper.key_lo, mapper.key_hi, table,
+                         mapper.block_probe, batch)
+        max_err = max(max_err, r["err"])
+    del queries, batch
+    torch.cuda.empty_cache()
+
+    # a table ten times the L2: 2^24 random keys in 2^23 buckets (537 MB)
+    t = time.perf_counter()
+    keys, large, key_lo, key_hi, block_probe = random_table(rng, LARGE_TABLE_KEYS,
+                                                            LARGE_TABLE_BUCKETS, device)
+    log(f"library: large table of {len(keys)} keys in {large.n_buckets} buckets "
+        f"({large.nbytes / 1e6:.0f} MB, max_probe {large.max_probe}) built and uploaded in "
+        f"{time.perf_counter() - t:.1f} s")
+    batch = probe_batch(rng, keys, LIB_HASHES, 0.5, device=device)
+    r = probe_report(torch, "the large table (2^24, half hits)", key_lo, key_hi, large,
+                     block_probe, batch)
+    max_err = max(max_err, r["err"])
+    del key_lo, key_hi, block_probe, batch
+    torch.cuda.empty_cache()
     log(f"library: phase took {time.perf_counter() - t_phase:.1f} s")
     return {
         "name": "gather_probe", "route": "cuda",
         "source": "kmer_mapper_tpu_torch/csrc/gather_probe.cu",
         "replaces": "kmer_mapper_tpu/ops/probe.py:31 (XLA)",
-        "launches": path_launches["gather_probe"], "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "launches": path_launches, "max_abs_err": max_err,
+        "ms": lib["slots_ms"], "plain_ms": lib["slots_plain_ms"],
+        "bound_ms": lib["slots_bound_ms"], "bound_by": lib["slots_bound_by"],
         "library_ms": None,  # no single PyTorch call probes a bucket chain
     }
 

@@ -18,6 +18,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "chain.cuh"
+
 namespace kmt_count {
 
 constexpr int kBucketKeys = 8;
@@ -67,11 +69,7 @@ __device__ __forceinline__ void stage_block(BlockTile& tile,
   }
 }
 
-__device__ __forceinline__ int probe_rounds(const int32_t* block_probe,
-                                            int64_t b, int min_rounds,
-                                            int max_rounds) {
-  return max(min_rounds, min(static_cast<int>(block_probe[b]), max_rounds));
-}
+using kmt_chain::probe_rounds;
 
 // The query at sorted position i: its (m_lo, m_hi) pair, or for kNoDma the
 // key stored in slot (i mod n_slots) of the staged tile, a stand-in that

@@ -9,10 +9,9 @@ Chunks whose reads are not all ``read_len`` long take the ragged step (the
 ragged hash-key kernel: the windows that lie in one read), which gives
 identical counts.
 Pre-hashed uint64 k-mers (the library calls) take :meth:`KmerMapper.map_hashes`
-and :meth:`KmerMapper.in_index`:
-
-    large batches: Feistel mix -> sort -> chain-block offsets -> stream-count kernel
-    small batches and membership: gather-probe kernel (``ops/probe.py``)
+and :meth:`KmerMapper.in_index`: the hashes' bits go to the device as int64,
+a piece at a time, and the gather-probe kernel (``ops/probe.py``) mixes,
+probes and counts each piece, or returns its slots.
 
 Counts stay on the device in slot order as int32 whose bits are the
 reference's wrapping uint32; they leave it only in :meth:`slot_counts`.
@@ -27,7 +26,6 @@ import torch
 from ..index.kmer_index import KmerIndex
 from ..index.layout import CHAIN_BLOCK
 from ..ops import encode, hashing, probe, stream_probe
-from ..ops.u32hash import from_int32_bits, split_u64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,12 +89,9 @@ class KmerMapper:
     with :meth:`map_hashes`, then read :meth:`node_counts`. Nothing is moved
     off the device it was given."""
 
-    #: a batch of at least this many hashes takes the stream route (sort +
-    #: stream-count kernel), a smaller one the gather probe; by size alone,
-    #: the same on every device
-    STREAM_HASH_MIN = 1 << 17
-    #: hashes per piece of a batch: bounds the stream route's int64
-    #: temporaries on the device (5.6 GiB at 2**26 on an H100; PERF.md)
+    #: hashes per piece of a batch: a piece holds its int64 hashes on the
+    #: device (512 MiB at 2**26) and, in :meth:`in_index`, their int32
+    #: slots and uint8 flags (another 320 MiB)
     HASH_PIECE = 1 << 26
 
     def __init__(self, index: KmerIndex, config: MapperConfig, device):
@@ -172,43 +167,31 @@ class KmerMapper:
         self._stats.append(chunk_step(*step_args, lengths, n_bases, **step_kw))
 
     def _hash_pieces(self, kmers):
-        """uint64 hashes -> (lo, hi) int32 word tensors on the device, one
-        piece of at most HASH_PIECE hashes at a time."""
-        kmers = np.asarray(kmers, dtype=np.uint64)
+        """uint64 hashes -> int64 tensors of the same bits on the device, one
+        piece of at most HASH_PIECE hashes at a time; the words are split on
+        the device, by the kernel."""
+        kmers = np.ascontiguousarray(kmers, dtype=np.uint64).view(np.int64)
         for start in range(0, len(kmers), self.HASH_PIECE):
-            lo, hi = split_u64(kmers[start : start + self.HASH_PIECE])
-            yield self._to_device(lo), self._to_device(hi)
+            yield torch.from_numpy(kmers[start : start + self.HASH_PIECE]).to(self.device)
 
     def map_hashes(self, kmers: np.ndarray) -> None:
         """Count pre-computed uint64 kmer hashes (the library calls
-        ``map_kmers_to_graph_index`` and ``counter.count``). A piece of at
-        least STREAM_HASH_MIN hashes takes the stream route, a smaller one
-        the gather probe; both give the same counts."""
+        ``map_kmers_to_graph_index`` and ``counter.count``): every piece
+        through the gather probe, as the JAX package does off the TPU."""
         table = self.index.table
-        for q_lo, q_hi in self._hash_pieces(kmers):
-            n = q_lo.shape[0]
-            valid = torch.ones(n, dtype=torch.bool, device=self.device)
-            if n >= self.STREAM_HASH_MIN:
-                stream_probe.stream_probe_count(
-                    self.key_lo, self.key_hi, self.counts, from_int32_bits(q_lo),
-                    from_int32_bits(q_hi), valid, table.seed, self.block_probe,
-                )
-            else:
-                probe.probe_count(
-                    self.key_lo, self.key_hi, self.counts, q_lo, q_hi, valid,
-                    table.max_probe, table.seed,
-                )
-            self._stats.append(n)
+        for queries in self._hash_pieces(kmers):
+            probe.probe_count(self.key_lo, self.key_hi, self.counts, queries,
+                              table.max_probe, table.seed, block_probe=self.block_probe)
+            self._stats.append(queries.shape[0])
 
     def in_index(self, kmers: np.ndarray) -> np.ndarray:
         """Membership per uint64 kmer hash, uint8[n], with no frequency
         filter (the reference's ``in_graph_index``), by the gather probe."""
         table = self.index.table
         out = [np.zeros(0, dtype=np.uint8)]
-        for q_lo, q_hi in self._hash_pieces(kmers):
-            slots = probe.probe_slots(
-                self.key_lo, self.key_hi, q_lo, q_hi, table.max_probe, table.seed
-            )
+        for queries in self._hash_pieces(kmers):
+            slots = probe.probe_slots(self.key_lo, self.key_hi, queries, table.max_probe,
+                                      table.seed, block_probe=self.block_probe)
             out.append(slots.ge(0).to(torch.uint8).cpu().numpy())
         return np.concatenate(out)
 

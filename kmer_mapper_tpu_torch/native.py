@@ -106,8 +106,8 @@ def library() -> ctypes.CDLL:
     )
     lib.stream_count_launch.restype = ctypes.c_int
     lib.gather_probe_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+        + [ctypes.c_uint] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     lib.gather_probe_launch.restype = ctypes.c_int
     lib.plane_hash_keys_launch.argtypes = (
@@ -137,9 +137,14 @@ def library() -> ctypes.CDLL:
     )
     for fn in (lib.r9_step_parts_launch, lib.r9_block_pipeline_launch):
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.gather_probe_dissect_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+        + [ctypes.c_uint] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    )
     for fn in (lib.r2_kernel_dissect_launch, lib.r2_window_dissect_launch,
                lib.r3_iter_floor_launch, lib.r9_dot_orient_launch,
-               lib.r9_step_parts_launch, lib.r9_block_pipeline_launch):
+               lib.r9_step_parts_launch, lib.r9_block_pipeline_launch,
+               lib.gather_probe_dissect_launch):
         fn.restype = ctypes.c_int
     lib.kmt_error_string.argtypes = [ctypes.c_int]
     lib.kmt_error_string.restype = ctypes.c_char_p

@@ -1,11 +1,14 @@
-"""Gather probe: the pre-hashed library calls' small batches and every
-membership query. The torch counterpart of ``kmer_mapper_tpu/ops/probe.py``.
+"""Gather probe: every pre-hashed library call, counts and membership. The
+torch counterpart of ``kmer_mapper_tpu/ops/probe.py``.
 
-For each raw query (the ``(lo, hi)`` words of a uint64 k-mer hash, as int32
-bit patterns) the probe mixes the words (``u32hash.feistel_mix``), finds the
-home bucket from the high bits of the mixed low word and walks the bucket's
-chain for ``max_probe`` rounds, comparing the mixed pair with the bucket's 8
-keys. A query that mixes to the all-ones empty sentinel never matches.
+Each query is the caller's uint64 k-mer hash, held as an int64 tensor of
+the same bits. The probe splits it into its ``(lo, hi)`` words, mixes them
+(``u32hash.feistel_mix``), finds the home bucket from the high bits of the
+mixed low word and walks the bucket's chain, comparing the mixed pair with
+the bucket's 8 keys: ``max_probe`` rounds, or with ``block_probe`` (the
+table's ``block_max_probe``) only as many as the query's chain block needs,
+which finds the same keys. A query that mixes to the all-ones empty
+sentinel never matches.
 
 * :func:`probe_count` adds one to the table slot of every valid query that
   hits (``probe_hits`` + ``accumulate_scatter``);
@@ -27,9 +30,7 @@ import torch
 
 from .. import native
 from ..index.layout import BUCKET_KEYS, CHAIN_BLOCK, MAX_PROBE_HARD
-from .u32hash import (
-    MASK32, bucket_from_mlo_torch, feistel_mix_torch, from_int32_bits, to_int32_bits,
-)
+from .u32hash import MASK32, bucket_from_mlo_torch, feistel_mix_torch, to_int32_bits
 
 #: launches of the CUDA kernel (both modes) and calls of each plain twin
 #: since import; a run that must show which one ran resets them first
@@ -46,17 +47,20 @@ def chain_next(b: torch.Tensor, step: int, n_buckets: int) -> torch.Tensor:
     return (b & ~(block - 1)) | ((b + step) & (block - 1))
 
 
-def _check(name, key_lo, key_hi, q_lo, q_hi, max_probe, **more):
-    """Raises ValueError unless the arguments fit the kernel's contract."""
+def check_args(name, key_lo, key_hi, queries, max_probe, block_probe, **more):
+    """Raises ValueError unless the arguments fit the kernel's contract
+    (``more``: ``valid`` and ``counts`` where the call takes them)."""
     n_buckets = key_lo.shape[0] if key_lo.dim() == 2 else -1
-    n = q_lo.shape[0] if q_lo.dim() == 1 else -1
+    n = queries.shape[0] if queries.dim() == 1 else -1
     expect = {
         "key_lo": (key_lo, torch.int32, (n_buckets, BUCKET_KEYS)),
         "key_hi": (key_hi, torch.int32, (n_buckets, BUCKET_KEYS)),
-        "q_lo": (q_lo, torch.int32, (n,)),
-        "q_hi": (q_hi, torch.int32, (n,)),
+        "queries": (queries, torch.int64, (n,)),
     }
-    if "valid" in more:
+    if block_probe is not None:
+        n_blocks = n_buckets // min(CHAIN_BLOCK, max(n_buckets, 1))
+        expect["block_probe"] = (block_probe, torch.int32, (n_blocks,))
+    if more.get("valid") is not None:
         expect["valid"] = (more["valid"], torch.bool, (n,))
     if "counts" in more:
         expect["counts"] = (more["counts"], torch.int32, (n_buckets * BUCKET_KEYS,))
@@ -75,63 +79,95 @@ def _check(name, key_lo, key_hi, q_lo, q_hi, max_probe, **more):
         raise ValueError(f"{name}: no kernel for device {key_lo.device}")
 
 
-def probe_count(key_lo, key_hi, counts, q_lo, q_hi, valid, max_probe: int,
-                seed: int) -> torch.Tensor:
-    """counts[slot] += 1 for every valid query whose key the table holds;
-    updates ``counts`` in place and returns it."""
-    _check("probe_count", key_lo, key_hi, q_lo, q_hi, max_probe, valid=valid, counts=counts)
+def probe_count(key_lo, key_hi, counts, queries, max_probe: int, seed: int, *,
+                block_probe=None, valid=None) -> torch.Tensor:
+    """counts[slot] += 1 for every query (every valid one, where ``valid``
+    is given) whose key the table holds; updates ``counts`` in place and
+    returns it."""
+    check_args("probe_count", key_lo, key_hi, queries, max_probe, block_probe, valid=valid,
+               counts=counts)
     if counts.device.type == "cpu":
-        return probe_count_reference(key_lo, key_hi, counts, q_lo, q_hi, valid, max_probe, seed)
-    _launch(_COUNT, key_lo, key_hi, q_lo, q_hi, valid, counts, None, max_probe, seed)
+        return probe_count_reference(key_lo, key_hi, counts, queries, max_probe, seed,
+                                     block_probe=block_probe, valid=valid)
+    _launch(_COUNT, key_lo, key_hi, block_probe, queries, valid, counts, None, max_probe,
+            seed)
     return counts
 
 
-def probe_slots(key_lo, key_hi, q_lo, q_hi, max_probe: int, seed: int) -> torch.Tensor:
+def probe_slots(key_lo, key_hi, queries, max_probe: int, seed: int, *,
+                block_probe=None) -> torch.Tensor:
     """int32[n]: the table slot (bucket * 8 + lane) holding each query's
     key, or -1."""
     if key_lo.shape[0] * BUCKET_KEYS > 1 << 31:
         raise ValueError("probe_slots: a table of more than 2**31 slots has slots past int32")
-    _check("probe_slots", key_lo, key_hi, q_lo, q_hi, max_probe)
+    check_args("probe_slots", key_lo, key_hi, queries, max_probe, block_probe)
     if key_lo.device.type == "cpu":
-        return probe_slots_reference(key_lo, key_hi, q_lo, q_hi, max_probe, seed)
-    out = torch.empty(q_lo.shape[0], dtype=torch.int32, device=key_lo.device)
-    _launch(_SLOTS, key_lo, key_hi, q_lo, q_hi, None, None, out, max_probe, seed)
+        return probe_slots_reference(key_lo, key_hi, queries, max_probe, seed,
+                                     block_probe=block_probe)
+    out = torch.empty(queries.shape[0], dtype=torch.int32, device=key_lo.device)
+    _launch(_SLOTS, key_lo, key_hi, block_probe, queries, None, None, out, max_probe, seed)
     return out
 
 
-def _launch(mode, key_lo, key_hi, q_lo, q_hi, valid, counts, out, max_probe, seed):
-    """One launch of ``csrc/gather_probe.cu`` on the tensors' device and
-    current stream; raises if the build or the launch fails."""
-    fn = native.library().gather_probe_launch
+def launch_with(fn, mode, key_lo, key_hi, block_probe, queries, valid, counts, out,
+                max_probe, seed, *more) -> int:
+    """Calls ``fn``, a C entry point with ``gather_probe_launch``'s
+    arguments (``more`` before the device), on the tensors' device and
+    current stream; returns its code."""
     device = key_lo.device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(
-            key_lo.data_ptr(), key_hi.data_ptr(), q_lo.data_ptr(), q_hi.data_ptr(),
+        return fn(
+            key_lo.data_ptr(), key_hi.data_ptr(),
+            None if block_probe is None else block_probe.data_ptr(), queries.data_ptr(),
             None if valid is None else valid.data_ptr(),
             None if counts is None else counts.data_ptr(),
             None if out is None else out.data_ptr(),
-            q_lo.shape[0], key_lo.shape[0], max_probe, seed & MASK32, mode,
-            device.index, stream,
+            queries.shape[0], key_lo.shape[0],
+            0 if block_probe is None else block_probe.shape[0], max_probe, seed & MASK32,
+            mode, *more, device.index, stream,
         )
+
+
+def _launch(mode, key_lo, key_hi, block_probe, queries, valid, counts, out, max_probe, seed):
+    """One launch of ``csrc/gather_probe.cu`` on the tensors' device and
+    current stream; raises if the build or the launch fails."""
+    rc = launch_with(native.library().gather_probe_launch, mode, key_lo, key_hi, block_probe,
+                     queries, valid, counts, out, max_probe, seed)
     if rc:
         raise RuntimeError(f"gather_probe kernel launch failed: {native.error_string(rc)}")
     launch_counts["gather_probe"] += 1
 
 
-def _twin_slots(key_lo, key_hi, q_lo, q_hi, max_probe: int, seed: int) -> torch.Tensor:
-    """int64 slot per query or -1: ``probe_hits`` in plain torch, a row
-    gather and an 8-lane compare per round."""
-    n_buckets = key_lo.shape[0]
-    m_lo, m_hi = feistel_mix_torch(from_int32_bits(q_lo), from_int32_bits(q_hi), seed)
-    real = ~((m_lo == MASK32) & (m_hi == MASK32))
+def query_rounds(queries, max_probe: int, seed: int, n_buckets: int, block_probe=None):
+    """(home bucket, mixed lo, mixed hi, rounds) of each int64 raw query:
+    the walk's bound, ``max_probe`` or its chain block's bound, and 0 for
+    the sentinel. Words split as ``q & MASK32`` and ``(q >> 32) & MASK32``:
+    torch's int64 ``>>`` copies the sign bit down."""
+    m_lo, m_hi = feistel_mix_torch(queries & MASK32, (queries >> 32) & MASK32, seed)
     b0 = bucket_from_mlo_torch(m_lo, n_buckets)
+    if block_probe is None:
+        rounds = torch.full_like(b0, max_probe)
+    else:
+        rounds = block_probe.long()[b0 // min(CHAIN_BLOCK, n_buckets)].clamp(max=max_probe)
+    rounds = torch.where((m_lo == MASK32) & (m_hi == MASK32), 0, rounds)
+    return b0, m_lo, m_hi, rounds
+
+
+def _twin_slots(key_lo, key_hi, queries, max_probe: int, seed: int,
+                block_probe) -> torch.Tensor:
+    """int64 slot per query or -1: ``probe_hits`` in plain torch, a row
+    gather and an 8-lane compare per round, each query's rounds bounded as
+    the kernel bounds them."""
+    n_buckets = key_lo.shape[0]
+    b0, m_lo, m_hi, rounds = query_rounds(queries, max_probe, seed, n_buckets, block_probe)
     w_lo, w_hi = to_int32_bits(m_lo)[:, None], to_int32_bits(m_hi)[:, None]
     bucket = torch.zeros_like(b0)
-    mask = torch.zeros((q_lo.shape[0], BUCKET_KEYS), dtype=torch.bool, device=q_lo.device)
+    mask = torch.zeros((queries.shape[0], BUCKET_KEYS), dtype=torch.bool,
+                       device=queries.device)
     for p in range(max_probe):
         b = chain_next(b0, p, n_buckets)
-        m = (key_lo[b] == w_lo) & (key_hi[b] == w_hi) & real[:, None]
+        m = (key_lo[b] == w_lo) & (key_hi[b] == w_hi) & (rounds > p)[:, None]
         # keys are unique in the table: at most one (bucket, lane) matches
         bucket = torch.where(m.any(dim=1), b, bucket)
         mask |= m
@@ -139,13 +175,13 @@ def _twin_slots(key_lo, key_hi, q_lo, q_hi, max_probe: int, seed: int) -> torch.
     return torch.where(mask.any(dim=1), bucket * BUCKET_KEYS + lane, -1)
 
 
-def probe_count_reference(key_lo, key_hi, counts, q_lo, q_hi, valid, max_probe: int,
-                          seed: int) -> torch.Tensor:
+def probe_count_reference(key_lo, key_hi, counts, queries, max_probe: int, seed: int, *,
+                          block_probe=None, valid=None) -> torch.Tensor:
     """Plain-torch twin of :func:`probe_count` (same contract, same result),
     adding with wrapping 32-bit arithmetic."""
     launch_counts["probe_count_reference"] += 1
-    slots = _twin_slots(key_lo, key_hi, q_lo, q_hi, max_probe, seed)
-    slots = slots[valid & (slots >= 0)]
+    slots = _twin_slots(key_lo, key_hi, queries, max_probe, seed, block_probe)
+    slots = slots[slots >= 0] if valid is None else slots[valid & (slots >= 0)]
     if slots.numel():
         slots, n_hits = torch.unique(slots, return_counts=True)
         total = (counts[slots].to(torch.int64) & MASK32) + n_hits
@@ -153,8 +189,8 @@ def probe_count_reference(key_lo, key_hi, counts, q_lo, q_hi, valid, max_probe: 
     return counts
 
 
-def probe_slots_reference(key_lo, key_hi, q_lo, q_hi, max_probe: int,
-                          seed: int) -> torch.Tensor:
+def probe_slots_reference(key_lo, key_hi, queries, max_probe: int, seed: int, *,
+                          block_probe=None) -> torch.Tensor:
     """Plain-torch twin of :func:`probe_slots`."""
     launch_counts["probe_slots_reference"] += 1
-    return _twin_slots(key_lo, key_hi, q_lo, q_hi, max_probe, seed).to(torch.int32)
+    return _twin_slots(key_lo, key_hi, queries, max_probe, seed, block_probe).to(torch.int32)

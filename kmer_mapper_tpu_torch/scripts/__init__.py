@@ -1,5 +1,5 @@
-"""Dissection scripts of the stream count on the GPU: the port's
-counterparts of the Pallas measurement scripts under ``scripts/``.
+"""Dissection scripts of the port's kernels on the GPU: the counterparts of
+the Pallas measurement scripts under ``scripts/``, and the gather probe's.
 
     python -m kmer_mapper_tpu_torch.scripts.r2_kernel_dissect [variant ...]
     python -m kmer_mapper_tpu_torch.scripts.r2_window_dissect [variant ...]
@@ -7,6 +7,7 @@ counterparts of the Pallas measurement scripts under ``scripts/``.
     python -m kmer_mapper_tpu_torch.scripts.r9_dot_orient [variant ...]
     python -m kmer_mapper_tpu_torch.scripts.r9_step_parts [variant ...]
     python -m kmer_mapper_tpu_torch.scripts.r9_block_pipeline [variant ...]
+    python -m kmer_mapper_tpu_torch.scripts.gather_probe_dissect [variant ...]
 
 Each module holds a hand-written CUDA kernel (``csrc/<name>.cu``) with its
 variants, the kernel's plain-torch twin and a ``main`` that times every
@@ -14,7 +15,8 @@ variant on the card and prints one line per variant (``--device cpu`` runs
 the twins instead). Wrappers launch the kernel on CUDA tensors and run the
 twin only on CPU tensors. The r2 and r3 scripts take the stream count
 apart; the three r9 scripts run its tile body (``csrc/r9_tile.cuh``) under
-the layouts of the TPU kernel's tiles.
+the layouts of the TPU kernel's tiles. ``gather_probe_dissect`` switches
+the gather probe's design points one at a time.
 """
 from __future__ import annotations
 
@@ -77,3 +79,27 @@ def median_ms(fn, device: torch.device, reps: int = 5) -> float:
         event.record()
     events[-1].synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+
+
+def cold_ms(fn, device: torch.device, reps: int = 5) -> float:
+    """Median milliseconds of one call of ``fn`` after the L2 has been
+    flushed by a 256 MiB fill, as a caller whose data left the cache finds
+    it. On a GPU the stream is held by ``torch.cuda._sleep`` behind the
+    fill, so the events time the device and not the host's launch. On the
+    CPU: :func:`median_ms`."""
+    if device.type != "cuda":
+        return median_ms(fn, device, reps)
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=device)
+    fn()
+    times = []
+    for r in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize(device)
+        flush.fill_(r)
+        torch.cuda._sleep(HOLD_CYCLES // 4)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)

@@ -18,7 +18,7 @@ from kmer_mapper_tpu.models.mapper import MapperConfig as RefConfig
 from kmer_mapper_tpu_torch import compat, gpu_counter, mapper, oracle
 from kmer_mapper_tpu_torch.index import kmer_index as ki
 from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
-from kmer_mapper_tpu_torch.ops import probe, stream_probe
+from kmer_mapper_tpu_torch.ops import probe, stream_probe, u32hash
 
 CPU = dict(device="cpu")
 
@@ -286,10 +286,11 @@ def test_map_hashes_counter_parity():
     np.testing.assert_array_equal(got_counts, ref_counts)
 
 
-def test_map_hashes_stream_route_matches_gather(monkeypatch):
-    """A batch of at least STREAM_HASH_MIN hashes takes the stream route, a
-    smaller one the gather probe; both count as the JAX gather route and
-    the oracle do."""
+def test_map_hashes_stream_route_matches_gather():
+    """map_hashes takes the gather probe for every batch, as the JAX package
+    does off the TPU; the stream route (sort + stream count), which the
+    file path keeps, counts the same batch identically, as the JAX mapper
+    and the oracle do."""
     rng = np.random.default_rng(31)
     keys = np.unique(rng.integers(0, 1 << 62, 3000, dtype=np.uint64))
     index = ki.KmerIndex.from_counter_keys(keys)
@@ -302,45 +303,72 @@ def test_map_hashes_stream_route_matches_gather(monkeypatch):
     after = _counts()
     assert after["probe_count_reference"] == before["probe_count_reference"] + 1
     assert after["stream_count_reference"] == before["stream_count_reference"]
-    monkeypatch.setattr(KmerMapper, "STREAM_HASH_MIN", 1024)
-    stream = KmerMapper(index, MapperConfig(k=31), "cpu")
-    stream.map_hashes(hashes)
+    stream = torch.zeros_like(gather.counts)
+    lo, hi = (torch.from_numpy(w.astype(np.int64)) for w in u32hash.split_u64(hashes))
+    stream_probe.stream_probe_count(gather.key_lo, gather.key_hi, stream, lo, hi,
+                                    torch.ones(len(hashes), dtype=torch.bool),
+                                    index.table.seed, gather.block_probe)
     assert _counts()["stream_count_reference"] == after["stream_count_reference"] + 1
-    np.testing.assert_array_equal(stream.slot_counts(), gather.slot_counts())
-    assert stream.n_kmers_mapped == gather.n_kmers_mapped == len(hashes)
+    assert torch.equal(stream, gather.counts)
+    assert gather.n_kmers_mapped == len(hashes)
     ref = RefMapper(ref_ki.TpuKmerIndex.from_counter_keys(keys), RefConfig(k=31, buf=256, max_reads=16))
     ref.map_hashes(hashes)
-    np.testing.assert_array_equal(stream.slot_counts(), ref.slot_counts())
-    _, counts = stream.kmer_counts()
+    np.testing.assert_array_equal(gather.slot_counts(), ref.slot_counts())
+    _, counts = gather.kmer_counts()
     assert counts.sum() == 1500
 
 
 def test_map_hashes_routes_by_size_and_splits_large_batches(monkeypatch):
-    """At the real threshold a 2**17 batch takes the stream route; a batch
-    past HASH_PIECE is cut into pieces, each routed by its own size."""
+    """A 2**17 batch, which the stream route took before, and every piece of
+    a batch past HASH_PIECE launch probe_count and never stream_count; the
+    counts equal the JAX mapper's and the oracle's, and in_index's pieces
+    the oracle's membership."""
     rng = np.random.default_rng(32)
     arrays = _index(rng)
     index = ki.KmerIndex.from_arrays(arrays)
     hashes = np.concatenate([rng.choice(arrays.kmers, (1 << 17) - 5000),
                              rng.integers(0, 1 << 62, 5000, dtype=np.uint64)])
     expect = oracle.map_kmers_to_index(arrays, hashes)
+    ref = RefMapper(ref_ki.TpuKmerIndex.from_arrays(arrays), RefConfig(k=31, buf=256, max_reads=16))
+    ref.map_hashes(hashes)
     m = KmerMapper(index, MapperConfig(k=31), "cpu")
     before = _counts()
     m.map_hashes(hashes)
     after = _counts()
-    assert after["stream_count_reference"] == before["stream_count_reference"] + 1
-    assert after["probe_count_reference"] == before["probe_count_reference"]
+    assert after["probe_count_reference"] == before["probe_count_reference"] + 1
+    assert after["stream_count_reference"] == before["stream_count_reference"]
     np.testing.assert_array_equal(m.node_counts(), expect)
+    np.testing.assert_array_equal(m.slot_counts(), ref.slot_counts())
     monkeypatch.setattr(KmerMapper, "HASH_PIECE", 50_000)
-    monkeypatch.setattr(KmerMapper, "STREAM_HASH_MIN", 40_000)
     pieces = KmerMapper(index, MapperConfig(k=31), "cpu")
-    pieces.map_hashes(hashes)  # 50000 + 50000 stream, 31072 gather
+    pieces.map_hashes(hashes)  # pieces of 50000, 50000 and 31072
     final = _counts()
-    assert final["stream_count_reference"] == after["stream_count_reference"] + 2
-    assert final["probe_count_reference"] == after["probe_count_reference"] + 1
+    assert final["probe_count_reference"] == after["probe_count_reference"] + 3
+    assert final["stream_count_reference"] == after["stream_count_reference"]
     np.testing.assert_array_equal(pieces.node_counts(), expect)
+    np.testing.assert_array_equal(pieces.slot_counts(), ref.slot_counts())
     assert pieces.n_kmers_mapped == len(hashes)
     np.testing.assert_array_equal(pieces.in_index(hashes), oracle.in_index(arrays, hashes))
+    assert _counts()["probe_slots_reference"] == final["probe_slots_reference"] + 3
+    np.testing.assert_array_equal(pieces.in_index(hashes), ref.in_index(hashes))
+
+
+def test_hash_pieces_hold_the_raw_bits():
+    """The pieces are the hashes' uint64 bits as int64, no host split: a
+    hash with bit 63 set is a negative int64."""
+    rng = np.random.default_rng(33)
+    keys = np.unique(rng.integers(0, 1 << 62, 200, dtype=np.uint64)) | np.uint64(1 << 63)
+    m = KmerMapper(ki.KmerIndex.from_counter_keys(keys), MapperConfig(k=31), "cpu")
+    m.HASH_PIECE = 64
+    pieces = list(m._hash_pieces(keys))
+    assert [p.shape[0] for p in pieces] == [64, 64, 64, len(keys) - 192]
+    assert all(p.dtype == torch.int64 and p.device == m.device for p in pieces)
+    np.testing.assert_array_equal(torch.cat(pieces).numpy().view(np.uint64), keys)
+    assert (torch.cat(pieces) < 0).all()
+    m.map_hashes(keys)
+    _, counts = m.kmer_counts()
+    assert counts.sum() == len(keys)
+    assert m.in_index(keys).all()
 
 
 def test_oracle_copies_match():

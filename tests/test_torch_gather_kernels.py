@@ -17,7 +17,7 @@ import torch
 from kmer_mapper_tpu_torch import native
 from kmer_mapper_tpu_torch.index import layout
 from kmer_mapper_tpu_torch.ops import probe, probe_cases
-from kmer_mapper_tpu_torch.ops.u32hash import bucket_from_mlo
+from kmer_mapper_tpu_torch.ops.u32hash import bucket_from_mlo, feistel_mix, split_u64
 
 CASES = {c.name: c for c in probe_cases.cases()}
 
@@ -42,14 +42,19 @@ def _wrapped_keys(table) -> int:
     return int((stored & (here < home)).sum())
 
 
+def _call(fn, call):
+    args, kw = call
+    return fn(*args, **kw)
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_twins_match_numpy_loop(name):
     case = CASES[name]
     before = dict(probe.launch_counts)
-    slots = probe.probe_slots(*case.slot_args("cpu"))
+    slots = _call(probe.probe_slots, case.slot_args("cpu"))
     assert slots.dtype == torch.int32
     np.testing.assert_array_equal(slots.numpy(), case.expected_slots())
-    counts = probe.probe_count(*case.count_args("cpu"))
+    counts = _call(probe.probe_count, case.count_args("cpu"))
     np.testing.assert_array_equal(_u32(counts), case.expected_counts())
     # on CPU tensors the wrappers run the twins and never count a launch
     assert probe.launch_counts["gather_probe"] == before["gather_probe"]
@@ -76,7 +81,61 @@ def test_cases_cover_the_hazards():
     wrap = CASES["counts_wrap_p2"]
     assert (wrap.expected_counts() < wrap.counts0).any()  # passed 2**32
     assert not CASES["invalid_p2"].valid.all()
+    assert CASES["valid_array_p2"].valid.all()
+    assert sum(c.valid is None for c in CASES.values()) > len(CASES) // 2  # null valid
     assert CASES["seeded_p2"].table.seed != 0
+    assert (CASES["negative_words_p1"].queries.view(np.int64) < 0).all()
+    assert (CASES["high_bits_p2"].queries.view(np.int64) < 0).any()
+    # one hot key 10^4 times, whose count passes 2**32
+    skewed = CASES["skewed_p2"]
+    keys, n = np.unique(skewed.queries, return_counts=True)
+    hot = skewed.expected_slots()[skewed.queries == keys[n.argmax()]][0]
+    assert n.max() >= 10_000 and skewed.expected_counts()[hot] < skewed.counts0[hot]
+    assert {c.bounds for c in CASES.values()} == {True, False}
+
+
+def _homes(case) -> np.ndarray:
+    """The chain block each query of the case is homed in."""
+    t = case.table
+    m_lo, _ = feistel_mix(*split_u64(case.queries), seed=t.seed)
+    return bucket_from_mlo(m_lo, t.n_buckets).astype(np.int64) // min(layout.CHAIN_BLOCK,
+                                                                      t.n_buckets)
+
+
+def test_block_bounds_case_differs_by_block():
+    """One long chain beside blocks with none; misses homed in every block
+    and in the long chain; round bounds below the long chain's bound."""
+    case = CASES["block_bounds_p2"]
+    bounds = case.table.block_max_probe()
+    assert bounds.min() == 1 and bounds.max() >= 4 and (bounds == 1).sum() >= 6
+    miss = case.expected_slots() < 0
+    homes = _homes(case)
+    assert set(homes[miss]) == set(range(len(bounds)))
+    long_block = int(bounds.argmax())
+    assert (miss & (homes == long_block)).sum() >= 100
+    assert 1 < case.max_probe < bounds.max()
+    # the bound the walk stops at finds every key the table's own bound finds
+    full = CASES[f"block_bounds_p{case.table.max_probe}"]
+    np.testing.assert_array_equal(
+        full.expected_slots(),
+        CASES[f"block_bounds_nobounds_p{case.table.max_probe}"].expected_slots())
+    assert (full.expected_slots() >= 0).sum() > (case.expected_slots() >= 0).sum()
+
+
+@pytest.mark.parametrize("name", ["block_bounds_p6", "wrapping_chains_p55", "sentinel_p2"])
+def test_block_bounds_cut_rounds(name):
+    """Under the block bounds a query walks at most max_probe rounds, and a
+    query homed in a block without chains one round."""
+    case = CASES[name]
+    t = case.table
+    args, kw = case.slot_args("cpu")
+    _, _, _, rounds = probe.query_rounds(args[2], case.max_probe, t.seed, t.n_buckets,
+                                         kw["block_probe"])
+    _, _, _, unbounded = probe.query_rounds(args[2], case.max_probe, t.seed, t.n_buckets)
+    homes = _homes(case)
+    assert (rounds <= unbounded).all() and rounds.sum() < unbounded.sum()
+    plain = t.block_max_probe()[homes] == 1
+    assert (rounds.numpy()[plain] <= 1).all()
 
 
 def test_chain_next_matches_layout():
@@ -92,23 +151,26 @@ def test_chain_next_matches_layout():
 
 def _args(n_buckets=8, n=5):
     key = torch.zeros((n_buckets, 8), dtype=torch.int32)
-    q = torch.zeros(n, dtype=torch.int32)
+    q = torch.zeros(n, dtype=torch.int64)
     counts = torch.zeros(n_buckets * 8, dtype=torch.int32)
-    return key, key.clone(), counts, q, q.clone(), torch.ones(n, dtype=torch.bool)
+    block_probe = torch.ones(max(1, n_buckets // 128), dtype=torch.int32)
+    return key, key.clone(), counts, q, torch.ones(n, dtype=torch.bool), block_probe
 
 
 @pytest.mark.parametrize("bad,match", [
-    (dict(q_lo=torch.zeros(5, dtype=torch.int64)), "q_lo"),
+    (dict(queries=torch.zeros(5, dtype=torch.int32)), "queries"),
     (dict(valid=torch.ones(4, dtype=torch.bool)), "valid"),
     (dict(counts=torch.zeros(63, dtype=torch.int32)), "counts"),
     (dict(key_lo=torch.zeros((8, 16), dtype=torch.int32)[:, ::2]), "key_lo"),
     (dict(max_probe=0), "max_probe"),
     (dict(max_probe=layout.MAX_PROBE_HARD + 1), "max_probe"),
+    (dict(block_probe=torch.ones(2, dtype=torch.int32)), "block_probe"),
+    (dict(block_probe=torch.ones(1, dtype=torch.int64)), "block_probe"),
 ])
 def test_refusals(bad, match):
-    key_lo, key_hi, counts, q_lo, q_hi, valid = _args()
-    kw = dict(key_lo=key_lo, key_hi=key_hi, counts=counts, q_lo=q_lo, q_hi=q_hi,
-              valid=valid, max_probe=2, seed=0)
+    key_lo, key_hi, counts, queries, valid, block_probe = _args()
+    kw = dict(key_lo=key_lo, key_hi=key_hi, counts=counts, queries=queries, valid=valid,
+              max_probe=2, seed=0, block_probe=block_probe)
     kw.update(bad)
     with pytest.raises(ValueError, match=match):
         probe.probe_count(**kw)
@@ -119,20 +181,21 @@ def test_refusals(bad, match):
 
 
 def test_tables_that_are_not_a_power_of_two_are_refused():
-    key_lo, key_hi, counts, q_lo, q_hi, valid = _args(n_buckets=6)
+    key_lo, key_hi, counts, queries, valid, _ = _args(n_buckets=6)
     with pytest.raises(ValueError, match="power of two"):
-        probe.probe_count(key_lo, key_hi, counts, q_lo, q_hi, valid, 2, 0)
+        probe.probe_count(key_lo, key_hi, counts, queries, 2, 0, valid=valid)
 
 
 def test_other_devices_are_refused():
     """Only CPU tensors take the twin; a device with no kernel raises."""
     args = [t.to("meta") for t in _args()]
-    key_lo, key_hi, counts, q_lo, q_hi, valid = args
+    key_lo, key_hi, counts, queries, valid, block_probe = args
     before = dict(probe.launch_counts)
     with pytest.raises(ValueError, match="no kernel for device meta"):
-        probe.probe_count(key_lo, key_hi, counts, q_lo, q_hi, valid, 2, 0)
+        probe.probe_count(key_lo, key_hi, counts, queries, 2, 0, valid=valid,
+                          block_probe=block_probe)
     with pytest.raises(ValueError, match="no kernel for device meta"):
-        probe.probe_slots(key_lo, key_hi, q_lo, q_hi, 2, 0)
+        probe.probe_slots(key_lo, key_hi, queries, 2, 0)
     assert probe.launch_counts == before
 
 
@@ -140,9 +203,22 @@ def test_slots_past_int32_are_refused():
     """probe_slots writes int32 slots, as the JAX probe does: a table of
     2**29 buckets (2**32 slots) is refused, not wrapped."""
     key = torch.empty((1 << 29, 8), dtype=torch.int32, device="meta")
-    q = torch.empty(4, dtype=torch.int32, device="meta")
+    q = torch.empty(4, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="2\\*\\*31 slots"):
-        probe.probe_slots(key, key, q, q, 2, 0)
+        probe.probe_slots(key, key, q, 2, 0)
+
+
+def test_twin_splits_negative_words_with_a_mask():
+    """torch's int64 ``>>`` copies the sign bit down: the twin's hi word of
+    a raw word with bit 63 set is ``(q >> 32) & MASK32``, as split_u64's."""
+    kmers = np.array([1 << 63, (1 << 64) - 1, 0x80000000FFFFFFFF, 0x7FFFFFFF80000000],
+                     np.uint64)
+    table = layout.build_table(kmers)
+    queries = probe_cases.raw_queries(kmers, "cpu")
+    assert (queries < 0).sum() == 3
+    key_lo, key_hi = (torch.from_numpy(w.view(np.int32)) for w in (table.key_lo, table.key_hi))
+    slots = probe.probe_slots(key_lo, key_hi, queries, table.max_probe, table.seed)
+    np.testing.assert_array_equal(slots.numpy(), table.build_slots)
 
 
 def _cuda_stubs(monkeypatch):
@@ -152,23 +228,43 @@ def _cuda_stubs(monkeypatch):
                         lambda *a: types.SimpleNamespace(cuda_stream=0))
 
 
+def _stub_library(monkeypatch, rc):
+    calls = []
+    lib = types.SimpleNamespace(
+        gather_probe_launch=lambda *a: calls.append(a) or rc,
+        kmt_error_string=lambda rc: b"invalid argument",
+    )
+    monkeypatch.setattr(native, "library", lambda: lib)
+    return calls
+
+
 def test_failed_launch_raises(monkeypatch):
     """A launch that returns an error raises and counts nothing: there is
     no fallback to the twin."""
     _cuda_stubs(monkeypatch)
-    calls = []
-    lib = types.SimpleNamespace(
-        gather_probe_launch=lambda *a: calls.append(a) or 1,
-        kmt_error_string=lambda rc: b"invalid argument",
-    )
-    monkeypatch.setattr(native, "library", lambda: lib)
-    key_lo, key_hi, counts, q_lo, q_hi, valid = _args()
+    calls = _stub_library(monkeypatch, 1)
+    key_lo, key_hi, counts, queries, valid, block_probe = _args()
     before = dict(probe.launch_counts)
     with pytest.raises(RuntimeError, match="gather_probe kernel launch failed: invalid argument"):
-        probe._launch(0, key_lo, key_hi, q_lo, q_hi, valid, counts, None, 2, 7)
+        probe._launch(0, key_lo, key_hi, block_probe, queries, valid, counts, None, 2, 7)
     assert probe.launch_counts == before
     (args,) = calls
-    assert args[7:12] == (5, 8, 2, 7, 0)  # n, n_buckets, max_probe, seed, mode
+    # n, n_buckets, n_blocks, max_probe, seed, mode, then the device and stream
+    assert args[7:13] == (5, 8, 1, 2, 7, 0) and len(args) == 15
+
+
+def test_launch_passes_null_valid_and_block_probe(monkeypatch):
+    """No valid array and no block bounds reach the kernel as null pointers
+    (every query valid; max_probe rounds), with n_blocks 0."""
+    _cuda_stubs(monkeypatch)
+    calls = _stub_library(monkeypatch, 0)
+    key_lo, key_hi, counts, queries, _, _ = _args()
+    before = probe.launch_counts["gather_probe"]
+    probe._launch(0, key_lo, key_hi, None, queries, None, counts, None, 3, 0)
+    assert probe.launch_counts["gather_probe"] == before + 1
+    (args,) = calls
+    assert args[2] is None and args[4] is None and args[6] is None
+    assert args[9] == 0
 
 
 def test_failed_build_raises(monkeypatch):
@@ -178,10 +274,10 @@ def test_failed_build_raises(monkeypatch):
         raise RuntimeError("nvcc not found")
 
     monkeypatch.setattr(native, "library", no_nvcc)
-    key_lo, key_hi, _, q_lo, q_hi, _ = _args()
+    key_lo, key_hi, _, queries, _, block_probe = _args()
     before = dict(probe.launch_counts)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        probe._launch(1, key_lo, key_hi, q_lo, q_hi, None, None,
+        probe._launch(1, key_lo, key_hi, block_probe, queries, None, None,
                       torch.empty(5, dtype=torch.int32), 2, 0)
     assert probe.launch_counts == before
 
@@ -191,14 +287,14 @@ def test_failed_build_raises(monkeypatch):
 def test_kernel_matches_twin_and_loop(name, cuda_device):
     case = CASES[name]
     before = probe.launch_counts["gather_probe"]
-    slots = probe.probe_slots(*case.slot_args(cuda_device))
-    counts = probe.probe_count(*case.count_args(cuda_device))
+    slots = _call(probe.probe_slots, case.slot_args(cuda_device))
+    counts = _call(probe.probe_count, case.count_args(cuda_device))
     torch.cuda.synchronize()
     assert probe.launch_counts["gather_probe"] == before + 2
     np.testing.assert_array_equal(slots.cpu().numpy(), case.expected_slots())
     np.testing.assert_array_equal(_u32(counts), case.expected_counts())
-    twin_slots = probe.probe_slots_reference(*case.slot_args(cuda_device))
-    twin_counts = probe.probe_count_reference(*case.count_args(cuda_device))
+    twin_slots = _call(probe.probe_slots_reference, case.slot_args(cuda_device))
+    twin_counts = _call(probe.probe_count_reference, case.count_args(cuda_device))
     assert torch.equal(slots, twin_slots) and torch.equal(counts, twin_counts)
 
 
@@ -216,8 +312,8 @@ def test_kernel_matches_twin_on_a_large_batch(cuda_device):
     case = probe_cases.ProbeCase("large", table, queries, rng.random(len(queries)) < 0.9,
                                  rng.integers(0, 1 << 32, table.n_slots).astype(np.uint32),
                                  table.max_probe)
-    got = probe.probe_slots(*case.slot_args(cuda_device))
-    assert torch.equal(got, probe.probe_slots_reference(*case.slot_args(cuda_device)))
+    got = _call(probe.probe_slots, case.slot_args(cuda_device))
+    assert torch.equal(got, _call(probe.probe_slots_reference, case.slot_args(cuda_device)))
     assert int((got >= 0).sum()) >= 1 << 19
-    got = probe.probe_count(*case.count_args(cuda_device))
-    assert torch.equal(got, probe.probe_count_reference(*case.count_args(cuda_device)))
+    got = _call(probe.probe_count, case.count_args(cuda_device))
+    assert torch.equal(got, _call(probe.probe_count_reference, case.count_args(cuda_device)))

@@ -1,7 +1,10 @@
 """The port's gather-probe twins against the JAX package's gather probe
 (``kmer_mapper_tpu/ops/probe.py``: ``probe_hits`` + the accumulators, and
 ``probe_slots``) on the same numpy-seeded hazard cases, and the port's
-Feistel halves against the JAX package's."""
+Feistel halves against the JAX package's. The twins take the raw uint64
+words as int64 and bound each query's rounds by its chain block, where the
+case passes the block bounds; JAX walks ``max_probe`` rounds of the split
+words, and the two must agree exactly."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +27,8 @@ def _jax_inputs(case):
 @pytest.mark.parametrize("name", list(CASES))
 def test_slots_match_jax(name):
     case = CASES[name]
-    got = probe.probe_slots_reference(*case.slot_args("cpu")).numpy()
+    args, kw = case.slot_args("cpu")
+    got = probe.probe_slots_reference(*args, **kw).numpy()
     expect = np.asarray(ref_probe.probe_slots(*_jax_inputs(case)))
     np.testing.assert_array_equal(got, expect)
     np.testing.assert_array_equal(got, case.expected_slots())
@@ -37,10 +41,12 @@ def test_slots_match_jax(name):
 ])
 def test_counts_match_jax(name, accumulate):
     case = CASES[name]
-    got = probe.probe_count_reference(*case.count_args("cpu")).numpy().view(np.uint32)
+    args, kw = case.count_args("cpu")
+    got = probe.probe_count_reference(*args, **kw).numpy().view(np.uint32)
     bucket, mask = ref_probe.probe_hits(*_jax_inputs(case))
+    valid = np.ones(len(case.queries), bool) if case.valid is None else case.valid
     expect = ref_probe.ACCUMULATORS[accumulate](
-        jnp.asarray(case.counts0), bucket, mask, jnp.asarray(case.valid)
+        jnp.asarray(case.counts0), bucket, mask, jnp.asarray(valid)
     )
     np.testing.assert_array_equal(got, np.asarray(expect))
 
