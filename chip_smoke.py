@@ -8,27 +8,35 @@ result line):
   1. environment: torch, CUDA, the card's name and power limit, nvcc;
   2. build the CUDA kernels from kmer_mapper_tpu_torch/csrc with nvcc;
   3. the stream-count kernel against its plain-torch twin and the host
-     oracle on every hazard case of its contract, and the two hash-key
+     oracle on every hazard case of its contract, the two hash-key
      kernels (plane and ragged) against theirs on every case of
-     ops/hash_keys_cases.py (exact equality, the keys in the same order);
+     ops/hash_keys_cases.py (exact equality, the keys in the same order),
+     and the block-partition kernels against their twin on every case of
+     ops/block_partition_cases.py (offsets exact, every key in its own
+     block's window, the windows equal as multisets), each table case then
+     counted == the oracle;
   4. the main path as a user runs it: ``kmer_mapper_tpu_torch.cli map`` on
      a FASTQ of 10^5 151-bp reads against the bench index (~2.6M unique
      31-mers in 2^20 buckets); node counts must equal the numpy oracle's
-     modulo-index probe, and the plane hash-key kernel and the count kernel
-     must have run (no twin);
+     modulo-index probe, and the plane hash-key kernel, the partition
+     kernels and the count kernel must have run (no twin);
   5. steady state on 8 distinct device-resident 64 Mi-base chunks of 151-bp
      reads: k-mers per second through KmerMapper.map_chunk and through the
      same stages with the plain twins, per-stage milliseconds (hash keys,
-     sort, offsets, count), equal counts, one chunk's node counts == the
-     oracle's; then the ragged step the same way on the same bases cut into
-     reads of 100-151 bp (8 chunks, each one continuous buffer);
+     partition, count), equal counts, one chunk's node counts == the
+     oracle's; the partition kernels against their twin on that chunk and
+     timed beside torch.sort + count_offsets on the same keys, the count
+     kernel on its grouped and on its sorted keys; then the ragged step the
+     same way on the same bases cut into reads of 100-151 bp (8 chunks, each
+     one continuous buffer);
   6. dissect: the three dissection scripts of kmer_mapper_tpu_torch.scripts
      run as a user runs them, at their full sizes (their kernels must have
      launched); then every variant of each kernel against its twin, bit for
      bit, r2_kernel_dissect's full against stream_count, and the
      tile-scheduled r2_window_dissect against both on a poly-A window; on
-     a ragged chunk, the main path's offsets (which end at the invalid tail)
-     leave the last chain block's window without invalid queries;
+     a ragged chunk, count_offsets (which end at the invalid tail, as the
+     partition's windows do) leave the last chain block's window without
+     invalid queries;
   7. tiles: the three r9 tile-body scripts of kmer_mapper_tpu_torch.scripts
      (r9_dot_orient, r9_step_parts, r9_block_pipeline) run as a user runs
      them, at their full sizes (their kernels must have launched); then
@@ -54,8 +62,9 @@ result line):
      -t 8 and --profile-dir on the 8-chunk file, (f) as (c) without the
      profiler, (d) the .fq.gz and (e) the BGZF file, and (g) the first
      ragged chunk's reads as FASTQ; every node-count vector must equal a
-     fresh map_chunk pass over the same chunks, stream_count and the hash-key
-     kernel of the run's step must have launched and no twin, and the
+     fresh map_chunk pass over the same chunks, stream_count, the partition
+     kernels and the hash-key kernel of the run's step must have launched
+     and no twin, and the
      native loader must have framed (b)-(g). Prints each run's wall
      seconds, bases and k-mers per second, the seconds the mapping loop
      waited on the host feed and the gzip decoder; from (c)'s trace, the
@@ -97,6 +106,12 @@ CROSSOVER = [1 << e for e in range(12, 27, 2)]  # batch sizes timed on both rout
 LARGE_TABLE_KEYS = 1 << 24  # random keys of the table ten times the L2, phase 8
 LARGE_TABLE_BUCKETS = 1 << 23  # 537 MB of key words
 RAGGED_MIN, RAGGED_MAX = 100, 151  # read lengths of the ragged steady state
+#: INT32 operations a key of the block partition, counted from
+#: csrc/block_partition.cu: per pass (histogram, scatter) the key's compare
+#: with the invalid key and its block (about 4), the bounds check, the match
+#: and the leader test (about 4); the scatter's rank, shuffle and address
+#: (about 4)
+PARTITION_OPS = 20
 #: INT32 operations a forward key of the hash-key kernels, counted from
 #: csrc/hash_keys.cu: the window (2 funnel shifts, 2 masks), the Feistel mix
 #: (3 rounds of fmix32's 3 shifts, 3 xors and 2 multiplies plus 2 xors), the
@@ -256,6 +271,70 @@ def phase_hash_hazards(torch, np, device) -> dict:
     return max_err
 
 
+def partition_check(torch, keys, n_buckets: int, shared=None):
+    """The partition kernels (the histogram where the wrapper puts it, or
+    as ``shared`` says) against their twin on the same device: returns
+    (grouped keys, off, max_abs_err). Raises unless the offsets are equal,
+    every key lies in its own block's window and the two hold the same
+    keys, which with the first two makes every window equal as a
+    multiset."""
+    from kmer_mapper_tpu_torch.ops import block_partition as bp
+
+    bpb = min(128, n_buckets)
+    n_blocks = n_buckets // bpb
+    if shared is None:
+        grouped, off = bp.block_partition(keys, n_buckets, bpb)
+    else:
+        grouped, off = bp._partition_launch(keys, n_blocks, shared)
+    twin, twin_off = bp.block_partition_reference(keys, n_buckets, bpb)
+    end = int(off[-1])
+    owner = torch.repeat_interleave(torch.arange(n_blocks, device=keys.device),
+                                    (off[1:] - off[:-1]).long())
+    err = max(key_err(off.long(), twin_off.long()),
+              key_err(torch.sort(grouped).values, torch.sort(twin).values))
+    if (err or not torch.equal(bp.block_ids(grouped[:end], n_blocks), owner)
+            or not bool((grouped[end:] == bp.INVALID_KEY).all())):
+        raise AssertionError("partition: kernel and twin disagree")
+    return grouped, off, err
+
+
+def phase_partition_hazards(torch, np, device) -> int:
+    """The partition kernels against their twin on every case of
+    ops/block_partition_cases.py (the poly-A window at POLY_A keys), the
+    histogram in shared memory where it fits and in device memory; every
+    table case then counted by stream_count == the oracle. Returns the
+    largest absolute difference (must be 0)."""
+    from kmer_mapper_tpu_torch.ops import block_partition as bp
+    from kmer_mapper_tpu_torch.ops import block_partition_cases, stream_probe
+
+    t = time.perf_counter()
+    max_err, n_keys = 0, 0
+    cases = block_partition_cases.cases(poly_a=POLY_A)
+    for case in cases:
+        keys = case.inputs(device)[0]
+        for shared in (None, False):
+            max_err = max(max_err, partition_check(torch, keys, case.n_buckets, shared)[2])
+        n_keys += keys.numel()
+    for case in block_partition_cases.table_cases(poly_a=POLY_A):
+        key_lo, key_hi, counts, _, _, block_probe, _, _ = case.inputs(device)
+        keys = block_partition_cases.query_keys(case)
+        stream_probe.stream_probe_count_keys(
+            key_lo, key_hi, counts, torch.from_numpy(keys[case.valid]).to(device), block_probe)
+        if not np.array_equal(_u32(counts), case.expected().astype(np.int64)):
+            raise AssertionError(f"partition hazard {case.name}: counts differ from the oracle")
+    log(f"partition hazards: {len(cases)} cases ({n_keys} keys; up to "
+        f"{max(c.n_buckets // c.bpb for c in cases)} chain blocks), kernel == twin with the "
+        f"histogram in shared memory (up to {bp.SHARED_BINS} bins) and in device memory; "
+        f"every table case counted == oracle, in {time.perf_counter() - t:.1f} s")
+    return max_err
+
+
+def partition_bound(n_keys: int, n_blocks: int) -> tuple[float, str]:
+    """The partition's bound: its keys read once, the grouped keys and the
+    offsets written once, PARTITION_OPS INT32 operations a key."""
+    return bound(16 * n_keys + 4 * (n_blocks + 1), PARTITION_OPS * n_keys)
+
+
 def hash_bound(n_read_bytes: int, n_keys: int) -> tuple[float, str]:
     """A hash-key kernel's bound without reverse complements: its inputs
     read once, its 8-byte keys written once, HASH_OPS INT32 operations a
@@ -263,10 +342,19 @@ def hash_bound(n_read_bytes: int, n_keys: int) -> tuple[float, str]:
     return bound(n_read_bytes + 8 * n_keys, HASH_OPS * n_keys)
 
 
+#: the kernels that both chunk steps launch once a chunk, beside their
+#: hash-key kernel
+MAIN_PATH_KERNELS = ("block_histogram", "block_scatter", "stream_count")
+
+
 def zero_launch_counts(*modules) -> None:
     for m in modules:
         for name in m.launch_counts:
             m.launch_counts[name] = 0
+
+
+def all_launches(*modules) -> dict:
+    return {name: n for m in modules for name, n in m.launch_counts.items()}
 
 
 def make_chunks(np, rng, n_chunks: int, n_reads: int):
@@ -296,7 +384,7 @@ def phase_end_to_end(torch, np, chunk0, rng, workdir) -> dict:
     from kmer_mapper_tpu_torch import cli, oracle
     from kmer_mapper_tpu_torch.index import kmer_index
     from kmer_mapper_tpu_torch.io import readers
-    from kmer_mapper_tpu_torch.ops import hashing, stream_probe
+    from kmer_mapper_tpu_torch.ops import block_partition, hashing, stream_probe
     from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
 
     t = time.perf_counter()
@@ -318,17 +406,18 @@ def phase_end_to_end(torch, np, chunk0, rng, workdir) -> dict:
         f"written in {time.perf_counter() - t:.1f} s")
 
     out = os.path.join(workdir, "counts.npy")
-    zero_launch_counts(stream_probe, hashing)
+    modules = (stream_probe, hashing, block_partition)
+    zero_launch_counts(*modules)
     t = time.perf_counter()
     cli.main(["map", "-i", index_path, "-f", fq, "-k", str(K), "-o", out])
     seconds = time.perf_counter() - t
-    launches = {**stream_probe.launch_counts, **hashing.launch_counts}
+    launches = all_launches(*modules)
     got = np.load(out)
 
     n_chunks = -(-E2E_READS // readers.strided_rows(CUDA_BUF, READ_LEN))
     twins = [name for name, n in launches.items() if "reference" in name and n]
-    if (launches["stream_count"] < n_chunks or launches["plane_hash_keys"] < n_chunks
-            or launches["ragged_hash_keys"] or twins):
+    if (min(launches[name] for name in MAIN_PATH_KERNELS) < n_chunks
+            or launches["plane_hash_keys"] < n_chunks or launches["ragged_hash_keys"] or twins):
         raise AssertionError(f"main path did not run the kernels alone: {launches}")
     expect = oracle.map_kmers_to_index(arrays, fixed_read_kmers(np, reads.reshape(-1)))
     if not np.array_equal(got, expect):
@@ -336,7 +425,10 @@ def phase_end_to_end(torch, np, chunk0, rng, workdir) -> dict:
     log(f"e2e: cli map on {torch.cuda.get_device_name(0)} in {seconds:.2f} s "
         f"(index build included); {int(got.sum())} node hits == oracle; "
         f"launches {launches}")
+    if launches["block_histogram"] != launches["block_scatter"]:
+        raise AssertionError(f"e2e: the partition kernels ran unequally: {launches}")
     return {"launches": launches["stream_count"],
+            "partition_launches": launches["block_scatter"],
             "hash_launches": launches["plane_hash_keys"], "arrays": arrays,
             "index": kmer_index.KmerIndex.from_arrays(arrays)}
 
@@ -390,10 +482,42 @@ def oracle_check(np, index, arrays, config, device, packed_chunk, kmers, what):
         f"in {time.perf_counter() - t:.1f} s")
 
 
+def partition_report(torch, keys, n_buckets: int, off, err: int, what: str) -> dict:
+    """The partition's device ms on these keys (median of 5), its two
+    kernels' apart (the histogram also in device memory), its twin's and
+    torch.sort + count_offsets' on the same keys, beside its bound; the
+    kernels line's entry."""
+    from kmer_mapper_tpu_torch.ops import block_partition as bp
+    from kmer_mapper_tpu_torch.ops import stream_probe
+
+    bpb = min(128, n_buckets)
+    n_blocks = n_buckets // bpb
+    t = {
+        "partition": median_ms(lambda: bp.block_partition(keys, n_buckets, bpb)),
+        "block_histogram": median_ms(lambda: bp.block_histogram(keys, n_blocks)),
+        "block_histogram in device memory": median_ms(
+            lambda: bp.block_histogram(keys, n_blocks, shared=False)),
+        "block_scatter": median_ms(lambda: bp.block_scatter(keys, off.clone(), n_blocks)),
+        "twin": median_ms(lambda: bp.block_partition_reference(keys, n_buckets, bpb), reps=3),
+        "torch.sort + count_offsets": median_ms(
+            lambda: stream_probe.count_offsets(torch.sort(keys).values, n_buckets, bpb)),
+    }
+    bound_ms, bound_by = partition_bound(keys.numel(), n_blocks)
+    # the two-pass design's own floor: the histogram reads the keys as well
+    two_pass_ms = bound(24 * keys.numel() + 4 * (n_blocks + 1), 0)[0]
+    log(f"{what}: block partition of {keys.numel()} keys into {n_blocks} chain blocks: "
+        + ", ".join(f"{name} {ms:.4f} ms" for name, ms in t.items())
+        + f" (median of 5; the twin's of 3); bound {bound_ms:.4f} ms by {bound_by}, "
+        f"{two_pass_ms:.4f} ms with the histogram's read")
+    return {"ms": t["partition"], "plain_ms": t["twin"],
+            "library_ms": t["torch.sort + count_offsets"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, "times": t}
+
+
 def phase_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     from kmer_mapper_tpu_torch.io import readers
     from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
-    from kmer_mapper_tpu_torch.ops import hashing, stream_probe
+    from kmer_mapper_tpu_torch.ops import block_partition, hashing, stream_probe
     from kmer_mapper_tpu_torch.ops.u32hash import bucket_shift
     from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
 
@@ -422,34 +546,32 @@ def phase_steady_state(torch, np, chunks, index, arrays, device) -> dict:
         for words, nb, _ in dev_chunks:
             mapper.map_chunk(words, None, nb, strided=True)
 
-    def sorted_queries(words, n_reads):
-        """The plain stages before the count: the hash twin, sort, offsets."""
-        keys = torch.sort(hashing.plane_hash_keys_reference(
-            words, K, READ_LEN, n_reads, seed)).values
-        return keys, stream_probe.count_offsets(keys, n_buckets, bpb)
-
     twin_counts = torch.zeros_like(mapper.counts)
 
     def run_twin():
+        """The same stages with the plain twins: hash, partition, count."""
         for words, _, nr in dev_chunks:
-            keys, off = sorted_queries(words, nr)
+            keys, off = block_partition.block_partition_reference(
+                hashing.plane_hash_keys_reference(words, K, READ_LEN, nr, seed), n_buckets, bpb)
             stream_probe.stream_count_reference(
                 mapper.key_lo, mapper.key_hi, twin_counts, keys, off,
                 mapper.block_probe, shift, bpb,
             )
 
+    modules = (hashing, stream_probe, block_partition)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launch_counts(hashing, stream_probe)
+    zero_launch_counts(*modules)
     kernel_rates = timed_rates(torch, run_mapper, kmers_per_chunk * len(dev_chunks))
     peak = torch.cuda.max_memory_allocated()
-    launches = {**hashing.launch_counts, **stream_probe.launch_counts}
+    launches = all_launches(*modules)
     twin_rates = timed_rates(torch, run_twin, kmers_per_chunk * len(dev_chunks))
     # both ran 1 + N_WINDOWS windows over the same chunks from zero counts
     if not torch.equal(mapper.counts, twin_counts):
         raise AssertionError("steady: kernel path and twin path counts differ")
     n_steps = (1 + N_WINDOWS) * len(dev_chunks)
-    if (launches["plane_hash_keys"] != n_steps or launches["stream_count"] != n_steps
+    if (launches["plane_hash_keys"] != n_steps
+            or any(launches[name] != n_steps for name in MAIN_PATH_KERNELS)
             or launches["ragged_hash_keys"]
             or any(n for name, n in launches.items() if "reference" in name)):
         raise AssertionError(f"steady: map_chunk did not run the kernels alone: {launches}")
@@ -474,16 +596,24 @@ def phase_steady_state(torch, np, chunks, index, arrays, device) -> dict:
 
     stage_ms = stage_split(torch, dev_chunks, [
         ("hash_keys", lambda c: hashing.plane_hash_keys(c[0], K, READ_LEN, c[2], seed)),
-        ("sort", lambda keys: torch.sort(keys).values),
-        ("offsets", lambda keys: (keys, stream_probe.count_offsets(keys, n_buckets, bpb))),
+        ("partition", lambda keys: block_partition.block_partition(keys, n_buckets, bpb)),
         ("kernel", lambda st: count(st, stream_probe.stream_count)),
         ("twin_count", lambda st: count(st, stream_probe.stream_count_reference)),
     ])
     log("steady: per-chunk stage ms " + ", ".join(f"{n} {v:.3f}" for n, v in stage_ms.items()))
 
-    # kernel vs twin alone on one chunk's sorted keys: the result from
-    # fresh counts, then the median device time of 5 calls (median_ms)
-    keys, off = sorted_queries(words0, nr0)
+    # the partition kernels alone on one chunk's keys, against their twin,
+    # with the histogram in shared memory (the wrapper's choice here) and in
+    # device memory; timed beside the twin and torch.sort + count_offsets
+    keys0 = hashing.plane_hash_keys(words0, K, READ_LEN, nr0, seed)
+    keys, off, part_err = partition_check(torch, keys0, n_buckets)
+    part_err = max(part_err, partition_check(torch, keys0, n_buckets, shared=False)[2])
+    partition = partition_report(torch, keys0, n_buckets, off, part_err, "steady")
+
+    # the count kernel vs its twin alone on that chunk's grouped keys: the
+    # result from fresh counts, then the median device time of 5 calls
+    # (median_ms); and the kernel on the same keys sorted, as before the
+    # partition
     outs, ms = [], []
     for fn in (stream_probe.stream_count, stream_probe.stream_count_reference):
         c = torch.zeros_like(mapper.counts)
@@ -491,13 +621,20 @@ def phase_steady_state(torch, np, chunks, index, arrays, device) -> dict:
         outs.append(fn(*args).clone())
         ms.append(median_ms(lambda: fn(*args)))
     max_err = int((outs[0].to(torch.int64) - outs[1].to(torch.int64)).abs().max())
-    if max_err:
+    ordered = torch.sort(keys0).values
+    sorted_args = (mapper.key_lo, mapper.key_hi, torch.zeros_like(mapper.counts), ordered,
+                   stream_probe.count_offsets(ordered, n_buckets, bpb), mapper.block_probe,
+                   shift, bpb)
+    if max_err or not torch.equal(stream_probe.stream_count(*sorted_args), outs[0]):
         raise AssertionError("steady: kernel and twin disagree on one chunk")
+    sorted_ms = median_ms(lambda: stream_probe.stream_count(*sorted_args))
+    del ordered, sorted_args
     bound_ms, bound_by = count_bound(
         (mapper.key_lo, mapper.key_hi, outs[0], keys, off, mapper.block_probe, shift, bpb),
         index.table.max_probe, int(outs[0].ne(0).sum()))
-    log(f"steady: stream_count on {keys.numel()} queries: kernel {ms[0]:.3f} ms, "
-        f"twin {ms[1]:.3f} ms (median of 5); bound {bound_ms:.4f} ms by {bound_by}")
+    log(f"steady: stream_count on {keys.numel()} queries: kernel {ms[0]:.4f} ms on the "
+        f"partition's grouped keys, {sorted_ms:.4f} ms on the same keys sorted; twin "
+        f"{ms[1]:.3f} ms (median of 5); bound {bound_ms:.4f} ms by {bound_by}")
 
     # the plane hash-key kernel alone on one chunk, against its twin
     hash_args = (words0, K, READ_LEN, nr0, seed)
@@ -511,9 +648,10 @@ def phase_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     hash_bound_ms, hash_bound_by = hash_bound(4 * nr0 * npr, got.numel())
     log(f"steady: plane_hash_keys on {nr0} reads ({got.numel()} keys): kernel {hash_ms:.4f} "
         f"ms, twin {hash_plain_ms:.3f} ms; bound {hash_bound_ms:.4f} ms by {hash_bound_by}")
-    del got, keys
+    del got, keys, keys0
     return {
         "kernel_rates": kernel_rates, "twin_rates": twin_rates, "stage_ms": stage_ms,
+        "peak_gib": peak / 2**30, "partition": partition,
         "ms": ms[0], "plain_ms": ms[1], "max_abs_err": max_err,
         "bound_ms": bound_ms, "bound_by": bound_by, "dev_chunks": dev_chunks,
         "hash": {"ms": hash_ms, "plain_ms": hash_plain_ms, "max_abs_err": hash_err,
@@ -556,7 +694,7 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     against its twin."""
     from kmer_mapper_tpu_torch.io import readers
     from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
-    from kmer_mapper_tpu_torch.ops import hashing, stream_probe
+    from kmer_mapper_tpu_torch.ops import block_partition, hashing, stream_probe
     from kmer_mapper_tpu_torch.ops.u32hash import bucket_shift
     from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
 
@@ -586,22 +724,24 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     twin_counts = torch.zeros_like(mapper.counts)
 
     def run_twin():
+        """The same stages with the plain twins: hash, partition, count."""
         for words, lengths, nb in dev_chunks:
-            keys = torch.sort(hashing.ragged_hash_keys_reference(words, lengths, nb, K,
-                                                                 seed)).values
+            keys, off = block_partition.block_partition_reference(
+                hashing.ragged_hash_keys_reference(words, lengths, nb, K, seed), n_buckets, bpb)
             stream_probe.stream_count_reference(
-                mapper.key_lo, mapper.key_hi, twin_counts, keys,
-                stream_probe.count_offsets(keys, n_buckets, bpb), mapper.block_probe, shift,
+                mapper.key_lo, mapper.key_hi, twin_counts, keys, off, mapper.block_probe, shift,
                 bpb)
 
-    zero_launch_counts(hashing, stream_probe)
+    modules = (hashing, stream_probe, block_partition)
+    zero_launch_counts(*modules)
     kernel_rates = timed_rates(torch, run_mapper, n_kmers)
-    launches = {**hashing.launch_counts, **stream_probe.launch_counts}
+    launches = all_launches(*modules)
     twin_rates = timed_rates(torch, run_twin, n_kmers)
     if not torch.equal(mapper.counts, twin_counts):
         raise AssertionError("ragged: kernel path and twin path counts differ")
     n_steps = (1 + N_WINDOWS) * len(dev_chunks)
-    if (launches["ragged_hash_keys"] != n_steps or launches["stream_count"] != n_steps
+    if (launches["ragged_hash_keys"] != n_steps
+            or any(launches[name] != n_steps for name in MAIN_PATH_KERNELS)
             or launches["plane_hash_keys"]
             or any(n for name, n in launches.items() if "reference" in name)):
         raise AssertionError(f"ragged: map_chunk did not run the kernels alone: {launches}")
@@ -621,16 +761,17 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
         starts, offs = hashing.ragged_offsets(lengths, K)
         return words, starts, offs, int(offs[-1])
 
-    def count(keys, fn):
-        off = stream_probe.count_offsets(keys, n_buckets, bpb)
-        fn(mapper.key_lo, mapper.key_hi, scratch, keys, off, mapper.block_probe, shift, bpb)
-        return keys
+    def count(state):
+        keys, off = state
+        stream_probe.stream_count(mapper.key_lo, mapper.key_hi, scratch, keys, off,
+                                  mapper.block_probe, shift, bpb)
+        return state
 
     stage_ms = stage_split(torch, dev_chunks, [
         ("offsets_and_sync", offsets),
         ("hash_keys", lambda st: hashing._ragged_launch(*st, K, seed, False)),
-        ("sort", lambda keys: torch.sort(keys).values),
-        ("count_offsets_and_kernel", lambda keys: count(keys, stream_probe.stream_count)),
+        ("partition", lambda keys: block_partition.block_partition(keys, n_buckets, bpb)),
+        ("kernel", count),
     ])
     log("ragged: per-chunk stage ms " + ", ".join(f"{n} {v:.3f}" for n, v in stage_ms.items()))
 
@@ -651,8 +792,12 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     log(f"ragged: ragged_hash_keys on {chunks[0].n_reads} reads ({got.numel()} keys): kernel "
         f"{hash_ms:.4f} ms, with offsets and sync {wrapper_ms:.4f} ms, twin {plain_ms:.3f} ms; "
         f"bound {bound_ms:.4f} ms by {bound_by}")
+    # the partition kernels on that chunk's keys against their twin, timed
+    _, off, part_err = partition_check(torch, got, n_buckets)
+    partition = partition_report(torch, got, n_buckets, off, part_err, "ragged")
     del got
     return {"kernel_rates": kernel_rates, "ms_chunk": ms_chunk, "dev_chunks": dev_chunks,
+            "partition": partition,
             "hash": {"ms": hash_ms, "plain_ms": plain_ms, "max_abs_err": hash_err,
                      "bound_ms": bound_ms, "bound_by": bound_by}}
 
@@ -762,8 +907,8 @@ def phase_dissect(torch, np, device) -> list[dict]:
         if not torch.equal(full_b, other):
             raise AssertionError(f"dissect: r2_window_dissect full != {name}")
     per_block_ms = median_ms(lambda: stream_probe.stream_count(*per_block_args))
-    # the main path's offsets end at the invalid tail: the last chain
-    # block's window must hold no invalid query, and the count is the same
+    # count_offsets end at the invalid tail: the last chain block's window
+    # must hold no invalid query, and the count is the same
     main_off = stream_probe.count_offsets(keys, ctx.n_buckets, args[7])
     last = keys[int(main_off[-2]):int(main_off[-1])]
     if bool((last == stream_probe.INVALID_KEY).any()):
@@ -1195,7 +1340,7 @@ def phase_library(torch, np, arrays, rng, device) -> dict:
     log(f"library: gather_probe == twins == numpy loop on {len(cases)} hazard cases, both "
         "modes")
 
-    # the stream route (mix, sort, stream_count) against the gather route on
+    # the stream route (mix, block partition, stream_count) against the gather route on
     # device-resident raw words, up to a whole piece
     raw = probe_batch(rng, arrays.kmers, LIB_TIMED, 0.5, device=device)
     lo, hi = raw & MASK32, (raw >> 32) & MASK32
@@ -1367,7 +1512,7 @@ def phase_file_feed(torch, np, chunks, dev_chunks, ragged, index, device) -> dic
     from kmer_mapper_tpu_torch import cli, pipeline
     from kmer_mapper_tpu_torch.io import gzio, native
     from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
-    from kmer_mapper_tpu_torch.ops import hashing, stream_probe
+    from kmer_mapper_tpu_torch.ops import block_partition, hashing, stream_probe
     from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
 
     t_phase = time.perf_counter()
@@ -1436,7 +1581,7 @@ def phase_file_feed(torch, np, chunks, dev_chunks, ragged, index, device) -> dic
         for tag, what, name, expect_key, flags, no_native, step in runs:
             catch.figures = None
             counts_path = os.path.join(workdir, f"counts_{tag}.npy")
-            zero_launch_counts(stream_probe, hashing)
+            zero_launch_counts(stream_probe, hashing, block_partition)
             native.frame_counts["buffers"] = 0
             if no_native:
                 os.environ["KMT_NO_NATIVE"] = "1"
@@ -1448,13 +1593,13 @@ def phase_file_feed(torch, np, chunks, dev_chunks, ragged, index, device) -> dic
             finally:
                 os.environ.pop("KMT_NO_NATIVE", None)
             run = dict(catch.figures)
-            launches = {**stream_probe.launch_counts, **hashing.launch_counts}
+            launches = all_launches(stream_probe, hashing, block_partition)
             framed = native.frame_counts["buffers"]
             if not np.array_equal(np.load(counts_path), expect[expect_key]):
                 raise AssertionError(f"file feed ({tag}) {what}: node counts differ from "
                                      "the map_chunk reference")
             other = "ragged" if step == "plane" else "plane"
-            if (launches["stream_count"] < run["chunks"]
+            if (min(launches[name] for name in MAIN_PATH_KERNELS) < run["chunks"]
                     or launches[f"{step}_hash_keys"] < run["chunks"]
                     or launches[f"{other}_hash_keys"]
                     or any(n for key, n in launches.items() if "reference" in key)):
@@ -1503,6 +1648,7 @@ def main() -> int:
     log("tolerance: every comparison is exact integer equality (max_abs_err 0)")
     max_err = phase_hazards(torch, device)
     hash_err = phase_hash_hazards(torch, np, device)
+    partition_err = phase_partition_hazards(torch, np, device)
     rng = np.random.default_rng(0)
     from kmer_mapper_tpu_torch.io.readers import strided_rows
     from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
@@ -1516,7 +1662,8 @@ def main() -> int:
     steady = phase_steady_state(torch, np, chunks, e2e["index"], e2e["arrays"], device)
     log(f"summary on {smi}: kernel path median "
         f"{sorted(steady['kernel_rates'])[N_WINDOWS // 2] / 1e6:.1f} Mk/s, twin path median "
-        f"{sorted(steady['twin_rates'])[N_WINDOWS // 2] / 1e6:.1f} Mk/s")
+        f"{sorted(steady['twin_rates'])[N_WINDOWS // 2] / 1e6:.1f} Mk/s, peak device memory "
+        f"{steady['peak_gib']:.2f} GiB")
     ragged_reads = ragged_chunks(np, rng, chunks)
     ragged = phase_ragged_steady_state(torch, np, ragged_reads, e2e["index"], e2e["arrays"],
                                        device)
@@ -1535,6 +1682,18 @@ def main() -> int:
         entry.update(route="cuda", source="kmer_mapper_tpu_torch/csrc/hash_keys.cu",
                      max_abs_err=max(entry["max_abs_err"], hash_err[entry["name"]]),
                      library_ms=None)  # no single PyTorch call hashes, mixes and keys
+    partition = {
+        "name": "block_partition", "route": "cuda",
+        "source": "kmer_mapper_tpu_torch/csrc/block_partition.cu",
+        "replaces": "kmer_mapper_tpu/ops/stream_probe.py:1170 (lax.sort) and :407 "
+                    "(block_offsets), XLA",
+        # block_histogram and block_scatter launch once each a partition
+        "launches": e2e["partition_launches"],
+        **{key: steady["partition"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms")},
+        "max_abs_err": max(partition_err, steady["partition"]["max_abs_err"],
+                           ragged["partition"]["max_abs_err"]),
+    }
     kernels = [{
         "name": "stream_count",
         "route": "cuda",
@@ -1547,7 +1706,7 @@ def main() -> int:
         "bound_ms": steady["bound_ms"],
         "bound_by": steady["bound_by"],
         "library_ms": None,  # no single PyTorch call counts slot hits
-    }, *hash_keys, *dissect, *tiles, library]
+    }, partition, *hash_keys, *dissect, *tiles, library]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -2,8 +2,9 @@
 at a time. The torch counterpart of ``kmer_mapper_tpu/models/mapper.py``.
 
     stride-padded packed reads -> hash-key kernel (plane hash + Feistel mix
-        + sort key of each valid window) -> sort -> chain-block offsets
-        -> stream-count kernel -> slot counts
+        + sort key of each valid window) -> block partition (histogram,
+        scan, scatter: the keys grouped by chain block, each block's
+        window) -> stream-count kernel -> slot counts
 
 Chunks whose reads are not all ``read_len`` long take the ragged step (the
 ragged hash-key kernel: the windows that lie in one read), which gives

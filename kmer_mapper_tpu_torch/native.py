@@ -119,7 +119,16 @@ def library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p,
     ]
-    for fn in (lib.plane_hash_keys_launch, lib.ragged_hash_keys_launch):
+    lib.block_histogram_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.block_scatter_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    for fn in (lib.plane_hash_keys_launch, lib.ragged_hash_keys_launch,
+               lib.block_histogram_launch, lib.block_scatter_launch):
         fn.restype = ctypes.c_int
     # the dissection kernels of kmer_mapper_tpu_torch/scripts; each takes its
     # variant as an int

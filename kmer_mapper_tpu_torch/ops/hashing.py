@@ -129,8 +129,8 @@ def plane_hash_mixed(
     phase p are one shift/OR over contiguous columns of the (words, rows)
     transpose. Rows >= ``n_reads`` give the all-ones invalid pair. With
     ``revcomp`` the reverse-complement hash of every window is appended.
-    The order of the output is a fixed permutation of window order; the
-    sort that follows erases it. Returns int64[n_combos * rows] twice."""
+    The order of the output is a fixed permutation of window order, on
+    which the count does not depend. Returns int64[n_combos * rows] twice."""
     assert 1 <= k <= 31 and read_len >= k
     npr = read_stride(read_len) // 16
     R = packed.shape[0] // npr

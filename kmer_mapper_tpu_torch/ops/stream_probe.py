@@ -1,18 +1,22 @@
-"""Sort + stream count: the counting path of the port.
+"""Block partition + stream count: the counting path of the port.
 
 1. Each query's mixed (m_lo, m_hi) pair becomes ONE int64 sort key,
    ``m_lo * 2**32 + m_hi - 2**63``: the signed order of the key is the
    unsigned order of the pair, and the all-ones invalid pair becomes the
-   largest key and sorts last. The bucket id is the high bits of m_lo, so
-   the sorted keys are grouped by bucket and by 128-bucket chain block.
-   The chunk steps get their keys straight from the hash kernels of
-   ``ops/hashing.py``, which write valid queries only.
-2. ``block_offsets`` finds each chain block's window of sorted keys;
-   ``count_offsets`` ends every window at the invalid tail, for the count.
+   largest key. The bucket id is the high bits of m_lo, so a key's
+   128-bucket chain block is the top bits of the key. The chunk steps get
+   their keys straight from the hash kernels of ``ops/hashing.py``, which
+   write valid queries only.
+2. ``block_partition.block_partition`` groups the keys by chain block and
+   gives each block's window; the invalid keys fall after the last window.
+   (``sort_mixed``, ``block_offsets`` and ``count_offsets``, the sort and
+   bisections of the JAX package, stay as references and for the
+   dissection scripts.)
 3. ``stream_count`` adds, for every valid query, one to the table slot that
    stores its key. On a CUDA tensor it launches the hand-written kernel
    ``csrc/stream_count.cu`` (one CTA per chain block); on a CPU tensor it
-   runs its plain twin ``stream_count_reference``.
+   runs its plain twin ``stream_count_reference``. It needs each block's
+   keys in one window, in any order.
 
 Table words arrive as int32 bit patterns (``key_lo``/``key_hi`` of shape
 (n_buckets, 8), slot order) and counts as int32 (n_buckets * 8,) in slot
@@ -25,6 +29,7 @@ import torch
 
 from .. import native
 from ..index.layout import BUCKET_KEYS, CHAIN_BLOCK
+from .block_partition import INVALID_KEY, block_partition
 from .u32hash import (
     MASK32, bucket_from_mlo_torch, bucket_shift, feistel_mix_torch, to_int32_bits,
 )
@@ -33,9 +38,6 @@ from .u32hash import (
 #: table's EMPTY sentinel, which the build keeps away from real keys, and the
 #: count step skips it
 INVALID_WORD = 0xFFFFFFFF
-#: the sort key of the invalid pair, ``sort_key(INVALID_WORD, INVALID_WORD)``:
-#: the largest int64
-INVALID_KEY = (1 << 63) - 1
 
 #: launches of the CUDA kernel and calls of its plain twin since import;
 #: a run that must show which one counted resets them first
@@ -59,12 +61,18 @@ def sort_mixed(m_lo: torch.Tensor, m_hi: torch.Tensor) -> torch.Tensor:
     return torch.sort(sort_key(m_lo, m_hi)).values
 
 
-def sort_queries(q_lo, q_hi, valid, seed: int) -> torch.Tensor:
-    """Raw query words -> sorted int64 keys: mixed, invalid -> all-ones."""
+def mixed_keys(q_lo, q_hi, valid, seed: int) -> torch.Tensor:
+    """Raw query words -> int64 sort keys in query order: mixed, invalid ->
+    :data:`INVALID_KEY`."""
     m_lo, m_hi = feistel_mix_torch(q_lo, q_hi, seed)
     m_lo = torch.where(valid, m_lo, INVALID_WORD)
     m_hi = torch.where(valid, m_hi, INVALID_WORD)
-    return sort_mixed(m_lo, m_hi)
+    return sort_key(m_lo, m_hi)
+
+
+def sort_queries(q_lo, q_hi, valid, seed: int) -> torch.Tensor:
+    """Raw query words -> sorted int64 keys: mixed, invalid -> all-ones."""
+    return torch.sort(mixed_keys(q_lo, q_hi, valid, seed)).values
 
 
 def block_offsets(sorted_keys: torch.Tensor, n_buckets: int, block: int) -> torch.Tensor:
@@ -98,7 +106,7 @@ def count_offsets(sorted_keys: torch.Tensor, n_buckets: int, block: int) -> torc
     return torch.minimum(off, torch.searchsorted(sorted_keys, invalid).to(torch.int32))
 
 
-def check_count_args(key_lo, key_hi, counts, sorted_keys, off, block_probe, shift, bpb,
+def check_count_args(key_lo, key_hi, counts, keys, off, block_probe, shift, bpb,
                      name: str = "stream_count"):
     """Raises ValueError unless the arguments fit the count kernels'
     contract (dtypes, shapes, contiguity, one device, a power-of-two table
@@ -108,13 +116,13 @@ def check_count_args(key_lo, key_hi, counts, sorted_keys, off, block_probe, shif
         (key_lo, torch.int32, (n_buckets, BUCKET_KEYS)),
         (key_hi, torch.int32, (n_buckets, BUCKET_KEYS)),
         (counts, torch.int32, (n_buckets * BUCKET_KEYS,)),
-        (sorted_keys, torch.int64, (sorted_keys.shape[0],)),
+        (keys, torch.int64, (keys.shape[0],)),
         (off, torch.int32, (n_buckets // max(1, bpb) + 1,)),
         (block_probe, torch.int32, (n_buckets // max(1, bpb),)),
     )
     dev = key_lo.device
     for arg, (t, dtype, shape) in zip(
-        ("key_lo", "key_hi", "counts", "sorted_keys", "off", "block_probe"), expect
+        ("key_lo", "key_hi", "counts", "keys", "off", "block_probe"), expect
     ):
         if t.dtype != dtype or tuple(t.shape) != shape or t.dim() != len(shape):
             raise ValueError(
@@ -129,24 +137,27 @@ def check_count_args(key_lo, key_hi, counts, sorted_keys, off, block_probe, shif
         raise ValueError(f"{name}: n_buckets={n_buckets} is not a power of two")
     if shift != bucket_shift(n_buckets) or bpb != min(CHAIN_BLOCK, n_buckets):
         raise ValueError(f"{name}: shift={shift}, bpb={bpb} do not fit {n_buckets} buckets")
-    if sorted_keys.shape[0] >= 1 << 31:
+    if keys.shape[0] >= 1 << 31:
         raise ValueError(f"{name}: more than 2**31 - 1 queries in one call")
 
 
-def stream_count(key_lo, key_hi, counts, sorted_keys, off, block_probe,
+def stream_count(key_lo, key_hi, counts, keys, off, block_probe,
                  shift: int, bpb: int) -> torch.Tensor:
-    """counts[slot] += the number of valid sorted queries whose (m_lo, m_hi)
+    """counts[slot] += the number of valid queries whose (m_lo, m_hi)
     equals the key stored in that slot; updates ``counts`` in place and
-    returns it. A query of chain block b looks in bucket
-    ``b*bpb + ((local_b + p) & (bpb-1))`` for rounds ``p < block_probe[b]``,
-    across all 8 lanes.
+    returns it. ``keys`` holds chain block b's queries in ``[off[b],
+    off[b+1])``, in any order inside a window
+    (:func:`block_partition.block_partition`; sorted keys with
+    :func:`count_offsets` are grouped too). A query of chain block b looks
+    in bucket ``b*bpb + ((local_b + p) & (bpb-1))`` for rounds ``p <
+    block_probe[b]``, across all 8 lanes.
 
     CUDA tensors launch ``csrc/stream_count.cu`` (a failed build or launch
     raises); CPU tensors run :func:`stream_count_reference`."""
-    check_count_args(key_lo, key_hi, counts, sorted_keys, off, block_probe, shift, bpb)
+    check_count_args(key_lo, key_hi, counts, keys, off, block_probe, shift, bpb)
     if counts.device.type == "cpu":
         return stream_count_reference(
-            key_lo, key_hi, counts, sorted_keys, off, block_probe, shift, bpb
+            key_lo, key_hi, counts, keys, off, block_probe, shift, bpb
         )
     if counts.device.type != "cuda":
         raise ValueError(f"stream_count: no kernel for device {counts.device}")
@@ -156,7 +167,7 @@ def stream_count(key_lo, key_hi, counts, sorted_keys, off, block_probe,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
             key_lo.data_ptr(), key_hi.data_ptr(), counts.data_ptr(),
-            sorted_keys.data_ptr(), off.data_ptr(), block_probe.data_ptr(),
+            keys.data_ptr(), off.data_ptr(), block_probe.data_ptr(),
             n_blocks, shift, bpb, counts.device.index, stream,
         )
     if rc:
@@ -165,19 +176,19 @@ def stream_count(key_lo, key_hi, counts, sorted_keys, off, block_probe,
     return counts
 
 
-def stream_count_reference(key_lo, key_hi, counts, sorted_keys, off, block_probe,
+def stream_count_reference(key_lo, key_hi, counts, keys, off, block_probe,
                            shift: int, bpb: int) -> torch.Tensor:
     """Plain-torch twin of the kernel (same contract, same result): for each
     valid query, walk its rounds with a row gather and an 8-lane compare,
     then add the hits into ``counts`` with wrapping 32-bit arithmetic."""
     launch_counts["stream_count_reference"] += 1
-    dev = sorted_keys.device
+    dev = keys.device
     n_blocks = block_probe.shape[0]
     off64 = off.to(torch.int64)
     lengths = off64[1:] - off64[:-1]
-    keys = sorted_keys[int(off64[0]) : int(off64[-1])]
+    in_windows = keys[int(off64[0]) : int(off64[-1])]
     block = torch.repeat_interleave(torch.arange(n_blocks, device=dev), lengths)
-    m_lo, m_hi = split_key(keys)
+    m_lo, m_hi = split_key(in_windows)
     bucket = bucket_from_mlo_torch(m_lo, key_lo.shape[0])
     local = bucket - block * bpb
     live = ~((m_lo == INVALID_WORD) & (m_hi == INVALID_WORD))
@@ -222,26 +233,27 @@ def plane_to_slot(counts: np.ndarray, n_buckets: int, gpb: int = CHAIN_BLOCK) ->
     ).reshape(-1)
 
 
-def _count_sorted(key_lo, key_hi, counts, sorted_keys, block_probe):
+def _count_grouped(key_lo, key_hi, counts, keys, block_probe):
     n_buckets = key_lo.shape[0]
     bpb = min(CHAIN_BLOCK, n_buckets)
-    off = count_offsets(sorted_keys, n_buckets, bpb)
+    grouped, off = block_partition(keys, n_buckets, bpb)
     return stream_count(
-        key_lo, key_hi, counts, sorted_keys, off, block_probe,
-        bucket_shift(n_buckets), bpb,
+        key_lo, key_hi, counts, grouped, off, block_probe, bucket_shift(n_buckets), bpb,
     )
 
 
 def stream_probe_count_keys(key_lo, key_hi, counts, keys, block_probe):
-    """Stream path for the unsorted sort keys of valid queries (the hash
-    kernels' output, ``hashing.plane_hash_keys`` / ``ragged_hash_keys``):
-    sort -> count offsets -> stream count. Updates ``counts`` in place."""
-    return _count_sorted(key_lo, key_hi, counts, torch.sort(keys).values, block_probe)
+    """Stream path for the sort keys of valid queries, in any order (the
+    hash kernels' output, ``hashing.plane_hash_keys`` / ``ragged_hash_keys``):
+    block partition -> stream count. Updates ``counts`` in place."""
+    return _count_grouped(key_lo, key_hi, counts, keys, block_probe)
 
 
 def stream_probe_count(key_lo, key_hi, counts, q_lo, q_hi, valid, seed: int,
                        block_probe):
-    """Stream path for raw query words and their validity mask."""
-    return _count_sorted(
-        key_lo, key_hi, counts, sort_queries(q_lo, q_hi, valid, seed), block_probe
+    """Stream path for raw query words and their validity mask: the mixed
+    keys (invalid queries land in no window) -> block partition -> stream
+    count."""
+    return _count_grouped(
+        key_lo, key_hi, counts, mixed_keys(q_lo, q_hi, valid, seed), block_probe
     )

@@ -27,7 +27,8 @@ SCRIPT = textwrap.dedent(
     for module in ("compat", "mapper", "gpu_counter", "ops.probe", "ops.probe_cases",
                    "index.pickled", "io.native", "io.gzio", "io.parallel_reader",
                    "command_line_interface", "util", "encodings", "tools",
-                   "utils.timing", "utils.profiling", "ops.hashing", "ops.hash_keys_cases"):
+                   "utils.timing", "utils.profiling", "ops.hashing", "ops.hash_keys_cases",
+                   "ops.block_partition", "ops.block_partition_cases"):
         assert f"kmer_mapper_tpu_torch.{module}" in names, names
     spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -35,6 +36,7 @@ SCRIPT = textwrap.dedent(
     assert callable(smoke.phase_tiles) and callable(smoke.phase_library)
     assert callable(smoke.phase_file_feed)
     assert callable(smoke.phase_hash_hazards) and callable(smoke.phase_ragged_steady_state)
+    assert callable(smoke.phase_partition_hazards)
     from kmer_mapper_tpu_torch import oracle, pipeline
     from kmer_mapper_tpu_torch.index import kmer_index
 

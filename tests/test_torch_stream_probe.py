@@ -71,9 +71,10 @@ def test_count_offsets_end_at_the_invalid_tail(monkeypatch):
     """The plain ragged hash turns every window that crosses a read boundary
     into the all-ones pair, which sorts last: the count offsets end at the
     first such key. The ragged step's hash kernel writes the valid windows
-    only, so the keys that reach its count hold no such key and its offsets
-    are ``block_offsets``; those still equal JAX's, and the node counts
-    equal the oracle's."""
+    only, so the keys that reach its count hold no such key, and its block
+    partition's offsets are ``block_offsets`` of the sorted keys, each
+    window holding its block's keys; those offsets still equal JAX's, and
+    the node counts equal the oracle's."""
     from kmer_mapper_tpu_torch import oracle
     from kmer_mapper_tpu_torch.index import kmer_index
     from kmer_mapper_tpu_torch.io import readers
@@ -99,9 +100,9 @@ def test_count_offsets_end_at_the_invalid_tail(monkeypatch):
     seen = []
     count = stream_probe.stream_count
 
-    def spy(key_lo, key_hi, counts, sorted_keys, off, *rest):
-        seen.append((sorted_keys.clone(), off.clone()))
-        return count(key_lo, key_hi, counts, sorted_keys, off, *rest)
+    def spy(key_lo, key_hi, counts, keys, off, *rest):
+        seen.append((keys.clone(), off.clone()))
+        return count(key_lo, key_hi, counts, keys, off, *rest)
 
     monkeypatch.setattr(stream_probe, "stream_count", spy)
     for packed, lens, n_bases, _, n_invalid in chunks:
@@ -111,11 +112,15 @@ def test_count_offsets_end_at_the_invalid_tail(monkeypatch):
     n_buckets = mapper.index.table.n_buckets
     bpb = min(layout.CHAIN_BLOCK, n_buckets)
     assert len(seen) == len(chunks)
-    for (keys, off), (packed, lens, n_bases, _, _) in zip(seen, chunks):
+    for (grouped, off), (packed, lens, n_bases, _, _) in zip(seen, chunks):
+        keys = torch.sort(grouped).values
         assert (keys != stream_probe.INVALID_KEY).all()  # valid windows only
         full = stream_probe.block_offsets(keys, n_buckets, bpb)
         assert int(full[-1]) == keys.numel()
         np.testing.assert_array_equal(off.numpy(), full.numpy())
+        for b in range(off.numel() - 1):  # each block's keys, in any order
+            window = torch.sort(grouped[int(off[b]):int(off[b + 1])]).values
+            assert torch.equal(window, keys[int(full[b]):int(full[b + 1])])
         # the same chunk hashed plainly, every base a window: an invalid tail
         lo, hi = hashing.rolling_kmer_hash_packed(
             from_int32_bits(torch.from_numpy(packed.view(np.int32))), k)
