@@ -8,12 +8,16 @@ result line):
   1. environment: torch, CUDA, the card's name and power limit, nvcc;
   2. build the CUDA kernels from kmer_mapper_tpu_torch/csrc with nvcc;
   3. the stream-count kernel against its plain-torch twin and the host
-     oracle on every hazard case of its contract, the two hash-key
-     kernels (plane and ragged) against theirs on every case of
-     ops/hash_keys_cases.py (exact equality, the keys in the same order),
-     and the block-partition kernels against their twin on every case of
-     ops/block_partition_cases.py (offsets exact, every key in its own
-     block's window, the windows equal as multisets), each table case then
+     oracle on every hazard case of its contract, on sorted and on
+     shuffled, partitioned windows; the two hash-key kernels (plane and
+     ragged) against theirs on every case of ops/hash_keys_cases.py (exact
+     equality, the keys in the same order); and the block partition
+     against its twin on every case of ops/block_partition_cases.py (the
+     main path's kernels: the twin's keys in the twin's order; the cursor
+     route of scripts/partition_dissect.py with its histogram in shared
+     and in device memory: offsets exact, every key in its own block's
+     window, the windows equal as multisets), each of the main path's
+     partition kernels against its plain piece, each table case then
      counted == the oracle;
   4. the main path as a user runs it: ``kmer_mapper_tpu_torch.cli map`` on
      a FASTQ of 10^5 151-bp reads against the bench index (~2.6M unique
@@ -24,11 +28,16 @@ result line):
      reads: k-mers per second through KmerMapper.map_chunk and through the
      same stages with the plain twins, per-stage milliseconds (hash keys,
      partition, count), equal counts, one chunk's node counts == the
-     oracle's; the partition kernels against their twin on that chunk and
-     timed beside torch.sort + count_offsets on the same keys, the count
-     kernel on its grouped and on its sorted keys; then the ragged step the
-     same way on the same bases cut into reads of 100-151 bp (8 chunks, each
-     one continuous buffer);
+     oracle's; on that chunk's keys each partition kernel against its
+     plain piece, timed with it (histogram rows, scan, scatter of each
+     pass; the offsets), the kernels pass by pass at one CTA an SM, the
+     partition whole beside the cursor route (the first partition
+     kernels) whole and in its kernels, the twin and torch.sort + count_offsets; the same keys
+     partitioned for tables of 2^22, 2^25 and 2^29 buckets, on the main
+     path and on the cursor route; the count kernel and the first one
+     (r2_kernel_dissect's full) on the grouped and on the sorted keys;
+     then the ragged step the same way on the same bases cut into reads of
+     100-151 bp (8 chunks, each one continuous buffer);
   6. dissect: the three dissection scripts of kmer_mapper_tpu_torch.scripts
      run as a user runs them, at their full sizes (their kernels must have
      launched); then every variant of each kernel against its twin, bit for
@@ -199,22 +208,34 @@ def count_bound(args, max_probe: int, n_changed: int) -> tuple[float, str]:
 
 
 def phase_hazards(torch, device) -> int:
-    """Kernel vs twin vs oracle on every hazard case; returns the max
-    absolute difference between kernel and twin (must be 0)."""
+    """The count kernel vs the twin vs the oracle on every hazard case, on
+    the case's sorted windows and on its queries shuffled and grouped by
+    the partition kernels; returns the max absolute difference between
+    kernel and twin (must be 0)."""
     import numpy as np
 
-    from kmer_mapper_tpu_torch.ops import stream_count_cases, stream_probe
+    from kmer_mapper_tpu_torch.ops import block_partition, stream_count_cases, stream_probe
 
     max_err = 0
+    gen = torch.Generator(device=device).manual_seed(9)
     for case in stream_count_cases.cases(poly_a=POLY_A):
-        got = _u32(stream_probe.stream_count(*case.inputs(device)))
+        expected = case.expected().astype(np.int64)
         twin = _u32(stream_probe.stream_count_reference(*case.inputs(device)))
-        err = int(np.abs(got - twin).max(initial=0))
-        max_err = max(max_err, err)
-        if err or not np.array_equal(got, case.expected().astype(np.int64)):
-            raise AssertionError(f"hazard {case.name}: kernel, twin and oracle disagree")
+        if not np.array_equal(twin, expected):
+            raise AssertionError(f"hazard {case.name}: twin and oracle disagree")
+        unordered = list(case.inputs(device))
+        keys, n_buckets, bpb = unordered[3], case.table.n_buckets, unordered[7]
+        shuffled = keys[torch.randperm(keys.numel(), generator=gen, device=device)]
+        unordered[3:5] = block_partition.block_partition(shuffled, n_buckets, bpb)
+        for args in (case.inputs(device), unordered):
+            got = _u32(stream_probe.stream_count(*args))
+            err = int(np.abs(got - twin).max(initial=0))
+            max_err = max(max_err, err)
+            if err or not np.array_equal(got, expected):
+                raise AssertionError(f"hazard {case.name}: kernel, twin and oracle disagree")
         log(f"hazard {case.name}: {case.table.n_buckets} buckets, "
-            f"{len(case.queries)} queries, kernel == twin == oracle")
+            f"{len(case.queries)} queries, kernel == twin == oracle on sorted and on "
+            "shuffled, partitioned windows")
     free, total = torch.cuda.mem_get_info()
     if total < 60 << 30:
         raise AssertionError("the slot-past-2**31 case needs a card with >= 60 GiB")
@@ -228,7 +249,7 @@ def phase_hazards(torch, device) -> int:
     for hit, vals in results:
         if not (np.array_equal(hit, slots) and np.array_equal(vals, reps)):
             raise AssertionError("hazard slots_past_2_31: wrong counts")
-    max_err = max(max_err, int(np.abs(results[0][1] - results[1][1]).max()))
+    max_err = max(max_err, max(int(np.abs(r[1] - results[-1][1]).max()) for r in results))
     log(f"hazard slots_past_2_31: {args[0].shape[0]} buckets "
         f"({counts.numel()} slots, hits up to slot {slots.max()}), "
         "kernel == twin == expected")
@@ -271,40 +292,142 @@ def phase_hash_hazards(torch, np, device) -> dict:
     return max_err
 
 
-def partition_check(torch, keys, n_buckets: int, shared=None):
-    """The partition kernels (the histogram where the wrapper puts it, or
-    as ``shared`` says) against their twin on the same device: returns
-    (grouped keys, off, max_abs_err). Raises unless the offsets are equal,
-    every key lies in its own block's window and the two hold the same
-    keys, which with the first two makes every window equal as a
-    multiset."""
+#: the partitions that phase 3 holds to the twin: the main path's (the
+#: wrapper's) and the variants of partition_dissect's cursor route
+PARTITION_OPTIONS = {
+    "wrapper": None,
+    "cursor": "cursor",
+    "cursor, histogram in device memory": "device_histogram",
+}
+
+
+def run_partition(keys, n_buckets: int, option: str = "wrapper"):
+    """(grouped keys, off) of one option of PARTITION_OPTIONS."""
     from kmer_mapper_tpu_torch.ops import block_partition as bp
+    from kmer_mapper_tpu_torch.scripts import partition_dissect
 
     bpb = min(128, n_buckets)
-    n_blocks = n_buckets // bpb
-    if shared is None:
-        grouped, off = bp.block_partition(keys, n_buckets, bpb)
-    else:
-        grouped, off = bp._partition_launch(keys, n_blocks, shared)
-    twin, twin_off = bp.block_partition_reference(keys, n_buckets, bpb)
-    end = int(off[-1])
-    owner = torch.repeat_interleave(torch.arange(n_blocks, device=keys.device),
-                                    (off[1:] - off[:-1]).long())
+    variant = PARTITION_OPTIONS[option]
+    if variant is None:
+        return bp.block_partition(keys, n_buckets, bpb)
+    return partition_dissect.cursor_partition(keys, n_buckets, bpb, variant)
+
+
+def partition_check(torch, keys, n_buckets: int, option: str = "wrapper"):
+    """The partition kernels (``option`` of PARTITION_OPTIONS) against their
+    twin on the same device: returns (grouped keys, off, max_abs_err).
+    Raises unless the offsets are equal, every key lies in its own block's
+    window and the two hold the same keys, which with the first two makes
+    every window equal as a multiset; the main path's must equal the twin
+    in order too (its passes are stable)."""
+    from kmer_mapper_tpu_torch.ops import block_partition as bp
+    from kmer_mapper_tpu_torch.scripts import partition_dissect
+
+    grouped, off = run_partition(keys, n_buckets, option)
+    twin, twin_off = bp.block_partition_reference(keys, n_buckets, min(128, n_buckets))
     err = max(key_err(off.long(), twin_off.long()),
               key_err(torch.sort(grouped).values, torch.sort(twin).values))
-    if (err or not torch.equal(bp.block_ids(grouped[:end], n_blocks), owner)
-            or not bool((grouped[end:] == bp.INVALID_KEY).all())):
-        raise AssertionError("partition: kernel and twin disagree")
+    partition_dissect.check(keys, grouped, off, n_buckets, f"partition ({option})")
+    if PARTITION_OPTIONS[option] is None and not torch.equal(grouped, twin):
+        raise AssertionError(f"partition ({option}): the radix route's order is not the twin's")
     return grouped, off, err
+
+
+#: INT32 operations a key of each partition kernel, counted from
+#: csrc/block_partition.cu: the histogram's load, bin (the invalid test, a
+#: xor and a shift), digit, bounds test and shared add (about 10); the
+#: scatter's bin and digit twice, a ballot, a test and an and for each of
+#: the digit's bits (7 here), the rank's popcount and adds, the tile's
+#: shared stores and loads and the output address (about 50)
+HISTOGRAM_OPS = 10
+SCATTER_OPS = 50
+
+
+def radix_kernels(torch, keys, n_buckets: int, timed: bool = False) -> dict:
+    """Each kernel of the main path's partition on ``keys`` at its own slab
+    count, pass by pass, against its plain piece on the same inputs:
+    partition_histogram vs slab_histograms, partition_scan vs slab_bases,
+    radix_scatter vs slab_scatter_reference, radix_offsets vs
+    radix_offsets_reference. Returns for each kernel its max_abs_err and
+    the bytes and INT32 operations of this data's work (summed over the
+    passes); with ``timed``, its device ms, its plain piece's and, for the
+    scan, torch.cumsum's over the same matrix (median of 5, summed over the
+    passes)."""
+    from kmer_mapper_tpu_torch.ops import block_partition as bp
+
+    n_blocks = n_buckets // min(128, n_buckets)
+    n = keys.numel()
+    n_slabs, slab_len = bp.slab_layout(n, bp.radix_slabs(keys.device))
+    out = {name: {"max_abs_err": 0, "bytes": 0, "ops": 0, "ms": 0.0, "plain_ms": 0.0,
+                  "library_ms": None}
+           for name in ("partition_histogram", "partition_scan", "radix_scatter",
+                        "radix_offsets")}
+    out["partition_scan"]["library_ms"] = 0.0
+
+    def record(name, got, want, kernel, plain, n_bytes, n_ops, library=None):
+        entry = out[name]
+        entry["max_abs_err"] = max(entry["max_abs_err"], key_err(got.long(), want.long()))
+        entry["bytes"] += n_bytes
+        entry["ops"] += n_ops
+        if timed:
+            entry["ms"] += median_ms(kernel)
+            entry["plain_ms"] += median_ms(plain, reps=3)
+            if library is not None:
+                entry["library_ms"] += median_ms(library)
+
+    cur = keys
+    for shift, bits in bp.radix_passes(n_blocks):
+        width = bp.digit_width(n_blocks, shift, bits)
+        matrix = 4 * n_slabs * width
+        rows = bp.partition_histogram(cur, n_blocks, slab_len, shift, bits)
+        record("partition_histogram", rows,
+               bp.slab_histograms(cur, n_blocks, slab_len, shift, bits),
+               lambda: bp.partition_histogram(cur, n_blocks, slab_len, shift, bits),
+               lambda: bp.slab_histograms(cur, n_blocks, slab_len, shift, bits),
+               8 * n + matrix, HISTOGRAM_OPS * n)
+        bases, doff = bp.slab_bases(rows)
+        counts = rows.clone()
+        totals = bp.partition_scan(rows)
+        # the scan works in place: a timed call scans a fresh copy, whose
+        # copy is timed alone and taken off
+        copy_ms = median_ms(lambda: counts.clone()) if timed else 0.0
+        record("partition_scan", torch.cat([rows.view(-1), totals]),
+               torch.cat([bases.view(-1), doff.diff()]),
+               lambda: bp.partition_scan(counts.clone()),
+               lambda: bp.slab_bases(counts), 2 * matrix + 4 * width, 2 * n_slabs * width,
+               lambda: torch.cumsum(counts, 0))
+        out["partition_scan"]["ms"] -= copy_ms
+        nxt = bp.radix_scatter(cur, rows, doff, n_blocks, slab_len, shift, bits)
+        record("radix_scatter", nxt,
+               bp.slab_scatter_reference(cur, bases, doff, n_blocks, slab_len, shift, bits),
+               lambda: bp.radix_scatter(cur, rows, doff, n_blocks, slab_len, shift, bits),
+               lambda: bp.slab_scatter_reference(cur, bases, doff, n_blocks, slab_len, shift,
+                                                 bits),
+               16 * n + matrix + 4 * (width + 1), SCATTER_OPS * n)
+        cur = nxt
+    n_off = n_blocks + 1
+    # a binary search a bin reads ~log2(n) keys where the keys are at least
+    # 64 times the bins (kSearchKeysABin), else every key once
+    search = n_off * 64 <= n
+    reads = n_off * max(1, n.bit_length()) if search else n
+    record("radix_offsets", bp.radix_offsets(cur, n_blocks),
+           bp.radix_offsets_reference(cur, n_blocks), lambda: bp.radix_offsets(cur, n_blocks),
+           lambda: bp.radix_offsets_reference(cur, n_blocks), 8 * reads + 4 * n_off,
+           8 * reads)
+    for entry in out.values():
+        if entry["max_abs_err"]:
+            raise AssertionError(f"radix kernels: a kernel and its plain piece disagree: {out}")
+        entry["bound_ms"], entry["bound_by"] = bound(entry["bytes"], entry["ops"])
+    return out
 
 
 def phase_partition_hazards(torch, np, device) -> int:
     """The partition kernels against their twin on every case of
-    ops/block_partition_cases.py (the poly-A window at POLY_A keys), the
-    histogram in shared memory where it fits and in device memory; every
-    table case then counted by stream_count == the oracle. Returns the
-    largest absolute difference (must be 0)."""
-    from kmer_mapper_tpu_torch.ops import block_partition as bp
+    ops/block_partition_cases.py (the poly-A window at POLY_A keys), on the
+    main path's partition and on the cursor route's variants; each of the
+    main path's kernels against its plain piece; every table case then
+    counted by the main path's partition and stream_count == the oracle.
+    Returns the largest absolute difference (must be 0)."""
     from kmer_mapper_tpu_torch.ops import block_partition_cases, stream_probe
 
     t = time.perf_counter()
@@ -312,8 +435,10 @@ def phase_partition_hazards(torch, np, device) -> int:
     cases = block_partition_cases.cases(poly_a=POLY_A)
     for case in cases:
         keys = case.inputs(device)[0]
-        for shared in (None, False):
-            max_err = max(max_err, partition_check(torch, keys, case.n_buckets, shared)[2])
+        for option in PARTITION_OPTIONS:
+            max_err = max(max_err, partition_check(torch, keys, case.n_buckets, option)[2])
+        if keys.numel():
+            radix_kernels(torch, keys, case.n_buckets)
         n_keys += keys.numel()
     for case in block_partition_cases.table_cases(poly_a=POLY_A):
         key_lo, key_hi, counts, _, _, block_probe, _, _ = case.inputs(device)
@@ -323,9 +448,9 @@ def phase_partition_hazards(torch, np, device) -> int:
         if not np.array_equal(_u32(counts), case.expected().astype(np.int64)):
             raise AssertionError(f"partition hazard {case.name}: counts differ from the oracle")
     log(f"partition hazards: {len(cases)} cases ({n_keys} keys; up to "
-        f"{max(c.n_buckets // c.bpb for c in cases)} chain blocks), kernel == twin with the "
-        f"histogram in shared memory (up to {bp.SHARED_BINS} bins) and in device memory; "
-        f"every table case counted == oracle, in {time.perf_counter() - t:.1f} s")
+        f"{max(c.n_buckets // c.bpb for c in cases)} chain blocks), kernel == twin on "
+        f"{list(PARTITION_OPTIONS)}, each radix kernel == its plain piece; every table case "
+        f"counted == oracle, in {time.perf_counter() - t:.1f} s")
     return max_err
 
 
@@ -342,9 +467,22 @@ def hash_bound(n_read_bytes: int, n_keys: int) -> tuple[float, str]:
     return bound(n_read_bytes + 8 * n_keys, HASH_OPS * n_keys)
 
 
-#: the kernels that both chunk steps launch once a chunk, beside their
-#: hash-key kernel
-MAIN_PATH_KERNELS = ("block_histogram", "block_scatter", "stream_count")
+#: the partition's kernels, and the kernels that both chunk steps launch on
+#: every chunk beside their hash-key kernel: the partition's and the count
+PARTITION_KERNELS = ("partition_histogram", "partition_scan", "radix_scatter",
+                     "radix_offsets")
+MAIN_PATH_KERNELS = (*PARTITION_KERNELS, "stream_count")
+
+
+def chunk_launches(n_buckets: int) -> dict:
+    """Each of MAIN_PATH_KERNELS' launches a chunk on a table of
+    ``n_buckets``: the radix route's histogram, scan and scatter once a
+    pass."""
+    from kmer_mapper_tpu_torch.ops import block_partition as bp
+
+    passes = len(bp.radix_passes(n_buckets // min(128, n_buckets)))
+    return {"partition_histogram": passes, "partition_scan": passes, "radix_scatter": passes,
+            "radix_offsets": 1, "stream_count": 1}
 
 
 def zero_launch_counts(*modules) -> None:
@@ -425,12 +563,13 @@ def phase_end_to_end(torch, np, chunk0, rng, workdir) -> dict:
     log(f"e2e: cli map on {torch.cuda.get_device_name(0)} in {seconds:.2f} s "
         f"(index build included); {int(got.sum())} node hits == oracle; "
         f"launches {launches}")
-    if launches["block_histogram"] != launches["block_scatter"]:
-        raise AssertionError(f"e2e: the partition kernels ran unequally: {launches}")
-    return {"launches": launches["stream_count"],
-            "partition_launches": launches["block_scatter"],
-            "hash_launches": launches["plane_hash_keys"], "arrays": arrays,
-            "index": kmer_index.KmerIndex.from_arrays(arrays)}
+    index = kmer_index.KmerIndex.from_arrays(arrays)
+    per_chunk = chunk_launches(index.table.n_buckets)
+    if (len({launches[name] // per_chunk[name] for name in MAIN_PATH_KERNELS}) != 1
+            or any(launches[name] % per_chunk[name] for name in MAIN_PATH_KERNELS)):
+        raise AssertionError(f"e2e: the partition's kernels ran unequally: {launches}")
+    return {"launches": launches, "hash_launches": launches["plane_hash_keys"],
+            "arrays": arrays, "index": index}
 
 
 def timed_rates(torch, fn, kmers_per_window: int) -> list[float]:
@@ -482,36 +621,115 @@ def oracle_check(np, index, arrays, config, device, packed_chunk, kmers, what):
         f"in {time.perf_counter() - t:.1f} s")
 
 
-def partition_report(torch, keys, n_buckets: int, off, err: int, what: str) -> dict:
-    """The partition's device ms on these keys (median of 5), its two
-    kernels' apart (the histogram also in device memory), its twin's and
-    torch.sort + count_offsets' on the same keys, beside its bound; the
-    kernels line's entry."""
+def partition_report(torch, keys, n_buckets: int, err: int, what: str) -> dict:
+    """The partition's device ms on these keys (median of 5): each of the
+    main path's kernels against its plain piece, timed with it
+    (radix_kernels); the kernels at one CTA an SM, pass by pass
+    (partition_dissect.radix_pass_ms); partition_dissect.report: the main
+    path's partition whole, the cursor route (the first partition
+    kernels) whole and in its kernels, the twin and torch.sort + count_offsets; beside the
+    bounds. Returns the kernels line's entries: the whole stage and each
+    kernel."""
     from kmer_mapper_tpu_torch.ops import block_partition as bp
-    from kmer_mapper_tpu_torch.ops import stream_probe
+    from kmer_mapper_tpu_torch.scripts import partition_dissect
 
     bpb = min(128, n_buckets)
     n_blocks = n_buckets // bpb
-    t = {
-        "partition": median_ms(lambda: bp.block_partition(keys, n_buckets, bpb)),
-        "block_histogram": median_ms(lambda: bp.block_histogram(keys, n_blocks)),
-        "block_histogram in device memory": median_ms(
-            lambda: bp.block_histogram(keys, n_blocks, shared=False)),
-        "block_scatter": median_ms(lambda: bp.block_scatter(keys, off.clone(), n_blocks)),
-        "twin": median_ms(lambda: bp.block_partition_reference(keys, n_buckets, bpb), reps=3),
-        "torch.sort + count_offsets": median_ms(
-            lambda: stream_probe.count_offsets(torch.sort(keys).values, n_buckets, bpb)),
-    }
-    bound_ms, bound_by = partition_bound(keys.numel(), n_blocks)
-    # the two-pass design's own floor: the histogram reads the keys as well
-    two_pass_ms = bound(24 * keys.numel() + 4 * (n_blocks + 1), 0)[0]
-    log(f"{what}: block partition of {keys.numel()} keys into {n_blocks} chain blocks: "
+    n = keys.numel()
+    kernels = radix_kernels(torch, keys, n_buckets, timed=True)
+    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
+    one_a_sm = partition_dissect.radix_pass_ms(keys, n_buckets, sms, keys.device)
+    t = partition_dissect.report(keys, n_buckets, keys.device, f" ({what})")
+    bound_ms, bound_by = partition_bound(n, n_blocks)
+    # the radix route's own floor: each pass reads the keys for its
+    # histogram, then reads and writes them
+    passes = bp.radix_passes(n_blocks)
+    floor_ms = bound(24 * n * len(passes) + 4 * (n_blocks + 1), 0)[0]
+    log(f"{what}: block partition of {n} keys into {n_blocks} chain blocks (radix passes "
+        f"{passes}, {bp.radix_slabs(keys.device)} slabs): "
+        + ", ".join(f"{name} {k['ms']:.4f} ms (plain {k['plain_ms']:.3f}, bound "
+                    f"{k['bound_ms']:.4f} by {k['bound_by']})" for name, k in kernels.items())
+        + f"; at one CTA an SM ({sms} slabs): "
+        + ", ".join(f"{name} {ms:.4f}" for name, ms in one_a_sm.items())
+        + f"; whole stage bound {bound_ms:.4f} ms by {bound_by}, the passes' floor "
+        f"{floor_ms:.4f} ms")
+    stage = {"ms": t["radix"], "plain_ms": t["twin"],
+             "library_ms": t["torch.sort + count_offsets"], "bound_ms": bound_ms,
+             "bound_by": bound_by, "max_abs_err": err}
+    return {"stage": stage, "kernels": kernels, "times": t, "one_a_sm": one_a_sm}
+
+
+def large_table_report(torch, keys, what: str) -> dict:
+    """One chunk's keys partitioned for tables of 2^22, 2^25 (a human-scale
+    index) and 2^29 buckets: the main path's partition and the cursor
+    route's with its histogram in device memory, each checked against the
+    twin, then timed (median of 5); the main path's launches at 2^25."""
+    from kmer_mapper_tpu_torch.ops import block_partition as bp
+
+    t, err = {}, 0
+    for log2 in (22, 25, 29):
+        n_buckets = 1 << log2
+        for option in ("wrapper", "cursor, histogram in device memory"):
+            err = max(err, partition_check(torch, keys, n_buckets, option)[2])
+            t[f"2^{log2} {option}"] = median_ms(lambda: run_partition(keys, n_buckets, option))
+        t[f"2^{log2} bound"] = partition_bound(keys.numel(), n_buckets // 128)[0]
+    zero_launch_counts(bp)
+    bp.block_partition(keys, 1 << 25, 128)
+    launches = dict(bp.launch_counts)
+    expect = {name: n for name, n in chunk_launches(1 << 25).items() if name != "stream_count"}
+    if any(launches[name] != n for name, n in expect.items()) or launches[
+            "block_partition_reference"]:
+        raise AssertionError(f"{what}: the 2^25 table's partition launched {launches}")
+    log(f"{what}: large tables, {keys.numel()} keys, kernel == twin: "
         + ", ".join(f"{name} {ms:.4f} ms" for name, ms in t.items())
-        + f" (median of 5; the twin's of 3); bound {bound_ms:.4f} ms by {bound_by}, "
-        f"{two_pass_ms:.4f} ms with the histogram's read")
-    return {"ms": t["partition"], "plain_ms": t["twin"],
-            "library_ms": t["torch.sort + count_offsets"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": err, "times": t}
+        + f"; launches at 2^25: {launches}")
+    return {"times": t, "max_abs_err": err}
+
+
+def count_report(torch, mapper, grouped, off, keys, n_buckets: int, max_probe: int,
+                 what: str) -> dict:
+    """The count kernel and the first one (r2_kernel_dissect's ``full``,
+    block_count_kernel<kFull>) on one chunk's grouped keys and on the same
+    keys sorted (with count_offsets), each from zero counts == the twin's
+    counts, then timed (median of 5), beside the twin and the bound; the
+    kernels line's entry."""
+    from kmer_mapper_tpu_torch.ops import stream_probe
+    from kmer_mapper_tpu_torch.ops.u32hash import bucket_shift
+    from kmer_mapper_tpu_torch.scripts import r2_kernel_dissect
+
+    shift, bpb = bucket_shift(n_buckets), min(128, n_buckets)
+    table = (mapper.key_lo, mapper.key_hi)
+    ordered = torch.sort(keys).values
+    inputs = {"grouped": (grouped, off),
+              "sorted": (ordered, stream_probe.count_offsets(ordered, n_buckets, bpb))}
+    kernels = {"stream_count": stream_probe.stream_count,
+               "first kernel (r2_kernel_dissect full)": lambda *a: r2_kernel_dissect.
+               stream_count_v(*a, max_probe, "full")}
+
+    def run(fn, counts, window):
+        return fn(*table, counts, *window, mapper.block_probe, shift, bpb)
+
+    twin = run(stream_probe.stream_count_reference, torch.zeros_like(mapper.counts),
+               inputs["grouped"])
+    t, err = {}, 0
+    for name, fn in kernels.items():
+        for order, window in inputs.items():
+            got = run(fn, torch.zeros_like(mapper.counts), window)
+            err = max(err, int((got.long() - twin.long()).abs().max()))
+            scratch = torch.zeros_like(mapper.counts)
+            t[f"{name} {order}"] = median_ms(lambda: run(fn, scratch, window))
+    if err:
+        raise AssertionError(f"{what}: a count kernel and the twin disagree")
+    scratch = torch.zeros_like(mapper.counts)
+    t["twin"] = median_ms(
+        lambda: run(stream_probe.stream_count_reference, scratch, inputs["grouped"]))
+    bound_ms, bound_by = count_bound((*table, twin, grouped, off, mapper.block_probe, shift,
+                                      bpb), max_probe, int(twin.ne(0).sum()))
+    log(f"{what}: stream_count on {keys.numel()} queries, == twin: "
+        + ", ".join(f"{name} {ms:.4f} ms" for name, ms in t.items())
+        + f" (median of 5); bound {bound_ms:.4f} ms by {bound_by}")
+    return {"ms": t["stream_count grouped"], "plain_ms": t["twin"], "max_abs_err": err,
+            "bound_ms": bound_ms, "bound_by": bound_by, "times": t}
 
 
 def phase_steady_state(torch, np, chunks, index, arrays, device) -> dict:
@@ -571,7 +789,8 @@ def phase_steady_state(torch, np, chunks, index, arrays, device) -> dict:
         raise AssertionError("steady: kernel path and twin path counts differ")
     n_steps = (1 + N_WINDOWS) * len(dev_chunks)
     if (launches["plane_hash_keys"] != n_steps
-            or any(launches[name] != n_steps for name in MAIN_PATH_KERNELS)
+            or any(launches[name] != n_steps * chunk_launches(n_buckets)[name]
+                   for name in MAIN_PATH_KERNELS)
             or launches["ragged_hash_keys"]
             or any(n for name, n in launches.items() if "reference" in name)):
         raise AssertionError(f"steady: map_chunk did not run the kernels alone: {launches}")
@@ -602,39 +821,18 @@ def phase_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     ])
     log("steady: per-chunk stage ms " + ", ".join(f"{n} {v:.3f}" for n, v in stage_ms.items()))
 
-    # the partition kernels alone on one chunk's keys, against their twin,
-    # with the histogram in shared memory (the wrapper's choice here) and in
-    # device memory; timed beside the twin and torch.sort + count_offsets
+    # the partition kernels alone on one chunk's keys, against their twin
+    # and their plain pieces, timed beside the cursor route, the twin and
+    # torch.sort + count_offsets; then the same keys for larger tables
     keys0 = hashing.plane_hash_keys(words0, K, READ_LEN, nr0, seed)
     keys, off, part_err = partition_check(torch, keys0, n_buckets)
-    part_err = max(part_err, partition_check(torch, keys0, n_buckets, shared=False)[2])
-    partition = partition_report(torch, keys0, n_buckets, off, part_err, "steady")
+    partition = partition_report(torch, keys0, n_buckets, part_err, "steady")
+    large = large_table_report(torch, keys0, "steady")
 
-    # the count kernel vs its twin alone on that chunk's grouped keys: the
-    # result from fresh counts, then the median device time of 5 calls
-    # (median_ms); and the kernel on the same keys sorted, as before the
-    # partition
-    outs, ms = [], []
-    for fn in (stream_probe.stream_count, stream_probe.stream_count_reference):
-        c = torch.zeros_like(mapper.counts)
-        args = (mapper.key_lo, mapper.key_hi, c, keys, off, mapper.block_probe, shift, bpb)
-        outs.append(fn(*args).clone())
-        ms.append(median_ms(lambda: fn(*args)))
-    max_err = int((outs[0].to(torch.int64) - outs[1].to(torch.int64)).abs().max())
-    ordered = torch.sort(keys0).values
-    sorted_args = (mapper.key_lo, mapper.key_hi, torch.zeros_like(mapper.counts), ordered,
-                   stream_probe.count_offsets(ordered, n_buckets, bpb), mapper.block_probe,
-                   shift, bpb)
-    if max_err or not torch.equal(stream_probe.stream_count(*sorted_args), outs[0]):
-        raise AssertionError("steady: kernel and twin disagree on one chunk")
-    sorted_ms = median_ms(lambda: stream_probe.stream_count(*sorted_args))
-    del ordered, sorted_args
-    bound_ms, bound_by = count_bound(
-        (mapper.key_lo, mapper.key_hi, outs[0], keys, off, mapper.block_probe, shift, bpb),
-        index.table.max_probe, int(outs[0].ne(0).sum()))
-    log(f"steady: stream_count on {keys.numel()} queries: kernel {ms[0]:.4f} ms on the "
-        f"partition's grouped keys, {sorted_ms:.4f} ms on the same keys sorted; twin "
-        f"{ms[1]:.3f} ms (median of 5); bound {bound_ms:.4f} ms by {bound_by}")
+    # the count kernel and the first one vs the twin alone on that chunk's
+    # grouped keys and on the same keys sorted
+    count = count_report(torch, mapper, keys, off, keys0, n_buckets, index.table.max_probe,
+                         "steady")
 
     # the plane hash-key kernel alone on one chunk, against its twin
     hash_args = (words0, K, READ_LEN, nr0, seed)
@@ -651,9 +849,8 @@ def phase_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     del got, keys, keys0
     return {
         "kernel_rates": kernel_rates, "twin_rates": twin_rates, "stage_ms": stage_ms,
-        "peak_gib": peak / 2**30, "partition": partition,
-        "ms": ms[0], "plain_ms": ms[1], "max_abs_err": max_err,
-        "bound_ms": bound_ms, "bound_by": bound_by, "dev_chunks": dev_chunks,
+        "peak_gib": peak / 2**30, "partition": partition, "large": large, "count": count,
+        "dev_chunks": dev_chunks,
         "hash": {"ms": hash_ms, "plain_ms": hash_plain_ms, "max_abs_err": hash_err,
                  "bound_ms": hash_bound_ms, "bound_by": hash_bound_by},
     }
@@ -741,7 +938,8 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
         raise AssertionError("ragged: kernel path and twin path counts differ")
     n_steps = (1 + N_WINDOWS) * len(dev_chunks)
     if (launches["ragged_hash_keys"] != n_steps
-            or any(launches[name] != n_steps for name in MAIN_PATH_KERNELS)
+            or any(launches[name] != n_steps * chunk_launches(n_buckets)[name]
+                   for name in MAIN_PATH_KERNELS)
             or launches["plane_hash_keys"]
             or any(n for name, n in launches.items() if "reference" in name)):
         raise AssertionError(f"ragged: map_chunk did not run the kernels alone: {launches}")
@@ -792,12 +990,15 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     log(f"ragged: ragged_hash_keys on {chunks[0].n_reads} reads ({got.numel()} keys): kernel "
         f"{hash_ms:.4f} ms, with offsets and sync {wrapper_ms:.4f} ms, twin {plain_ms:.3f} ms; "
         f"bound {bound_ms:.4f} ms by {bound_by}")
-    # the partition kernels on that chunk's keys against their twin, timed
-    _, off, part_err = partition_check(torch, got, n_buckets)
-    partition = partition_report(torch, got, n_buckets, off, part_err, "ragged")
-    del got
+    # the partition kernels and the count kernels on that chunk's keys
+    # against their twins, timed
+    grouped, off, part_err = partition_check(torch, got, n_buckets)
+    partition = partition_report(torch, got, n_buckets, part_err, "ragged")
+    count = count_report(torch, mapper, grouped, off, got, n_buckets, index.table.max_probe,
+                         "ragged")
+    del got, grouped
     return {"kernel_rates": kernel_rates, "ms_chunk": ms_chunk, "dev_chunks": dev_chunks,
-            "partition": partition,
+            "partition": partition, "count": count,
             "hash": {"ms": hash_ms, "plain_ms": plain_ms, "max_abs_err": hash_err,
                      "bound_ms": bound_ms, "bound_by": bound_by}}
 
@@ -1476,7 +1677,7 @@ def trace_busy_share(profile_dir: str) -> tuple[float, float, int]:
             busy += b - a
             cursor = b
     launches = sum(1 for e in events
-                   if e.get("cat") == "kernel" and "block_count_kernel" in e.get("name", ""))
+                   if e.get("cat") == "kernel" and "stream_count_kernel" in e.get("name", ""))
     return busy / (end - start), (end - start) / 1e3, launches
 
 
@@ -1643,7 +1844,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     device = torch.device("cuda")
-    name, smi = phase_environment(torch)
+    card, smi = phase_environment(torch)
     phase_build()
     log("tolerance: every comparison is exact integer equality (max_abs_err 0)")
     max_err = phase_hazards(torch, device)
@@ -1682,34 +1883,46 @@ def main() -> int:
         entry.update(route="cuda", source="kmer_mapper_tpu_torch/csrc/hash_keys.cu",
                      max_abs_err=max(entry["max_abs_err"], hash_err[entry["name"]]),
                      library_ms=None)  # no single PyTorch call hashes, mixes and keys
-    partition = {
-        "name": "block_partition", "route": "cuda",
-        "source": "kmer_mapper_tpu_torch/csrc/block_partition.cu",
+    source = "kmer_mapper_tpu_torch/csrc/block_partition.cu"
+    launches = e2e["launches"]
+    partition = [{
+        # the whole stage: its launches are its kernels' in the main path's run
+        "name": "block_partition", "route": "cuda", "source": source,
         "replaces": "kmer_mapper_tpu/ops/stream_probe.py:1170 (lax.sort) and :407 "
                     "(block_offsets), XLA",
-        # block_histogram and block_scatter launch once each a partition
-        "launches": e2e["partition_launches"],
-        **{key: steady["partition"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                     "library_ms")},
-        "max_abs_err": max(partition_err, steady["partition"]["max_abs_err"],
-                           ragged["partition"]["max_abs_err"]),
-    }
+        "launches": sum(launches[name] for name in PARTITION_KERNELS),
+        **steady["partition"]["stage"],
+        "max_abs_err": max(partition_err, steady["partition"]["stage"]["max_abs_err"],
+                           steady["large"]["max_abs_err"],
+                           ragged["partition"]["stage"]["max_abs_err"]),
+    }]
+    for kernel in PARTITION_KERNELS:
+        entry = steady["partition"]["kernels"][kernel]
+        partition.append({
+            "name": kernel, "route": "cuda", "source": source,
+            "replaces": "kmer_mapper_tpu/ops/stream_probe.py:407 (block_offsets), XLA"
+                        if kernel == "radix_offsets" else
+                        "kmer_mapper_tpu/ops/stream_probe.py:1170 (lax.sort), XLA",
+            "launches": launches[kernel],
+            **{key: entry[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")},
+            "max_abs_err": max(entry["max_abs_err"],
+                               ragged["partition"]["kernels"][kernel]["max_abs_err"]),
+        })
     kernels = [{
         "name": "stream_count",
         "route": "cuda",
         "source": "kmer_mapper_tpu_torch/csrc/stream_count.cu",
         "replaces": "kmer_mapper_tpu/ops/stream_probe.py:551",
-        "launches": e2e["launches"],
-        "max_abs_err": max(max_err, steady["max_abs_err"]),
-        "ms": steady["ms"],
-        "plain_ms": steady["plain_ms"],
-        "bound_ms": steady["bound_ms"],
-        "bound_by": steady["bound_by"],
+        "launches": launches["stream_count"],
+        "max_abs_err": max(max_err, steady["count"]["max_abs_err"],
+                           ragged["count"]["max_abs_err"]),
+        **{key: steady["count"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,  # no single PyTorch call counts slot hits
-    }, partition, *hash_keys, *dissect, *tiles, library]
+    }, *partition, *hash_keys, *dissect, *tiles, library]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": card, "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
 

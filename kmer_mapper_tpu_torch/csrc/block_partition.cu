@@ -5,223 +5,412 @@
 // Replaces the sort and the offsets of
 // kmer_mapper_tpu/ops/stream_probe.py:stream_probe_count_mixed: the
 // two-operand lax.sort of the mixed (m_lo, m_hi) words (:1170) and
-// block_offsets (:407), XLA code on the TPU that the port had run as
-// torch.sort (values and int64 indices) plus two torch.searchsorted. The
-// count never needed sorted order: it runs one CTA per chain block's window
-// and checks each query's bucket against its own block, so only grouping by
-// block matters, and integer adds commute. It computes, for keys k[0..n):
-//  * bin(k) = the chain block (k ^ 2**63) >> (64 - log2 n_blocks), the top
-//    bits of m_lo (0 for a table of one block, where a shift by 64 would be
-//    undefined), or n_blocks for the all-ones invalid key, which lands in no
-//    window;
-//  * block_histogram: hist[bin] += 1 for every key, hist int32[n_blocks + 1];
-//  * the wrapper's exclusive scan (torch.cumsum) gives off int32[n_blocks + 2]:
-//    block b's window is [off[b], off[b+1]), the invalid keys follow off[n_blocks];
-//  * block_scatter: every key is written into its bin's window, at a slot
-//    reserved from cursor = off[:n_blocks + 1]. The output is a permutation
-//    of the input. The order inside a window is left unspecified (it depends
-//    on the order in which warps reserve their slots).
+// block_offsets (:407), XLA code on the TPU. The count never needed sorted
+// order: it runs one CTA per chain block's window and checks each query's
+// bucket against its own block, so only grouping by block matters, and
+// integer adds commute. For keys k[0..n):
+//  * bin(k) is the key's chain block, or n_blocks for the all-ones invalid
+//    key, which lands in no window (block_partition.cuh);
+//  * off int32[n_blocks + 1]: block b's window is [off[b], off[b+1]), the
+//    invalid keys follow off[n_blocks];
+//  * every key is written into its bin's window: the output is a
+//    permutation of the input, here sorted by bin and stable.
 //
-// What bounds it: its bytes are 24 a key (the histogram reads each 8-byte
-// key, the scatter reads it again and writes it; the histogram, offsets and
-// cursors are n_blocks words, 32 KB on the bench index), but on the H100 its
-// atomics bound it: one per group of equal bins in a warp, which on uniform
-// keys is almost one a key. In device memory they cost the histogram about
-// twice its time in shared memory, and the scatter's, which must return the
-// slot, take most of the partition's time (PERF.md). Design, simple first:
-//  * each lane loads kItems keys (coalesced, the loads issued together)
-//    before it bins them; warps stride over the keys;
-//  * the lanes of a warp that share a bin merge with __match_any_sync, and
-//    the lowest of them does one atomic for the group: on the poly-A window,
-//    where every key of a chunk lands in one block, that is one atomic per
-//    32 keys, not 32;
-//  * the histogram counts into a copy in shared memory where its bins fit
-//    (kSharedBins, 48 KB: the bench index's 8,193), which each CTA adds into
-//    the global one at its end; a table of 2**25 buckets has 262,145 bins
-//    and counts straight into device memory;
-//  * the scatter's leaders reserve popc(group) slots from the bin's cursor
-//    (an atomic that returns), issued for all kItems keys before any is
-//    written; each lane writes at the reserved base + its rank in the group.
-//    The writes land in at most n_blocks + 1 open windows; their 32-byte
-//    sectors (256 KB on the bench index, 8 MB at 2**25 buckets) stay in the
-//    50 MB L2 until they fill, so device memory sees whole sectors.
+// What bounds it on the H100 is not its bytes (16 a key for one read and one
+// write, 0.257 ms for a 64 Mi-base chunk's 53.8M keys) but how its writes
+// land. Scattered 8-byte stores, one 32-byte sector request each, run at
+// ~50 G a second even into an L2-resident region (PERF.md): ~1 ms a chunk,
+// whatever the atomics. So the partition is a least-significant-digit radix
+// sort of the bins, whose writes leave in runs, in passes of at most
+// kRadixMaxBits bits (two of 7 bits for the 8,193 bins of a 2**20-bucket
+// table); it takes every table size. Each pass:
+//  * partition_histogram_kernel: CTA s takes the contiguous slab of keys
+//    [s*slab_len, (s+1)*slab_len), counts the pass's digit of each key in
+//    shared memory and writes its counts as row s of a (slab, digit) int32
+//    matrix. No global atomic.
+//  * partition_scan_kernel: the matrix's exclusive scan down each digit's
+//    column, in place, and each digit's total; the wrapper's torch.cumsum
+//    of the totals gives each digit's first slot.
+//  * radix_scatter_kernel: CTA s walks its slab in tiles of 4,096 keys,
+//    ranks each tile stably in shared memory (ballots over the digit's
+//    bits find the lanes of a warp that share a digit; running counts per
+//    warp; the warps' counts scanned in (digit, warp) order), stores the
+//    tile grouped by digit and writes it out in that order from one
+//    cursor a digit in shared memory: each digit's keys of a tile leave as
+//    one run (~32 keys at 128 digits). Stable, so the passes compose into
+//    a sort by bin, equal to the plain twin's stable order.
+// radix_offsets_launch then finds each bin's first position in the sorted
+// keys (a binary search a bin, or one read of the keys where the bins are
+// many). A pass reads and writes each key once, plus one read for its
+// histogram. The slabs are one wave of the scatter kernel: the card's SMs
+// times its resident CTAs (radix_slabs).
+//
+// The first design, a histogram and a scatter with returning atomics on a
+// cursor array, is kept for measurement in partition_dissect.cu.
 //
 // Bound with ctypes; see kmer_mapper_tpu_torch/native.py.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "block_partition.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 4;  // keys a lane loads before it bins them
-constexpr int kWarpTile = 32 * kItems;
-constexpr int kSharedBins = 12288;  // 48 KB of int32: the histogram's shared copy
-constexpr long long kInvalidKey = 0x7FFFFFFFFFFFFFFFll;  // the all-ones pair's key
-constexpr unsigned long long kSignBit = 0x8000000000000000ull;
-constexpr unsigned int kFullMask = 0xFFFFFFFFu;
+using namespace kmt_partition;
 
-// The bin of a key: its chain block, or n_blocks for the invalid key.
-__device__ __forceinline__ int key_bin(long long key, int log2_blocks) {
-  if (key == kInvalidKey) return 1 << log2_blocks;
-  // a 64-bit shift by 64 is undefined: one block holds every key
-  if (log2_blocks == 0) return 0;
-  return static_cast<int>((static_cast<unsigned long long>(key) ^ kSignBit) >>
-                          (64 - log2_blocks));
-}
+constexpr int kScanWarps = 8;  // warps of a scan CTA, which scans 32 digits
 
-// The warp's tile at `base`: lane l holds keys base + 32j + l, j < kItems,
-// and their bins (-1 past the end, a group that does nothing).
-__device__ __forceinline__ void load_tile(const long long* __restrict__ keys, long long n,
-                                          long long base, int lane, int log2_blocks,
-                                          long long (&key)[kItems], int (&bin)[kItems]) {
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const long long i = base + 32 * j + lane;
-    key[j] = i < n ? keys[i] : 0;
-  }
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    bin[j] = base + 32 * j + lane < n ? key_bin(key[j], log2_blocks) : -1;
-  }
-}
-
-template <bool kShared>
+// Row s of the (slab, digit) matrix: the digits (bin >> shift) & mask of
+// slab s's keys, counted in shared memory; every entry of the row is
+// written, zeros too.
 __global__ void __launch_bounds__(kThreads)
-block_histogram_kernel(const long long* __restrict__ keys, long long n,
-                       int* __restrict__ hist, int log2_blocks) {
-  extern __shared__ int local[];
-  const int n_bins = (1 << log2_blocks) + 1;
-  int* bins = kShared ? local : hist;
-  if (kShared) {
-    for (int b = threadIdx.x; b < n_bins; b += kThreads) local[b] = 0;
-    __syncthreads();
-  }
+partition_histogram_kernel(const long long* __restrict__ keys, long long n, long long slab_len,
+                           int* __restrict__ rows, int log2_blocks, int shift, int mask,
+                           int width) {
+  extern __shared__ int bins[];
+  for (int b = threadIdx.x; b < width; b += kThreads) bins[b] = 0;
+  __syncthreads();
   const int lane = threadIdx.x & 31;
-  const long long stride = static_cast<long long>(gridDim.x) * kWarps * kWarpTile;
-  // `base` is the same for every lane of a warp: all of them reach the match
-  for (long long base = (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) *
-                        kWarpTile;
-       base < n; base += stride) {
+  const long long first = blockIdx.x * slab_len;
+  const long long end = min(n, first + slab_len);
+  for (long long base = first + (threadIdx.x >> 5) * kWarpTile; base < end;
+       base += kWarps * kWarpTile) {
     long long key[kItems];
     int bin[kItems];
-    load_tile(keys, n, base, lane, log2_blocks, key, bin);
+    load_tile(keys, end, base, lane, log2_blocks, key, bin);
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
-      const unsigned int peers = __match_any_sync(kFullMask, bin[j]);
-      if (bin[j] >= 0 && lane == __ffs(peers) - 1) atomicAdd(&bins[bin[j]], __popc(peers));
+      if (bin[j] >= 0) atomicAdd(&bins[(bin[j] >> shift) & mask], 1);
     }
   }
-  if (kShared) {
-    __syncthreads();
-    for (int b = threadIdx.x; b < n_bins; b += kThreads) {
-      if (local[b]) atomicAdd(&hist[b], local[b]);
-    }
+  __syncthreads();
+  int* row = rows + static_cast<long long>(blockIdx.x) * width;
+  for (int b = threadIdx.x; b < width; b += kThreads) row[b] = bins[b];
+}
+
+// The exclusive scan of each digit's column of the (slab, digit) matrix, in
+// place, and each digit's total. CTA c scans digits 32c .. 32c + 31, one a
+// lane; warp w takes a run of the slabs: it sums its run, the warps' sums
+// are scanned in shared memory, and each warp walks its run again writing
+// the running sum. Neighbouring lanes read neighbouring words of a row.
+__global__ void __launch_bounds__(kScanWarps * 32)
+partition_scan_kernel(int* __restrict__ rows, int* __restrict__ totals, int n_slabs,
+                      int width) {
+  __shared__ int part[kScanWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int d = blockIdx.x * 32 + lane;
+  const int per_warp = (n_slabs + kScanWarps - 1) / kScanWarps;
+  const int s0 = min(n_slabs, w * per_warp);
+  const int s1 = min(n_slabs, s0 + per_warp);
+  int* col = rows + d;
+  int sum = 0;
+  if (d < width) {
+    for (int s = s0; s < s1; ++s) sum += col[static_cast<long long>(s) * width];
+  }
+  part[w][lane] = sum;
+  __syncthreads();
+  int run = 0;
+  for (int v = 0; v < w; ++v) run += part[v][lane];
+  if (d >= width) return;
+  if (w == kScanWarps - 1) totals[d] = run + sum;
+  for (int s = s0; s < s1; ++s) {
+    const int c = col[static_cast<long long>(s) * width];
+    col[static_cast<long long>(s) * width] = run;
+    run += c;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-block_scatter_kernel(const long long* __restrict__ keys, long long n,
-                     int* __restrict__ cursor, long long* __restrict__ out,
-                     int log2_blocks) {
+constexpr int kRadixThreads = 512;
+constexpr int kRadixWarps = kRadixThreads / 32;
+constexpr int kRadixItems = 8;  // keys a thread ranks in a tile
+constexpr int kRadixTile = kRadixThreads * kRadixItems;  // 4096 keys, 32 KB
+constexpr int kRadixMaxBits = 8;
+constexpr int kRadixDigits = 1 << kRadixMaxBits;
+// radix_offsets_launch searches for each bin's bound where the keys are at
+// least this many times the bins, and else reads every key once
+constexpr long long kSearchKeysABin = 64;
+
+struct RadixSmem {
+  long long tile[kRadixTile];            // the tile's keys, stably grouped by digit
+  int warp_count[kRadixWarps][kRadixDigits];  // a warp's keys of each digit, then its base
+  int cursor[kRadixDigits];              // the slab's next slot of each digit
+  int start[kRadixDigits];               // a digit's first position in the tile
+  int count[kRadixDigits];               // a digit's keys in the tile
+};
+
+// One LSD pass: slab s's keys, each written at its digit's cursor
+// doff[d] + rows[s, d] (the scanned (slab, digit) matrix) plus its stable
+// rank among the slab's keys of that digit. The slab goes in tiles of
+// kRadixTile keys; a tile is ranked in shared memory (for each item of a
+// warp, the lanes that share a digit found with one ballot a digit bit;
+// each warp's running count of each digit; the warps' counts scanned in
+// (digit, warp) order), stored grouped by digit, and written out in that
+// order, so each digit's keys of a tile leave as one coalesced run.
+// Stability: a tile's order is (warp, item, lane) = the slab's order, and
+// the slab's tiles go in order, so equal digits keep the input order, and
+// LSD passes compose into a sort by bin.
+__global__ void __launch_bounds__(kRadixThreads)
+radix_scatter_kernel(const long long* __restrict__ keys, long long n, long long slab_len,
+                     const int* __restrict__ rows, const int* __restrict__ doff,
+                     long long* __restrict__ out, int log2_blocks, int shift, int bits,
+                     int width) {
+  extern __shared__ __align__(16) unsigned char radix_smem[];
+  RadixSmem& sm = *reinterpret_cast<RadixSmem*>(radix_smem);
+  const int mask = (1 << bits) - 1;
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const unsigned int below = (1u << lane) - 1u;
-  const long long stride = static_cast<long long>(gridDim.x) * kWarps * kWarpTile;
-  for (long long base = (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) *
-                        kWarpTile;
-       base < n; base += stride) {
-    long long key[kItems];
-    int bin[kItems];
-    load_tile(keys, n, base, lane, log2_blocks, key, bin);
-    unsigned int peers[kItems];
-    int at[kItems];
-    // every reservation is in flight before the first result is needed
+  const int* row = rows + static_cast<long long>(blockIdx.x) * width;
+  for (int d = threadIdx.x; d < width; d += kRadixThreads) sm.cursor[d] = doff[d] + row[d];
+  const long long first = blockIdx.x * slab_len;
+  const long long end = min(n, first + slab_len);
+  for (long long tile0 = first; tile0 < end; tile0 += kRadixTile) {
+    for (int i = threadIdx.x; i < kRadixWarps * width; i += kRadixThreads) {
+      sm.warp_count[i / width][i % width] = 0;
+    }
+    __syncthreads();
+    // warp w ranks the tile's keys [w * 32 * kRadixItems, (w + 1) * ...)
+    const long long base = tile0 + warp * 32 * kRadixItems;
+    long long key[kRadixItems];
+    int digit[kRadixItems], rank[kRadixItems];
 #pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      peers[j] = __match_any_sync(kFullMask, bin[j]);
-      at[j] = 0;
-      if (bin[j] >= 0 && lane == __ffs(peers[j]) - 1) {
-        at[j] = atomicAdd(&cursor[bin[j]], __popc(peers[j]));
+    for (int j = 0; j < kRadixItems; ++j) {
+      const long long i = base + 32 * j + lane;
+      key[j] = i < end ? keys[i] : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kRadixItems; ++j) {
+      const bool valid = base + 32 * j + lane < end;
+      digit[j] = valid ? (key_bin(key[j], log2_blocks) >> shift) & mask : 0;
+      unsigned int peers = __ballot_sync(kFullMask, valid);
+      for (int b = 0; b < bits; ++b) {
+        const unsigned int ones = __ballot_sync(kFullMask, (digit[j] >> b) & 1);
+        peers &= (digit[j] >> b) & 1 ? ones : ~ones;
+      }
+      const int seen = valid ? sm.warp_count[warp][digit[j]] : 0;
+      rank[j] = seen + __popc(peers & below);
+      __syncwarp();
+      if (valid && (peers & below) == 0) sm.warp_count[warp][digit[j]] = seen + __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+    // each digit's warps in order: warp_count becomes the warp's base
+    for (int d = threadIdx.x; d < width; d += kRadixThreads) {
+      int run = 0;
+      for (int w = 0; w < kRadixWarps; ++w) {
+        const int c = sm.warp_count[w][d];
+        sm.warp_count[w][d] = run;
+        run += c;
+      }
+      sm.count[d] = run;
+    }
+    __syncthreads();
+    if (warp == 0) {  // the digits' starts in the tile: a warp scan of 8-digit sums
+      const int per_lane = kRadixDigits / 32;
+      int sums[per_lane];
+      int total = 0;
+#pragma unroll
+      for (int k = 0; k < per_lane; ++k) {
+        const int d = lane * per_lane + k;
+        sums[k] = d < width ? sm.count[d] : 0;
+        total += sums[k];
+      }
+      int incl = total;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(kFullMask, incl, o);
+        if (lane >= o) incl += v;
+      }
+      int run = incl - total;
+#pragma unroll
+      for (int k = 0; k < per_lane; ++k) {
+        const int d = lane * per_lane + k;
+        if (d < width) sm.start[d] = run;
+        run += sums[k];
       }
     }
+    __syncthreads();
 #pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int base_j = __shfl_sync(kFullMask, at[j], __ffs(peers[j]) - 1);
-      if (bin[j] >= 0) out[base_j + __popc(peers[j] & below)] = key[j];
+    for (int j = 0; j < kRadixItems; ++j) {
+      if (base + 32 * j + lane < end) {
+        sm.tile[sm.start[digit[j]] + sm.warp_count[warp][digit[j]] + rank[j]] = key[j];
+      }
+    }
+    __syncthreads();
+    const int tile_n = static_cast<int>(min(static_cast<long long>(kRadixTile), end - tile0));
+    for (int p = threadIdx.x; p < tile_n; p += kRadixThreads) {
+      const long long k = sm.tile[p];
+      const int d = (key_bin(k, log2_blocks) >> shift) & mask;
+      out[sm.cursor[d] + (p - sm.start[d])] = k;
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < width; d += kRadixThreads) sm.cursor[d] += sm.count[d];
+  }
+}
+
+// off[b] for b <= n_blocks: the first position of the sorted keys whose bin
+// is b or more (n where none is), two ways. radix_search_offsets_kernel: a
+// thread a bin, a binary search of the keys (~26 reads a bin, the first
+// steps shared by all). radix_offsets_kernel: thread i writes the bins in
+// (bin of key i - 1, bin of key i], so every entry is written once, for
+// one read of the keys; it takes tables with many bins for their keys.
+__global__ void radix_search_offsets_kernel(const long long* __restrict__ sorted, long long n,
+                                            int* __restrict__ off, int log2_blocks) {
+  const long long b = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (b > (1LL << log2_blocks)) return;
+  long long lo = 0, hi = n;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (key_bin(sorted[mid], log2_blocks) < b) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
     }
   }
+  off[b] = static_cast<int>(lo);
 }
 
-// CTAs that fill the card once, and no more than the work's CTA tiles
-// (kWarps warp tiles each); the kernels stride over the rest.
-template <typename Kernel>
-cudaError_t grid_for(Kernel kernel, int device, size_t smem, long long n, unsigned int& grid) {
-  int sms = 0, per_sm = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+__global__ void radix_offsets_kernel(const long long* __restrict__ sorted, long long n,
+                                     int* __restrict__ off, int log2_blocks) {
+  const int n_blocks = 1 << log2_blocks;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i <= n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int prev = i > 0 ? key_bin(sorted[i - 1], log2_blocks) : -1;
+    const int cur = i < n ? key_bin(sorted[i], log2_blocks) : n_blocks;
+    for (int b = prev + 1; b <= cur; ++b) off[b] = static_cast<int>(i);
   }
-  if (err != cudaSuccess) return err;
-  const long long tiles = (n + kWarps * kWarpTile - 1) / (kWarps * kWarpTile);
-  grid = static_cast<unsigned int>(tiles < 1LL * sms * per_sm ? tiles : 1LL * sms * per_sm);
-  return grid ? cudaSuccess : cudaErrorInvalidConfiguration;
-}
-
-bool valid_args(long long n, int log2_blocks) {
-  return n >= 0 && n < (1LL << 31) && log2_blocks >= 0 && log2_blocks <= 30;
 }
 
 }  // namespace
 
-// hist[bin(k)] += 1 for the n keys; returns the first CUDA error (0 on
-// success). Device pointers: keys int64[n], hist int32[2**log2_blocks + 1],
-// zeroed by the caller. shared != 0 counts in a shared-memory copy, which
-// needs 2**log2_blocks + 1 <= 12288 bins. Launches on `stream` of CUDA
-// device `device` and does not synchronise.
-extern "C" int block_histogram_launch(const void* keys, long long n, void* hist,
-                                      int log2_blocks, int shared, int device,
-                                      void* stream) {
-  const int n_bins = valid_args(n, log2_blocks) ? (1 << log2_blocks) + 1 : 0;
-  if (!n_bins || (shared && n_bins > kSharedBins)) {
+// The partition's slab count: one wave of radix_scatter_kernel, the card's
+// SMs times the CTAs of it that an SM holds. Returns the count, or minus a
+// CUDA error code.
+extern "C" int radix_slabs(int device) {
+  int sms = 0, resident = 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(radix_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(sizeof(RadixSmem)));
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, radix_scatter_kernel,
+                                                        kRadixThreads, sizeof(RadixSmem));
+  }
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (resident < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
+  return sms * resident;
+}
+
+namespace {
+
+// The slabs of length slab_len cover the n keys, none of them empty, and
+// a pass's digit (bin >> shift) & (2**bits - 1) is one of the bins' bits.
+bool valid_pass_args(long long n, long long slab_len, int n_slabs, int log2_blocks, int shift,
+                     int bits) {
+  return valid_args(n, log2_blocks) && slab_len > 0 && n_slabs > 0 &&
+         slab_len * n_slabs >= n && slab_len * (n_slabs - 1) < (n > 0 ? n : 1) && bits >= 1 &&
+         bits <= kRadixMaxBits && shift >= 0 && shift <= log2_blocks;
+}
+
+// A pass's digits: min(2**bits, (n_blocks >> shift) + 1).
+int digit_width(int log2_blocks, int shift, int bits) {
+  return min(1 << bits, ((1 << log2_blocks) >> shift) + 1);
+}
+
+}  // namespace
+
+// Writes row s < n_slabs of rows int32[n_slabs, width]: the counts of the
+// radix digit (bin >> shift) & (2**bits - 1) of keys [s*slab_len, min(n,
+// (s+1)*slab_len)), width = min(2**bits, (n_blocks >> shift) + 1), bits in
+// 1..8. The slabs must cover the n keys, none of them empty (n_slabs =
+// ceil(n / slab_len)). Returns the first CUDA error (0 on success). Device
+// pointers. Launches on `stream` of CUDA device `device` and does not
+// synchronise.
+extern "C" int partition_histogram_launch(const void* keys, long long n, void* rows,
+                                          long long slab_len, int n_slabs, int log2_blocks,
+                                          int shift, int bits, int device, void* stream) {
+  if (!valid_pass_args(n, slab_len, n_slabs, log2_blocks, shift, bits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // this library links its own CUDA runtime, whose current device is not
-  // PyTorch's
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess || n == 0) return static_cast<int>(err);
-  const auto* k = static_cast<const long long*>(keys);
-  auto* h = static_cast<int*>(hist);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned int grid = 0;
-  if (shared) {
-    const size_t smem = sizeof(int) * n_bins;
-    err = grid_for(block_histogram_kernel<true>, device, smem, n, grid);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    block_histogram_kernel<true><<<grid, kThreads, smem, s>>>(k, n, h, log2_blocks);
-  } else {
-    err = grid_for(block_histogram_kernel<false>, device, 0, n, grid);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    block_histogram_kernel<false><<<grid, kThreads, 0, s>>>(k, n, h, log2_blocks);
-  }
+  const int width = digit_width(log2_blocks, shift, bits);
+  partition_histogram_kernel<<<n_slabs, kThreads, sizeof(int) * width,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(keys), n, slab_len, static_cast<int*>(rows), log2_blocks,
+      shift, (1 << bits) - 1, width);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Writes each of the n keys into its bin's window of out, at a slot taken
-// from cursor[bin] (cursor int32[2**log2_blocks + 1], each bin's first slot,
-// advanced in place); returns the first CUDA error (0 on success). Device
-// pointers: keys and out int64[n]. Launches on `stream` of CUDA device
-// `device` and does not synchronise.
-extern "C" int block_scatter_launch(const void* keys, long long n, void* cursor, void* out,
-                                    int log2_blocks, int device, void* stream) {
-  if (!valid_args(n, log2_blocks)) return static_cast<int>(cudaErrorInvalidValue);
+// Scans rows int32[n_slabs, width] down each column in place (exclusive)
+// and writes each column's total to totals int32[width], width at most
+// 2**8. Returns the first CUDA error (0 on success). Device pointers.
+// Launches on `stream` of CUDA device `device` and does not synchronise.
+extern "C" int partition_scan_launch(void* rows, void* totals, int n_slabs, int width,
+                                     int device, void* stream) {
+  if (n_slabs < 1 || width < 1 || width > kRadixDigits) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  partition_scan_kernel<<<(width + 31) / 32, kScanWarps * 32, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(rows), static_cast<int*>(totals), n_slabs, width);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One LSD pass: each of the n keys of slab s (cut as
+// partition_histogram_launch cut them) is written into out int64[n] at
+// doff[d] + rows[s, d] + its stable rank among the slab's keys of digit d
+// = (bin >> shift) & (2**bits - 1). rows is the scanned (slab, digit)
+// matrix, doff its digits' first slots. bits in 1..8. Returns the first
+// CUDA error (0 on success). Device pointers. Launches on `stream` of CUDA
+// device `device` and does not synchronise.
+extern "C" int radix_scatter_launch(const void* keys, long long n, const void* rows,
+                                    const void* doff, void* out, long long slab_len,
+                                    int n_slabs, int log2_blocks, int shift, int bits,
+                                    int device, void* stream) {
+  if (!valid_pass_args(n, slab_len, n_slabs, log2_blocks, shift, bits)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess || n == 0) return static_cast<int>(err);
-  unsigned int grid = 0;
-  err = grid_for(block_scatter_kernel, device, 0, n, grid);
+  err = cudaFuncSetAttribute(radix_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(sizeof(RadixSmem)));
   if (err != cudaSuccess) return static_cast<int>(err);
-  block_scatter_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(keys), n, static_cast<int*>(cursor),
-      static_cast<long long*>(out), log2_blocks);
+  radix_scatter_kernel<<<n_slabs, kRadixThreads, sizeof(RadixSmem),
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(keys), n, slab_len, static_cast<const int*>(rows),
+      static_cast<const int*>(doff), static_cast<long long*>(out), log2_blocks, shift, bits,
+      digit_width(log2_blocks, shift, bits));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// off int32[2**log2_blocks + 1]: off[b] the first position of the n keys,
+// sorted by bin, whose bin is b or more; by binary searches where the keys
+// are at least kSearchKeysABin times the bins, else by one read of them.
+// Returns the first CUDA error (0 on success). Device pointers. Launches on
+// `stream` of CUDA device `device` and does not synchronise.
+extern "C" int radix_offsets_launch(const void* sorted, long long n, void* off,
+                                    int log2_blocks, int device, void* stream) {
+  if (!valid_args(n, log2_blocks)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_off = (1LL << log2_blocks) + 1;
+  const auto* k = static_cast<const long long*>(sorted);
+  auto* o = static_cast<int*>(off);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_off * kSearchKeysABin <= n) {
+    radix_search_offsets_kernel<<<static_cast<unsigned int>((n_off + 255) / 256), 256, 0, s>>>(
+        k, n, o, log2_blocks);
+  } else {
+    const long long blocks = (n + 1 + kThreads - 1) / kThreads;
+    radix_offsets_kernel<<<static_cast<unsigned int>(blocks < 4096 ? blocks : 4096), kThreads,
+                           0, s>>>(k, n, o, log2_blocks);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -119,16 +119,25 @@ def library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p,
     ]
-    lib.block_histogram_launch.argtypes = [
+    lib.partition_histogram_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+        *[ctypes.c_int] * 5, ctypes.c_void_p,
+    ]
+    lib.radix_slabs.argtypes = [ctypes.c_int]
+    lib.radix_scatter_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, *[ctypes.c_int] * 5, ctypes.c_void_p,
+    ]
+    lib.radix_offsets_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p,
     ]
-    lib.block_scatter_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
+    lib.partition_scan_launch.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    )
     for fn in (lib.plane_hash_keys_launch, lib.ragged_hash_keys_launch,
-               lib.block_histogram_launch, lib.block_scatter_launch):
+               lib.partition_histogram_launch, lib.partition_scan_launch, lib.radix_slabs,
+               lib.radix_scatter_launch, lib.radix_offsets_launch):
         fn.restype = ctypes.c_int
     # the dissection kernels of kmer_mapper_tpu_torch/scripts; each takes its
     # variant as an int
@@ -150,10 +159,20 @@ def library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 3
         + [ctypes.c_uint] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
+    # the partition's cursor route (partition_dissect.cu) takes none
+    lib.block_histogram_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.block_scatter_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
     for fn in (lib.r2_kernel_dissect_launch, lib.r2_window_dissect_launch,
                lib.r3_iter_floor_launch, lib.r9_dot_orient_launch,
                lib.r9_step_parts_launch, lib.r9_block_pipeline_launch,
-               lib.gather_probe_dissect_launch):
+               lib.gather_probe_dissect_launch, lib.block_histogram_launch,
+               lib.block_scatter_launch):
         fn.restype = ctypes.c_int
     lib.kmt_error_string.argtypes = [ctypes.c_int]
     lib.kmt_error_string.restype = ctypes.c_char_p

@@ -5,9 +5,8 @@ The count (``stream_probe.stream_count``) runs one CTA per 128-bucket chain
 block over that block's window of keys and is indifferent to the order
 inside a window, so the keys need grouping by block, not sorting. The JAX
 package sorts them (``lax.sort``) and bisects for each block's window
-(``block_offsets``); here a histogram by block, its exclusive scan and a
-scatter into each block's window do the same work in one read for the
-histogram and one read and one write for the scatter.
+(``block_offsets``); here a radix sort of the keys' blocks does the same
+work without comparing keys.
 
 A key's block is the top ``log2(n_blocks)`` bits of its m_lo word
 (``block_ids``). The all-ones invalid key (:data:`INVALID_KEY`) belongs to
@@ -15,11 +14,28 @@ no block: it lands after the last window, so the windows end where
 ``stream_probe.count_offsets`` ends them.
 
 :func:`block_partition` launches ``csrc/block_partition.cu`` on a CUDA
-tensor (``block_histogram``, ``torch.cumsum``, ``block_scatter``; a failed
-build or launch raises) and runs its plain twin
+tensor (a failed build or launch raises) and runs its plain twin
 :func:`block_partition_reference` on a CPU tensor; any other device raises.
-The order inside a window is unspecified: the kernel's depends on the order
-in which warps reserve slots, the twin's is the input order.
+On the card, for every table size, it runs :func:`radix_partition`: a
+least-significant-digit radix sort of the keys' bins, :func:`radix_passes`
+passes of at most 8 bits (two of 7 on a table of 2**20 buckets). Each pass
+runs ``partition_histogram`` (each CTA counts the digits of a contiguous
+slab of keys into one row of a (slab, digit) matrix), ``partition_scan``
+(the matrix's scan down each digit and the digits' totals, whose
+``torch.cumsum`` gives each digit's first slot) and ``radix_scatter``
+(each CTA ranks its slab's keys stably, a 4096-key tile at a time in
+shared memory, and writes each digit's keys of a tile as one run);
+``radix_offsets`` finds the windows' bounds in the sorted keys. No global
+atomics; a pass reads and writes each key once. The slabs are one wave of
+the scatter kernel (:func:`radix_slabs`). Its plain pieces are
+:func:`radix_passes`, :func:`slab_histograms`, :func:`slab_bases`,
+:func:`slab_scatter_reference` and :func:`radix_offsets_reference`,
+composed in :func:`radix_partition_reference`, which equals the twin bit
+for bit, as the kernels do: the keys of a window keep the input order.
+
+``launch_counts`` counts each kernel's launches by those names. The first
+design (a histogram and a scatter with atomics on a cursor array) is timed
+by ``scripts/partition_dissect.py``.
 """
 from __future__ import annotations
 
@@ -31,13 +47,16 @@ from ..index.layout import CHAIN_BLOCK
 #: the sort key of the all-ones invalid (m_lo, m_hi) pair, the largest
 #: int64 (``stream_probe.sort_key(INVALID_WORD, INVALID_WORD)``)
 INVALID_KEY = (1 << 63) - 1
-#: histogram bins (chain blocks + 1) that the kernel counts in shared
-#: memory, 48 KB of int32 (``kSharedBins`` of ``csrc/block_partition.cu``)
-SHARED_BINS = 12288
+#: the most bits of a radix digit (``kRadixMaxBits``): 256 digits a pass
+RADIX_BITS = 8
+#: keys of a warp's tile in the histogram kernel (``kWarpTile``); a slab is
+#: a whole number of them
+WARP_TILE = 128
 
-#: launches of the two CUDA kernels and calls of the plain twin since
-#: import; a run that must show which one ran resets them first
-launch_counts = {"block_histogram": 0, "block_scatter": 0, "block_partition_reference": 0}
+#: launches of the CUDA kernels and calls of the plain twin since import; a
+#: run that must show which one ran resets them first
+launch_counts = {"partition_histogram": 0, "partition_scan": 0, "radix_scatter": 0,
+                 "radix_offsets": 0, "block_partition_reference": 0}
 
 
 def check_partition_args(keys: torch.Tensor, n_buckets: int, bpb: int) -> int:
@@ -66,27 +85,132 @@ def block_ids(keys: torch.Tensor, n_blocks: int) -> torch.Tensor:
     return torch.where(keys == INVALID_KEY, n_blocks, block)
 
 
-def block_partition(keys: torch.Tensor, n_buckets: int, bpb: int):
+def block_partition(keys: torch.Tensor, n_buckets: int, bpb: int, *, consume: bool = False):
     """(grouped keys, off): a permutation of ``keys`` in which chain block
     b's keys fill ``[off[b], off[b+1])``, and int32 ``off[n_blocks + 1]``
     with ``off[0] == 0``; the invalid keys follow ``off[n_blocks]``. The
     order inside a window is unspecified. ``n_buckets`` and ``bpb`` are the
-    table's (``bpb = min(128, n_buckets)``)."""
+    table's (``bpb = min(128, n_buckets)``). ``consume`` lets the kernels
+    use ``keys``' memory for a pass, for a caller that reads the keys no
+    more (its contents are then undefined): the chunk steps consume theirs
+    (``stream_probe.stream_probe_count_keys``); a check against the twin on
+    the same keys does not."""
     n_blocks = check_partition_args(keys, n_buckets, bpb)
     if keys.device.type == "cpu":
         return block_partition_reference(keys, n_buckets, bpb)
-    return _partition_launch(keys, n_blocks)
+    return radix_partition(keys, n_blocks, consume=consume)
 
 
-def _partition_launch(keys: torch.Tensor, n_blocks: int, shared: bool | None = None):
-    """The kernels' (grouped keys, off) on the keys' device and current
-    stream: ``block_histogram`` (``shared`` as there), its exclusive scan,
-    ``block_scatter``; raises if the build or a launch fails."""
-    hist = block_histogram(keys, n_blocks, shared)
-    off = hist.new_zeros(n_blocks + 2)
-    torch.cumsum(hist, 0, dtype=torch.int32, out=off[1:])
-    off = off[:-1]
-    return block_scatter(keys, off.clone(), n_blocks), off
+def slab_layout(n: int, n_slabs: int) -> tuple[int, int]:
+    """(slabs, slab length) for ``n`` keys cut into at most ``n_slabs``
+    contiguous slabs: the length is a whole number of warp tiles
+    (:data:`WARP_TILE`), and no slab is empty (none for no keys)."""
+    slab_len = -(-max(n, 1) // n_slabs)
+    slab_len = -(-slab_len // WARP_TILE) * WARP_TILE
+    return -(-n // slab_len), slab_len
+
+
+def partition_histogram(keys: torch.Tensor, n_blocks: int, slab_len: int, shift: int,
+                        bits: int) -> torch.Tensor:
+    """int32 (slabs, :func:`digit_width`): row s the counts of the radix
+    digits ``(bin >> shift) & (2**bits - 1)`` of keys ``[s*slab_len,
+    (s+1)*slab_len)`` (:func:`slab_histograms`), from one launch of
+    ``partition_histogram_kernel`` (a CTA a slab)."""
+    n_slabs = -(-keys.shape[0] // slab_len)
+    width = digit_width(n_blocks, shift, bits)
+    rows = torch.empty((n_slabs, width), dtype=torch.int32, device=keys.device)
+    _launch("partition_histogram", native.library().partition_histogram_launch, keys.device,
+            keys.data_ptr(), keys.shape[0], rows.data_ptr(), slab_len, n_slabs,
+            n_blocks.bit_length() - 1, shift, bits)
+    return rows
+
+
+def partition_scan(rows: torch.Tensor) -> torch.Tensor:
+    """Scans ``rows`` down each digit's column in place (exclusive: row s
+    becomes the digit's keys in the slabs before s, :func:`slab_bases`) from
+    one launch of ``partition_scan_kernel``; returns the int32 totals of
+    the digits."""
+    totals = torch.empty(rows.shape[1], dtype=torch.int32, device=rows.device)
+    _launch("partition_scan", native.library().partition_scan_launch, rows.device,
+            rows.data_ptr(), totals.data_ptr(), rows.shape[0], rows.shape[1])
+    return totals
+
+
+def radix_passes(n_blocks: int) -> list[tuple[int, int]]:
+    """(shift, bits) of each LSD pass of the radix route over the bins 0 ..
+    n_blocks: as few passes of at most :data:`RADIX_BITS` bits as cover
+    the bins' bits, their digits of equal width, the lowest first."""
+    n_bits = n_blocks.bit_length()  # the invalid bin, n_blocks, needs the top bit
+    passes = -(-n_bits // RADIX_BITS)
+    bits = -(-n_bits // passes)
+    return [(p * bits, bits) for p in range(passes)]
+
+
+def digit_width(n_blocks: int, shift: int, bits: int) -> int:
+    """The digits of one radix pass that the bins 0 .. n_blocks can take."""
+    return min(1 << bits, (n_blocks >> shift) + 1)
+
+
+def radix_partition(keys: torch.Tensor, n_blocks: int, *, consume: bool = False):
+    """(grouped keys, off), the keys sorted by bin: for each pass of
+    :func:`radix_passes`, :func:`partition_histogram` of its digit,
+    :func:`partition_scan`, a ``torch.cumsum`` of the digits' totals and
+    :func:`radix_scatter`; then :func:`radix_offsets` of the keys, which
+    the passes leave sorted by bin (each pass is stable). Any table size;
+    raises if the build or a launch fails. The passes alternate between
+    two buffers besides ``keys``, or with ``consume`` between ``keys`` and
+    one other (:func:`block_partition`)."""
+    off = torch.zeros(n_blocks + 1, dtype=torch.int32, device=keys.device)
+    if not keys.numel():
+        return torch.empty_like(keys), off
+    _, slab_len = slab_layout(keys.shape[0], radix_slabs(keys.device))
+    given, free = keys, None  # free: a buffer that no later pass reads
+    for shift, bits in radix_passes(n_blocks):
+        rows = partition_histogram(keys, n_blocks, slab_len, shift, bits)
+        doff = torch.zeros(rows.shape[1] + 1, dtype=torch.int32, device=keys.device)
+        torch.cumsum(partition_scan(rows), 0, dtype=torch.int32, out=doff[1:])
+        out = torch.empty_like(keys) if free is None else free
+        radix_scatter(keys, rows, doff, n_blocks, slab_len, shift, bits, out)
+        free = keys if keys is not given or consume else None
+        keys = out
+    return keys, radix_offsets(keys, n_blocks)
+
+
+def radix_slabs(device: torch.device) -> int:
+    """The partition's slab count on CUDA ``device`` (a tensor's, with its
+    index): one wave of the scatter kernel, the SMs times the CTAs of it
+    that an SM holds (``radix_slabs`` of the library)."""
+    n = native.library().radix_slabs(device.index)
+    if n <= 0:
+        raise RuntimeError(f"radix_slabs failed: {native.error_string(-n)}")
+    return n
+
+
+def radix_scatter(keys: torch.Tensor, rows: torch.Tensor, doff: torch.Tensor, n_blocks: int,
+                  slab_len: int, shift: int, bits: int,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """One LSD pass: the keys, each slab's grouped by digit ``(bin >>
+    shift) & (2**bits - 1)``, each key at ``doff[d] + rows[s, d] +`` its
+    stable rank (the scanned (slab, digit) matrix and its digits' first
+    slots), from one launch of ``radix_scatter_kernel``, into ``out`` (a
+    new tensor by default; never ``keys``' own memory)."""
+    if out is None:
+        out = torch.empty_like(keys)
+    _launch("radix_scatter", native.library().radix_scatter_launch, keys.device,
+            keys.data_ptr(), keys.shape[0], rows.data_ptr(), doff.data_ptr(), out.data_ptr(),
+            slab_len, rows.shape[0], n_blocks.bit_length() - 1, shift, bits)
+    return out
+
+
+def radix_offsets(ordered: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """int32[n_blocks + 1]: each chain block's first position in keys sorted
+    by bin, from one launch of ``radix_search_offsets_kernel`` (a binary
+    search a bin, where the keys are at least 64 times the bins) or of
+    ``radix_offsets_kernel`` (one read of the keys)."""
+    off = torch.empty(n_blocks + 1, dtype=torch.int32, device=ordered.device)
+    _launch("radix_offsets", native.library().radix_offsets_launch, ordered.device,
+            ordered.data_ptr(), ordered.shape[0], off.data_ptr(), n_blocks.bit_length() - 1)
+    return off
 
 
 def _launch(name: str, fn, device: torch.device, *args) -> None:
@@ -95,36 +219,6 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: {native.error_string(rc)}")
     launch_counts[name] += 1
-
-
-def block_histogram(keys: torch.Tensor, n_blocks: int, shared: bool | None = None):
-    """int32[n_blocks + 1]: the keys of each chain block, then the invalid
-    keys, from one launch of ``block_histogram_kernel`` on the keys' CUDA
-    device and current stream (none for no keys). ``shared`` picks where
-    the kernel counts (None: in shared memory where the bins fit,
-    :data:`SHARED_BINS`)."""
-    hist = torch.zeros(n_blocks + 1, dtype=torch.int32, device=keys.device)
-    if not keys.numel():
-        return hist
-    if shared is None:
-        shared = n_blocks + 1 <= SHARED_BINS
-    _launch("block_histogram", native.library().block_histogram_launch, keys.device,
-            keys.data_ptr(), keys.shape[0], hist.data_ptr(), n_blocks.bit_length() - 1,
-            int(shared))
-    return hist
-
-
-def block_scatter(keys: torch.Tensor, cursor: torch.Tensor, n_blocks: int) -> torch.Tensor:
-    """The keys, each written into its bin's window from one launch of
-    ``block_scatter_kernel`` (none for no keys): ``cursor`` (int32[n_blocks
-    + 1], each bin's first slot) is advanced in place."""
-    out = torch.empty_like(keys)
-    if not keys.numel():
-        return out
-    _launch("block_scatter", native.library().block_scatter_launch, keys.device,
-            keys.data_ptr(), keys.shape[0], cursor.data_ptr(), out.data_ptr(),
-            n_blocks.bit_length() - 1)
-    return out
 
 
 def block_partition_reference(keys: torch.Tensor, n_buckets: int, bpb: int):
@@ -140,3 +234,75 @@ def block_partition_reference(keys: torch.Tensor, n_buckets: int, bpb: int):
     off[1:] = torch.cumsum(hist[:n_blocks], 0)
     return keys[torch.argsort(bins, stable=True)], off
 
+
+def _digits(keys: torch.Tensor, n_blocks: int, shift: int, bits: int) -> torch.Tensor:
+    """Each key's radix digit ``(bin >> shift) & (2**bits - 1)``."""
+    return (block_ids(keys, n_blocks) >> shift) & ((1 << bits) - 1)
+
+
+def slab_histograms(keys: torch.Tensor, n_blocks: int, slab_len: int, shift: int,
+                    bits: int) -> torch.Tensor:
+    """int32 (slabs, :func:`digit_width`) matrix of ``partition_histogram``:
+    row s counts the radix digits of keys ``[s*slab_len,
+    (s+1)*slab_len)``."""
+    width = digit_width(n_blocks, shift, bits)
+    n_slabs = -(-keys.shape[0] // slab_len)
+    slab = torch.arange(keys.shape[0], device=keys.device) // slab_len
+    cells = torch.bincount(slab * width + _digits(keys, n_blocks, shift, bits),
+                           minlength=n_slabs * width)
+    return cells.view(n_slabs, width).to(torch.int32)
+
+
+def slab_bases(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``partition_scan`` and the offsets after it: (bases, off), where
+    ``bases[s, d]`` is the number of digit d's keys in slabs before s (the
+    column's exclusive scan) and int32 ``off[width + 1]`` the exclusive
+    scan of the columns' totals. Slab s's keys of digit d go to ``off[d] +
+    bases[s, d]`` onwards: the (digit, slab) order of the matrix."""
+    column = torch.cumsum(rows, 0, dtype=torch.int64)
+    off = torch.zeros(rows.shape[1] + 1, dtype=torch.int64, device=rows.device)
+    if rows.shape[0]:
+        off[1:] = torch.cumsum(column[-1], 0)
+    return (column - rows).to(torch.int32), off.to(torch.int32)
+
+
+def slab_scatter_reference(keys: torch.Tensor, bases: torch.Tensor, off: torch.Tensor,
+                           n_blocks: int, slab_len: int, shift: int,
+                           bits: int) -> torch.Tensor:
+    """``radix_scatter``'s slot rule in plain torch: each key of slab s and
+    radix digit d at ``off[d] + bases[s, d] +`` its rank, in input order,
+    among slab s's keys of d."""
+    width = bases.shape[1]
+    digit = _digits(keys, n_blocks, shift, bits)
+    slab = torch.arange(keys.shape[0], device=keys.device) // slab_len
+    cell = slab * width + digit
+    order = torch.argsort(cell, stable=True)
+    sizes = torch.bincount(cell, minlength=bases.numel())
+    first = torch.cumsum(sizes, 0) - sizes
+    rank = torch.empty_like(cell)
+    rank[order] = torch.arange(keys.shape[0], device=keys.device) - first[cell[order]]
+    slot = off.long()[digit] + bases.long()[slab, digit] + rank
+    out = torch.empty_like(keys)
+    out[slot] = keys
+    return out
+
+
+def radix_offsets_reference(ordered: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """``radix_offsets``' rule in plain torch: ``off[b]`` the first position
+    of the keys, sorted by bin, whose bin is b or more."""
+    b = torch.arange(n_blocks + 1, device=ordered.device)
+    return torch.searchsorted(block_ids(ordered, n_blocks), b).to(torch.int32)
+
+
+def radix_partition_reference(keys: torch.Tensor, n_buckets: int, bpb: int, n_slabs: int):
+    """The radix route in plain torch, from its pieces: for each pass of
+    :func:`radix_passes`, the slab rows of its digit, their scan and the
+    stable slot rule; then the offsets of the sorted keys. LSD passes of a
+    stable rule sort by bin, so it equals :func:`block_partition_reference`
+    exactly."""
+    n_blocks = n_buckets // bpb
+    _, slab_len = slab_layout(keys.shape[0], n_slabs)
+    for shift, bits in radix_passes(n_blocks):
+        bases, doff = slab_bases(slab_histograms(keys, n_blocks, slab_len, shift, bits))
+        keys = slab_scatter_reference(keys, bases, doff, n_blocks, slab_len, shift, bits)
+    return keys, radix_offsets_reference(keys, n_blocks)

@@ -3,7 +3,8 @@
 Every case stresses one corner of ``stream_probe.stream_count``'s contract:
 a poly-A window, tables smaller than one chain block, a single bucket
 (shift 32), chained and deeply chained tables, counts that wrap past 2**32,
-no queries at all, and slot indices past 2**31. The expected counts come
+no queries at all, slot indices past 2**31, and keys of one bucket that
+share the count kernel's fingerprint. The expected counts come
 from the host oracle (``layout.query_table``), independent of both the
 kernel and its twin. Used by ``tests/test_torch_stream_probe.py`` and
 ``chip_smoke.py``.
@@ -17,7 +18,7 @@ import torch
 
 from ..index import layout
 from . import stream_probe
-from .u32hash import bucket_shift, split_u64, to_int32_bits
+from .u32hash import bucket_shift, feistel_mix, split_u64, to_int32_bits
 
 
 @dataclasses.dataclass
@@ -122,7 +123,50 @@ def cases(poly_a: int = 5000) -> list[Case]:
     table = layout.build_table(keys)
     counts0 = rng.integers(0, 1 << 32, table.n_slots, dtype=np.int64).astype(np.uint32)
     out.append(_case("no_queries", table, np.zeros(0, np.uint64), counts0=counts0))
+    out.append(fingerprint_case())
     return out
+
+
+def _fingerprints(m_hi: np.ndarray) -> np.ndarray:
+    """The count kernel's 4-bit fingerprint of uint32 m_hi words, 1..15
+    (``stream_probe.fingerprint``)."""
+    return ((np.asarray(m_hi, np.uint64) * np.uint64(15)) >> np.uint64(32)) + np.uint64(1)
+
+
+def fingerprint_case() -> Case:
+    """A table of 64 buckets with empty slots, in which rows hold two keys of
+    one fingerprint: one of each such pair is queried 1..3 times, the
+    other never; and misses whose home bucket holds a key of their
+    fingerprint, each of which the fingerprint lets through to a full
+    compare that fails."""
+    rng = np.random.default_rng(99)
+    keys = _keys(rng, 300)
+    table = layout.build_table(keys, n_buckets=64)
+    lo, hi = feistel_mix(*split_u64(keys), seed=table.seed)
+    raw = {(int(a), int(b)): k for a, b, k in zip(lo, hi, keys)}
+    empty = (table.key_lo == layout.EMPTY) & (table.key_hi == layout.EMPTY)
+    assert empty.any()
+    fp = np.where(empty, 0, _fingerprints(table.key_hi))
+    queried = []
+    for r in range(table.n_buckets):
+        lanes = np.flatnonzero(~empty[r])
+        seen = {}
+        for lane in lanes:
+            if fp[r, lane] in seen:  # the first of the pair is queried, this one never
+                queried.append(raw[int(table.key_lo[r, seen[fp[r, lane]]]),
+                                   int(table.key_hi[r, seen[fp[r, lane]]])])
+            seen.setdefault(fp[r, lane], lane)
+    assert len(queried) >= 5
+    queried = np.unique(np.array(queried, np.uint64))
+    cand = rng.integers(0, 1 << 62, 4000, dtype=np.uint64)
+    c_lo, c_hi = feistel_mix(*split_u64(cand), seed=table.seed)
+    home = c_lo >> np.uint32(bucket_shift(table.n_buckets))
+    shares = (fp[home] == _fingerprints(c_hi)[:, None]).any(axis=1)
+    misses = cand[shares & ~np.isin(cand, keys)][:300]
+    assert len(misses) >= 100
+    q = rng.permutation(np.concatenate([np.repeat(queried, rng.integers(1, 4, len(queried))),
+                                        misses]))
+    return _case("fingerprint_collisions", table, q)
 
 
 def huge_table_inputs(device, n_buckets: int = 1 << 29):

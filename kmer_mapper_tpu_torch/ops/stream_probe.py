@@ -42,6 +42,8 @@ INVALID_WORD = 0xFFFFFFFF
 #: launches of the CUDA kernel and calls of its plain twin since import;
 #: a run that must show which one counted resets them first
 launch_counts = {"stream_count": 0, "stream_count_reference": 0}
+#: the fingerprint of an empty slot; a key's is 1..15 (:func:`fingerprint`)
+EMPTY_FINGERPRINT = 0
 
 
 def sort_key(m_lo: torch.Tensor, m_hi: torch.Tensor) -> torch.Tensor:
@@ -176,6 +178,33 @@ def stream_count(key_lo, key_hi, counts, keys, off, block_probe,
     return counts
 
 
+def fingerprint(m_hi: torch.Tensor) -> torch.Tensor:
+    """int64 4-bit fingerprint of int64-held m_hi words, 1..15:
+    ``1 + (15 * m_hi >> 32)``, the kernel's ``__umulhi(m_hi, 15) + 1``."""
+    return ((m_hi & MASK32) * 15 >> 32) + 1
+
+
+def bucket_fingerprints(key_lo: torch.Tensor, key_hi: torch.Tensor) -> torch.Tensor:
+    """int64[n_buckets] fingerprint words of a table's int32 key words: lane
+    l's 4 bits at bit ``4 l``, :data:`EMPTY_FINGERPRINT` for an empty
+    slot (the all-ones pair), :func:`fingerprint` of its m_hi for a key."""
+    lo, hi = key_lo.to(torch.int64) & MASK32, key_hi.to(torch.int64) & MASK32
+    empty = (lo == INVALID_WORD) & (hi == INVALID_WORD)
+    nibble = torch.where(empty, EMPTY_FINGERPRINT, fingerprint(hi))
+    return (nibble << (4 * torch.arange(BUCKET_KEYS, device=lo.device))).sum(1)
+
+
+def fingerprint_lanes(words: torch.Tensor, m_hi: torch.Tensor) -> torch.Tensor:
+    """bool (n, 8): the lanes of each query's bucket whose fingerprint equals
+    the query's, found as the kernel finds them: the word xor the query's
+    fingerprint in every nibble, then the nibbles that are zero
+    (``~(((x & 0x77777777) + 0x77777777) | x) & 0x88888888``, no carry
+    crossing a nibble). ``words`` holds each query's bucket's word."""
+    x = (words ^ (fingerprint(m_hi) * 0x11111111)) & MASK32
+    zero = ~(((x & 0x77777777) + 0x77777777) | x) & 0x88888888
+    return (zero[:, None] >> (4 * torch.arange(BUCKET_KEYS, device=words.device) + 3)) & 1 == 1
+
+
 def stream_count_reference(key_lo, key_hi, counts, keys, off, block_probe,
                            shift: int, bpb: int) -> torch.Tensor:
     """Plain-torch twin of the kernel (same contract, same result): for each
@@ -236,7 +265,7 @@ def plane_to_slot(counts: np.ndarray, n_buckets: int, gpb: int = CHAIN_BLOCK) ->
 def _count_grouped(key_lo, key_hi, counts, keys, block_probe):
     n_buckets = key_lo.shape[0]
     bpb = min(CHAIN_BLOCK, n_buckets)
-    grouped, off = block_partition(keys, n_buckets, bpb)
+    grouped, off = block_partition(keys, n_buckets, bpb, consume=True)
     return stream_count(
         key_lo, key_hi, counts, grouped, off, block_probe, bucket_shift(n_buckets), bpb,
     )
@@ -245,7 +274,9 @@ def _count_grouped(key_lo, key_hi, counts, keys, block_probe):
 def stream_probe_count_keys(key_lo, key_hi, counts, keys, block_probe):
     """Stream path for the sort keys of valid queries, in any order (the
     hash kernels' output, ``hashing.plane_hash_keys`` / ``ragged_hash_keys``):
-    block partition -> stream count. Updates ``counts`` in place."""
+    block partition -> stream count. Updates ``counts`` in place. On the
+    card the partition uses ``keys``' memory, whose contents are then
+    undefined."""
     return _count_grouped(key_lo, key_hi, counts, keys, block_probe)
 
 

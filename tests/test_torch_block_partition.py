@@ -20,6 +20,7 @@ from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
 from kmer_mapper_tpu_torch.ops import block_partition, block_partition_cases, stream_probe
 from kmer_mapper_tpu_torch.ops.block_partition_cases import mixed_keys
 from kmer_mapper_tpu_torch.ops.u32hash import bucket_shift, split_u64
+from kmer_mapper_tpu_torch.scripts import partition_dissect
 
 CASES = {c.name: c for c in block_partition_cases.cases()}
 TABLE_CASES = {c.name: c for c in block_partition_cases.table_cases()}
@@ -61,23 +62,16 @@ def _by_window(keys: np.ndarray, off: np.ndarray) -> np.ndarray:
     return inside[np.lexsort((inside, window))]
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_twin_matches_jax_sort_and_offsets(name):
-    """The twin's offsets == JAX's ``block_offsets`` over its sorted m_lo,
-    ended at the invalid tail; each window == JAX's sorted window (the
-    invalid keys taken out), as multisets; the invalid keys follow the
-    last window."""
-    case = CASES[name]
-    before = dict(block_partition.launch_counts)
-    grouped, off = block_partition.block_partition(*case.inputs("cpu"))
-    assert block_partition.launch_counts["block_partition_reference"] == (
-        before["block_partition_reference"] + 1)
+def _check_against_jax(case, grouped, off):
+    """``grouped`` and ``off`` against JAX's sort and offsets: offsets ==
+    JAX's ``block_offsets`` over its sorted m_lo, ended at the invalid
+    tail; each window == JAX's sorted window (the invalid keys taken out),
+    as multisets; the invalid keys after the last window; a permutation."""
     assert off.dtype == torch.int32 and grouped.dtype == torch.int64
     s_keys, s_off = _jax_sorted(case.keys, case.n_buckets)
     is_valid = s_keys != block_partition.INVALID_KEY
     n_valid = int(is_valid.sum())
     np.testing.assert_array_equal(off.numpy(), np.minimum(s_off, n_valid))
-
     # JAX's windows ended at the invalid tail hold the valid keys of its
     # full windows: the two-operand sort by m_lo alone may leave a valid key
     # of m_lo 2**32 - 1 among the invalid ones
@@ -88,6 +82,31 @@ def test_twin_matches_jax_sort_and_offsets(name):
     np.testing.assert_array_equal(_by_window(got, off.numpy().astype(np.int64)), expect)
     assert (got[n_valid:] == block_partition.INVALID_KEY).all()
     np.testing.assert_array_equal(np.sort(got), np.sort(case.keys))  # a permutation
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_twin_matches_jax_sort_and_offsets(name):
+    """The twin's partition == JAX's sort and block offsets
+    (:func:`_check_against_jax`)."""
+    case = CASES[name]
+    before = dict(block_partition.launch_counts)
+    grouped, off = block_partition.block_partition(*case.inputs("cpu"))
+    assert block_partition.launch_counts["block_partition_reference"] == (
+        before["block_partition_reference"] + 1)
+    _check_against_jax(case, grouped, off)
+
+
+@pytest.mark.parametrize("n_slabs", [3, 264])
+@pytest.mark.parametrize("name", list(CASES))
+def test_radix_pieces_match_jax_sort_and_offsets(name, n_slabs):
+    """The radix route's plain pieces (per LSD pass the slab rows of its
+    digit, their scan and the stable slot rule; then the offsets of the
+    sorted keys) == JAX's sort and block offsets, at 3 slabs and at 264
+    (one wave of the scatter kernel on an H100)."""
+    case = CASES[name]
+    keys, n_buckets, bpb = case.inputs("cpu")
+    _check_against_jax(case, *block_partition.radix_partition_reference(
+        keys, n_buckets, bpb, n_slabs))
 
 
 def test_cases_cover_the_hazards():
@@ -104,7 +123,10 @@ def test_cases_cover_the_hazards():
     poly = CASES["poly_a_window"]
     assert np.bincount(block_partition.block_ids(
         torch.from_numpy(poly.keys), poly.n_buckets // poly.bpb).numpy()).max() >= 5000
-    assert any(c.n_buckets // c.bpb + 1 > block_partition.SHARED_BINS for c in CASES.values())
+    # tables past the cursor route's shared histogram, and of three radix passes
+    assert any(c.n_buckets // c.bpb + 1 > partition_dissect.SHARED_BINS for c in CASES.values())
+    assert any(len(block_partition.radix_passes(c.n_buckets // c.bpb)) == 3
+               for c in CASES.values())
     assert all(k.startswith("revcomp_") for k in CASES if "rc1" in k)
 
 

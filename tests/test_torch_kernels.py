@@ -7,12 +7,17 @@ machine, which has no jax:
 
 Tests of the CUDA kernel itself carry the ``cuda`` marker and skip where
 PyTorch sees no GPU."""
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
 
+from kmer_mapper_tpu_torch import native
 from kmer_mapper_tpu_torch.index import layout
-from kmer_mapper_tpu_torch.ops import stream_count_cases, stream_probe
+from kmer_mapper_tpu_torch.ops import block_partition, stream_count_cases, stream_probe
+from kmer_mapper_tpu_torch.ops.u32hash import bucket_shift, split_u64, to_int32_bits
 
 CASES = {c.name: c for c in stream_count_cases.cases()}
 
@@ -88,6 +93,146 @@ def test_stream_count_checks_its_arguments():
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
     with pytest.raises(ValueError, match="no kernel"):
         stream_probe.stream_count(*meta)
+
+
+def _query_words(case):
+    """int64-held mixed (m_lo, m_hi) of a case's valid queries."""
+    lo, hi = (torch.from_numpy(w.astype(np.int64)) for w in split_u64(case.queries))
+    m_lo, m_hi = stream_probe.split_key(
+        stream_probe.mixed_keys(lo, hi, torch.ones(len(lo), dtype=torch.bool), case.table.seed))
+    valid = torch.from_numpy(case.valid)
+    return m_lo[valid], m_hi[valid]
+
+
+def _unordered(case, seed: int = 0):
+    """The case's valid query keys in a random order, grouped by the
+    partition twin: windows in no sorted order, as the main path has them."""
+    keys = stream_probe.sort_key(*_query_words(case))
+    keys = keys[torch.from_numpy(np.random.default_rng(seed).permutation(len(keys)))]
+    t = case.table
+    return block_partition.block_partition_reference(keys, t.n_buckets, min(128, t.n_buckets))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_fingerprint_rule(name):
+    """The count kernel's fingerprints: 0 exactly at empty slots, 1..15 for a
+    key; the SWAR lane test finds exactly the lanes whose fingerprint equals
+    the query's; every lane that holds a query's key is among them."""
+    case = CASES[name]
+    key_lo, key_hi = case.inputs("cpu")[:2]
+    words = stream_probe.bucket_fingerprints(key_lo, key_hi)
+    assert int(words.max()) < 1 << 32
+    nibbles = (words[:, None] >> (4 * torch.arange(8))) & 15
+    lo, hi = key_lo.long() & 0xFFFFFFFF, key_hi.long() & 0xFFFFFFFF
+    empty = (lo == stream_probe.INVALID_WORD) & (hi == stream_probe.INVALID_WORD)
+    assert torch.equal(nibbles == stream_probe.EMPTY_FINGERPRINT, empty)
+    m_lo, m_hi = _query_words(case)
+    mine = stream_probe.fingerprint(m_hi)
+    assert bool(((mine >= 1) & (mine <= 15)).all())
+    n_buckets = case.table.n_buckets
+    bpb = min(128, n_buckets)
+    home = m_lo >> bucket_shift(n_buckets) if n_buckets > 1 else torch.zeros_like(m_lo)
+    for p in range(int(case.table.block_max_probe().max(initial=1))):
+        b = home // bpb * bpb + ((home % bpb + p) & (bpb - 1))
+        lanes = stream_probe.fingerprint_lanes(words[b], m_hi)
+        assert torch.equal(lanes, nibbles[b] == mine[:, None])
+        assert not bool(((lo[b] == m_lo[:, None]) & (hi[b] == m_hi[:, None]) & ~lanes).any())
+
+
+def fingerprint_count(key_lo, key_hi, counts, keys, off, block_probe, shift, bpb):
+    """The kernel's walk through the fingerprints in plain torch: as
+    ``stream_count_reference``, but a lane's words are compared only where
+    ``fingerprint_lanes`` lets them through."""
+    words = stream_probe.bucket_fingerprints(key_lo, key_hi)
+    off64 = off.long()
+    block = torch.repeat_interleave(torch.arange(block_probe.shape[0]), off64[1:] - off64[:-1])
+    m_lo, m_hi = stream_probe.split_key(keys[int(off64[0]):int(off64[-1])])
+    live = ~((m_lo == stream_probe.INVALID_WORD) & (m_hi == stream_probe.INVALID_WORD))
+    local = (m_lo >> shift if shift < 32 else torch.zeros_like(m_lo)) - block * bpb
+    live &= (local >= 0) & (local < bpb)
+    rounds = block_probe.long().clamp(max=bpb)[block]
+    lo, hi = key_lo.long() & 0xFFFFFFFF, key_hi.long() & 0xFFFFFFFF
+    hits = torch.zeros(counts.numel(), dtype=torch.int64)
+    for p in range(min(int(block_probe.max()), bpb)):
+        sel = torch.nonzero(live & (p < rounds)).squeeze(1)
+        b = block[sel] * bpb + ((local[sel] + p) & (bpb - 1))
+        lanes = stream_probe.fingerprint_lanes(words[b], m_hi[sel])
+        match = lanes & (lo[b] == m_lo[sel, None]) & (hi[b] == m_hi[sel, None])
+        row, lane = torch.nonzero(match, as_tuple=True)
+        hits += torch.bincount(b[row] * 8 + lane, minlength=counts.numel())
+    total = (counts.long() & 0xFFFFFFFF) + hits
+    return to_int32_bits(total & 0xFFFFFFFF)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_fingerprint_count_on_unordered_windows_matches_oracle(name):
+    """The fingerprint walk and the twin, on the queries in a random order
+    grouped by the partition twin, == the oracle."""
+    case = CASES[name]
+    key_lo, key_hi, counts, _, _, block_probe, shift, bpb = case.inputs("cpu")
+    keys, off = _unordered(case)
+    got = fingerprint_count(key_lo, key_hi, counts, keys, off, block_probe, shift, bpb)
+    np.testing.assert_array_equal(_u32(got), case.expected())
+    twin = stream_probe.stream_count(key_lo, key_hi, counts, keys, off, block_probe, shift, bpb)
+    np.testing.assert_array_equal(_u32(twin), case.expected())
+
+
+def test_fingerprint_case_holds_collisions():
+    """In ``fingerprint_collisions`` some queried keys share their bucket's
+    fingerprint with a key that is never queried (two lanes let through, one
+    matches), and misses share one with a stored key (a lane let through,
+    none matches); the table has empty slots."""
+    case = CASES["fingerprint_collisions"]
+    key_lo, key_hi = case.inputs("cpu")[:2]
+    words = stream_probe.bucket_fingerprints(key_lo, key_hi)
+    m_lo, m_hi = _query_words(case)
+    home = m_lo >> bucket_shift(case.table.n_buckets)
+    lanes = stream_probe.fingerprint_lanes(words[home], m_hi)
+    lo, hi = key_lo.long() & 0xFFFFFFFF, key_hi.long() & 0xFFFFFFFF
+    match = (lo[home] == m_lo[:, None]) & (hi[home] == m_hi[:, None])
+    assert int(((lanes.sum(1) >= 2) & (match.sum(1) == 1)).sum()) >= 5
+    assert int(((lanes.sum(1) >= 1) & (match.sum(1) == 0)).sum()) >= 50
+    assert bool((words >> 28 == stream_probe.EMPTY_FINGERPRINT).any())  # lane 7 empty
+
+
+def test_launch_glue_on_a_stand_in(monkeypatch):
+    """On a CUDA tensor the wrapper passes its arguments to the library,
+    counts each launch under ``stream_count``, and a failed launch raises
+    and counts nothing."""
+    calls = []
+    lib = types.SimpleNamespace(
+        stream_count_launch=lambda *a: calls.append(a[6:9]) or 0,
+        kmt_error_string=lambda rc: b"invalid argument")
+    monkeypatch.setattr(native, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: types.SimpleNamespace(cuda_stream=0))
+    args = CASES["chained_table"].inputs("cpu")
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda", 0)))
+    before = dict(stream_probe.launch_counts)
+    stream_probe.stream_count(*args)
+    assert calls == [(args[5].shape[0], args[6], args[7])]
+    assert stream_probe.launch_counts == {**before, "stream_count": before["stream_count"] + 1}
+    lib.stream_count_launch = lambda *a: 1
+    with pytest.raises(RuntimeError, match="stream_count kernel launch failed: invalid"):
+        stream_probe.stream_count(*args)
+    assert stream_probe.launch_counts["stream_count"] == before["stream_count"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CASES))
+def test_kernel_on_unordered_windows_matches_twin(name, cuda_device):
+    """The count kernel, on the queries in a random order grouped by the
+    partition, == the twin == the oracle."""
+    case = CASES[name]
+    key_lo, key_hi, counts, _, _, block_probe, shift, bpb = case.inputs(cuda_device)
+    keys, off = (t.to(cuda_device) for t in _unordered(case))
+    got = stream_probe.stream_count(key_lo, key_hi, counts.clone(), keys, off, block_probe,
+                                    shift, bpb)
+    twin = stream_probe.stream_count_reference(key_lo, key_hi, counts.clone(), keys, off,
+                                               block_probe, shift, bpb)
+    np.testing.assert_array_equal(_u32(got), _u32(twin))
+    np.testing.assert_array_equal(_u32(got), case.expected())
 
 
 @pytest.mark.cuda

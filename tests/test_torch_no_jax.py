@@ -22,7 +22,8 @@ SCRIPT = textwrap.dedent(
     for name in names:
         importlib.import_module(name)
     for script in ("r2_kernel_dissect", "r2_window_dissect", "r3_iter_floor",
-                   "r9_dot_orient", "r9_step_parts", "r9_block_pipeline"):
+                   "r9_dot_orient", "r9_step_parts", "r9_block_pipeline",
+                   "partition_dissect"):
         assert f"kmer_mapper_tpu_torch.scripts.{script}" in names, names
     for module in ("compat", "mapper", "gpu_counter", "ops.probe", "ops.probe_cases",
                    "index.pickled", "io.native", "io.gzio", "io.parallel_reader",

@@ -69,6 +69,69 @@ def test_twin_matches_sort_and_count_offsets(name):
         **before, "block_partition_reference": before["block_partition_reference"] + 1}
 
 
+#: (case, slab count) of the plain pieces: one slab, three, and 264 (one
+#: wave of the scatter kernel on an H100: 2 CTAs on each of 132 SMs)
+SLAB_CASES = [(name, n_slabs) for name in CASES for n_slabs in (1, 3, 264)]
+
+
+@pytest.mark.parametrize("name", ["hits_misses_masking", "poly_a_window", "extreme_words_1",
+                                  "wide_table_536870912", "no_queries"])
+def test_slab_rows_and_scan(name):
+    """For each radix pass: each slab row counts its own keys' digits; the
+    scan's bases are the counts of the same digit in the slabs before; the
+    offsets end each digit where a stable sort by digit ends it; the slot
+    rule writes the keys in that stable order."""
+    case = CASES[name]
+    keys = torch.from_numpy(case.keys)
+    n_blocks = case.n_buckets // case.bpb
+    n_slabs, slab_len = block_partition.slab_layout(len(keys), 5)
+    assert n_slabs <= 5 and slab_len % block_partition.WARP_TILE == 0
+    assert n_slabs * slab_len >= len(keys) > (n_slabs - 1) * slab_len or not len(keys)
+    for shift, bits in block_partition.radix_passes(n_blocks):
+        width = block_partition.digit_width(n_blocks, shift, bits)
+        rows = block_partition.slab_histograms(keys, n_blocks, slab_len, shift, bits)
+        assert rows.shape == (n_slabs, width) and rows.dtype == torch.int32
+        digits = (block_partition.block_ids(keys, n_blocks) >> shift) & ((1 << bits) - 1)
+        for s in range(n_slabs):
+            own = torch.bincount(digits[s * slab_len:(s + 1) * slab_len], minlength=width)
+            assert torch.equal(rows[s].long(), own)
+        bases, off = block_partition.slab_bases(rows)
+        assert off.dtype == torch.int32 and off.shape == (width + 1,)
+        for s in range(n_slabs):
+            assert torch.equal(bases[s].long(), rows[:s].long().sum(0))
+        counts = torch.bincount(digits, minlength=width)
+        assert torch.equal(off[1:].long(), torch.cumsum(counts, 0)) and int(off[0]) == 0
+        out = block_partition.slab_scatter_reference(keys, bases, off, n_blocks, slab_len,
+                                                     shift, bits)
+        assert torch.equal(out, keys[torch.argsort(digits, stable=True)])
+
+
+def test_radix_passes_cover_every_table_size():
+    """The radix route's passes cover every bin of every table size, the
+    invalid one included, with digits of at most 8 bits, as few passes as
+    that takes."""
+    for log2 in range(30):
+        n_blocks = max(1, (1 << log2) // 128)
+        passes = block_partition.radix_passes(n_blocks)
+        shift, bits = passes[-1]
+        assert all(b <= block_partition.RADIX_BITS for _, b in passes)
+        assert [s for s, _ in passes] == [p * passes[0][1] for p in range(len(passes))]
+        assert n_blocks >> (shift + bits) == 0 and len(passes) == -(-n_blocks.bit_length() // 8)
+    assert block_partition.radix_passes(8192) == [(0, 7), (7, 7)]
+
+
+@pytest.mark.parametrize("name,n_slabs", SLAB_CASES)
+def test_radix_pieces_match_twin(name, n_slabs):
+    """The radix route's plain pieces (per pass: the slab rows of its digit,
+    their scan, the stable slot rule; then the offsets of the sorted keys)
+    == the twin bit for bit."""
+    case = CASES[name]
+    keys, n_buckets, bpb = case.inputs("cpu")
+    grouped, off = block_partition.radix_partition_reference(keys, n_buckets, bpb, n_slabs)
+    twin_grouped, twin_off = block_partition.block_partition_reference(keys, n_buckets, bpb)
+    assert torch.equal(off, twin_off) and torch.equal(grouped, twin_grouped)
+
+
 def test_block_ids_are_the_count_kernels_blocks():
     """A key's block is its bucket (the count's rule) over the block size,
     on every table size from 1 to 2**29 buckets."""
@@ -117,39 +180,62 @@ def _view(ptr: int, n: int, ctype, dtype):
 
 
 class StandIn:
-    """The two kernels' contract in numpy, on the host memory behind the
-    pointers: what the CUDA library does, so that the wrapper's glue (the
-    scan, the cursors, the shapes) runs on the CPU."""
+    """The partition kernels' contract in numpy, on the host memory behind
+    the pointers: what the CUDA library does, so that the wrapper's glue
+    (the slabs, the scans, the digits' offsets, the buffers, the shapes)
+    runs on the CPU."""
 
     def __init__(self):
         self.calls = []
 
-    def block_histogram_launch(self, keys, n, hist, log2, shared, device, stream):
-        self.calls.append(("histogram", n, log2, shared))
-        bins = block_partition.block_ids(torch.from_numpy(
-            _view(keys, n, ctypes.c_int64, np.int64).copy()), 1 << log2).numpy()
-        _view(hist, (1 << log2) + 1, ctypes.c_int32, np.int32)[:] += np.bincount(
-            bins, minlength=(1 << log2) + 1).astype(np.int32)
+    def radix_slabs(self, device):
+        self.calls.append(("radix_slabs",))
+        return 264
+
+    def partition_histogram_launch(self, keys, n, rows, slab_len, n_slabs, log2, shift, bits,
+                                   device, stream):
+        self.calls.append(("partition_histogram", n, slab_len, n_slabs, log2, shift, bits))
+        k = torch.from_numpy(_view(keys, n, ctypes.c_int64, np.int64).copy())
+        m = block_partition.slab_histograms(k, 1 << log2, slab_len, shift, bits).numpy()
+        _view(rows, m.size, ctypes.c_int32, np.int32)[:] = m.reshape(-1)
         return 0
 
-    def block_scatter_launch(self, keys, n, cursor, out, log2, device, stream):
-        self.calls.append(("scatter", n, log2))
-        k = _view(keys, n, ctypes.c_int64, np.int64).copy()
-        bins = block_partition.block_ids(torch.from_numpy(k), 1 << log2).numpy()
-        cur = _view(cursor, (1 << log2) + 1, ctypes.c_int32, np.int32)
-        dst = _view(out, n, ctypes.c_int64, np.int64)
-        for i in np.random.default_rng(n).permutation(n):  # any order the warps take
-            dst[cur[bins[i]]] = k[i]
-            cur[bins[i]] += 1
+    def radix_scatter_launch(self, keys, n, rows, doff, out, slab_len, n_slabs, log2, shift,
+                             bits, device, stream):
+        self.calls.append(("radix_scatter", n, slab_len, n_slabs, log2, shift, bits))
+        k = torch.from_numpy(_view(keys, n, ctypes.c_int64, np.int64).copy())
+        width = block_partition.digit_width(1 << log2, shift, bits)
+        bases = torch.from_numpy(_view(rows, n_slabs * width, ctypes.c_int32, np.int32)
+                                 .reshape(n_slabs, width).copy())
+        d = torch.from_numpy(_view(doff, width + 1, ctypes.c_int32, np.int32).copy())
+        _view(out, n, ctypes.c_int64, np.int64)[:] = block_partition.slab_scatter_reference(
+            k, bases, d, 1 << log2, slab_len, shift, bits).numpy()
+        return 0
+
+    def radix_offsets_launch(self, ordered, n, off, log2, device, stream):
+        self.calls.append(("radix_offsets", n, log2))
+        k = torch.from_numpy(_view(ordered, n, ctypes.c_int64, np.int64).copy())
+        _view(off, (1 << log2) + 1, ctypes.c_int32, np.int32)[:] = \
+            block_partition.radix_offsets_reference(k, 1 << log2).numpy()
+        return 0
+
+    def partition_scan_launch(self, rows, totals, n_slabs, width, device, stream):
+        self.calls.append(("partition_scan", n_slabs, width))
+        m = _view(rows, n_slabs * width, ctypes.c_int32, np.int32).reshape(n_slabs, width)
+        bases, off = block_partition.slab_bases(torch.from_numpy(m.copy()))
+        _view(totals, width, ctypes.c_int32, np.int32)[:] = np.diff(off.numpy())
+        m[:] = bases.numpy()
         return 0
 
 
 @pytest.mark.parametrize("name", ["hits_misses_masking", "poly_a_window", "no_queries",
-                                  "single_bucket_shift_32", "extreme_words_4096"])
+                                  "single_bucket_shift_32", "extreme_words_4096",
+                                  "wide_table_33554432", "wide_table_536870912"])
 def test_kernel_path_glue_on_a_stand_in(name, monkeypatch):
-    """The CUDA branch's scan, cursors and shapes, with the kernels' work
-    done by a numpy stand-in: a partition by block, and one launch of each
-    kernel counted (none for no keys)."""
+    """The CUDA branch's slabs, scans, offsets and shapes, with the kernels'
+    work done by a numpy stand-in: a partition by block, each pass's
+    kernels launched and counted once, then the offsets (none for no
+    keys)."""
     _cuda_stubs(monkeypatch)
     lib = StandIn()
     monkeypatch.setattr(native, "library", lambda: lib)
@@ -157,44 +243,115 @@ def test_kernel_path_glue_on_a_stand_in(name, monkeypatch):
     keys, n_buckets, bpb = case.inputs("cpu")
     n_blocks = n_buckets // bpb
     before = dict(block_partition.launch_counts)
-    grouped, off = block_partition._partition_launch(keys, n_blocks)
+    grouped, off = block_partition.radix_partition(keys, n_blocks)
     check_partition(keys, grouped, off, n_buckets, bpb)
     assert off.shape == (n_blocks + 1,) and off.is_contiguous()
     n = len(case.keys)
-    assert block_partition.launch_counts == {
-        **before, "block_histogram": before["block_histogram"] + bool(n),
-        "block_scatter": before["block_scatter"] + bool(n)}
     log2 = n_blocks.bit_length() - 1
-    assert lib.calls == ([("histogram", n, log2, 1), ("scatter", n, log2)] if n else [])
+    passes = block_partition.radix_passes(n_blocks)
+    n_slabs, slab_len = block_partition.slab_layout(n, 264)
+    expect = [("radix_slabs",)]
+    for shift, bits in passes:
+        width = block_partition.digit_width(n_blocks, shift, bits)
+        expect += [("partition_histogram", n, slab_len, n_slabs, log2, shift, bits),
+                   ("partition_scan", n_slabs, width),
+                   ("radix_scatter", n, slab_len, n_slabs, log2, shift, bits)]
+    expect.append(("radix_offsets", n, log2))
+    launched = {"partition_histogram": len(passes), "partition_scan": len(passes),
+                "radix_scatter": len(passes), "radix_offsets": 1}
+    assert block_partition.launch_counts == {
+        **before, **{k: before[k] + v * bool(n) for k, v in launched.items()}}
+    assert lib.calls == (expect if n else [])
+    # each pass is stable: the kernels' result is the twin's, bit for bit
+    twin_grouped, twin_off = block_partition.block_partition_reference(keys, n_buckets, bpb)
+    assert torch.equal(grouped, twin_grouped) and torch.equal(off, twin_off)
 
 
-def test_histogram_counts_in_shared_memory_only_where_it_fits(monkeypatch):
+@pytest.mark.parametrize("name,n_slabs", [(name, n_slabs) for name in (
+    "hits_misses_masking", "poly_a_window", "extreme_words_4096", "wide_table_536870912")
+    for n_slabs in (1, 3, 264)])
+def test_pass_wrappers_on_a_stand_in(name, n_slabs, monkeypatch):
+    """Each kernel's wrapper at a slab count of the caller's, on the
+    stand-in: the histogram's (slab, digit) shape, the scan in place with
+    the digits' totals, a scatter into the caller's buffer, the offsets;
+    each equal to its plain piece."""
+    _cuda_stubs(monkeypatch)
+    monkeypatch.setattr(native, "library", StandIn)
+    case = CASES[name]
+    keys = torch.from_numpy(case.keys)
+    n_blocks = case.n_buckets // case.bpb
+    _, slab_len = block_partition.slab_layout(len(keys), n_slabs)
+    for shift, bits in block_partition.radix_passes(n_blocks):
+        rows = block_partition.partition_histogram(keys, n_blocks, slab_len, shift, bits)
+        assert torch.equal(rows, block_partition.slab_histograms(keys, n_blocks, slab_len,
+                                                                 shift, bits))
+        bases, doff = block_partition.slab_bases(rows)
+        totals = block_partition.partition_scan(rows)
+        assert torch.equal(rows, bases) and torch.equal(totals, doff.diff())
+        out = torch.empty_like(keys)
+        got = block_partition.radix_scatter(keys, rows, doff, n_blocks, slab_len, shift, bits,
+                                            out)
+        assert got is out and torch.equal(out, block_partition.slab_scatter_reference(
+            keys, bases, doff, n_blocks, slab_len, shift, bits))
+        keys = out
+    assert torch.equal(block_partition.radix_offsets(keys, n_blocks),
+                       block_partition.radix_offsets_reference(keys, n_blocks))
+
+
+@pytest.mark.parametrize("name", ["hits_misses_masking", "chained_table", "wide_table_33554432",
+                                  "single_bucket_shift_32"])
+def test_consume_alternates_through_the_callers_keys(name, monkeypatch):
+    """With ``consume`` the radix passes alternate between the caller's keys
+    and one other buffer: after two passes the result is in the keys' own
+    memory; without it the keys are left as they were. Either way the
+    result is the twin's. On a CPU tensor the twin runs and consumes
+    nothing."""
+    case = CASES[name]
+    keys, n_buckets, bpb = case.inputs("cpu")
+    n_blocks = n_buckets // bpb
+    twin_grouped, twin_off = block_partition.block_partition_reference(keys, n_buckets, bpb)
+    block_partition.block_partition(keys, n_buckets, bpb, consume=True)
+    assert torch.equal(keys, torch.from_numpy(case.keys))
     _cuda_stubs(monkeypatch)
     lib = StandIn()
     monkeypatch.setattr(native, "library", lambda: lib)
-    keys = torch.from_numpy(CASES["wide_table_33554432"].keys[:100])
-    assert 8192 < block_partition.SHARED_BINS <= 16384
-    for n_blocks, shared in ((1, 1), (8192, 1), (16384, 0), (1 << 18, 0)):
-        block_partition.block_histogram(keys, n_blocks)
-        assert lib.calls[-1] == ("histogram", 100, n_blocks.bit_length() - 1, shared)
-    block_partition.block_histogram(keys, 8192, shared=False)
-    assert lib.calls[-1][3] == 0
+    for consume in (False, True):
+        given = keys.clone()
+        grouped, off = block_partition.radix_partition(given, n_blocks, consume=consume)
+        assert torch.equal(grouped, twin_grouped) and torch.equal(off, twin_off)
+        passes = len(block_partition.radix_passes(n_blocks))
+        assert (grouped.data_ptr() == given.data_ptr()) == (consume and passes % 2 == 0)
+        if not consume:
+            assert torch.equal(given, keys)
 
 
 def test_failed_launch_raises(monkeypatch):
-    """A launch that returns an error raises and counts nothing: there is
-    no fallback to the twin."""
+    """A launch that returns an error raises and counts nothing: there is no
+    fallback to the twin."""
     _cuda_stubs(monkeypatch)
-    lib = types.SimpleNamespace(block_histogram_launch=lambda *a: 1,
-                                block_scatter_launch=lambda *a: 1,
+    fail = lambda *a: 1  # noqa: E731
+    lib = types.SimpleNamespace(radix_slabs=lambda *a: 264, partition_histogram_launch=fail,
+                                partition_scan_launch=fail, radix_scatter_launch=fail,
+                                radix_offsets_launch=fail,
                                 kmt_error_string=lambda rc: b"invalid argument")
     monkeypatch.setattr(native, "library", lambda: lib)
     keys = torch.from_numpy(CASES["chained_table"].keys)
     before = dict(block_partition.launch_counts)
-    with pytest.raises(RuntimeError, match="block_histogram kernel launch failed: invalid"):
-        block_partition._partition_launch(keys, 8)
-    with pytest.raises(RuntimeError, match="block_scatter kernel launch failed: invalid"):
-        block_partition.block_scatter(keys, torch.zeros(9, dtype=torch.int32), 8)
+    for n_blocks in (8, 1 << 18):
+        with pytest.raises(RuntimeError,
+                           match="partition_histogram kernel launch failed: invalid"):
+            block_partition.radix_partition(keys, n_blocks)
+    rows = torch.zeros((1, 128), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="partition_scan kernel launch failed: invalid"):
+        block_partition.partition_scan(rows)
+    with pytest.raises(RuntimeError, match="radix_scatter kernel launch failed: invalid"):
+        block_partition.radix_scatter(keys, rows, torch.zeros(129, dtype=torch.int32), 8192,
+                                      1 << 20, 0, 7)
+    with pytest.raises(RuntimeError, match="radix_offsets kernel launch failed: invalid"):
+        block_partition.radix_offsets(keys, 8)
+    lib.radix_slabs = lambda *a: -1
+    with pytest.raises(RuntimeError, match="radix_slabs failed: invalid"):
+        block_partition.radix_partition(keys, 8)
     assert block_partition.launch_counts == before
 
 
@@ -207,32 +364,58 @@ def test_failed_build_raises(monkeypatch):
     monkeypatch.setattr(native, "library", no_nvcc)
     before = dict(block_partition.launch_counts)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        block_partition._partition_launch(torch.from_numpy(CASES["chained_table"].keys), 8)
+        block_partition.radix_partition(torch.from_numpy(CASES["chained_table"].keys), 8)
     assert block_partition.launch_counts == before
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shared", [None, False])
 @pytest.mark.parametrize("name", list(CASES))
-def test_kernel_matches_twin(name, shared, cuda_device):
-    """Kernel == twin: equal offsets, equal windows as multisets, every key
-    inside its own block's window; with the histogram where the wrapper
-    puts it and in device memory."""
+def test_kernel_matches_twin(name, cuda_device):
+    """Kernel == twin: the twin's keys in the twin's order (stable passes),
+    equal offsets, every key inside its own block's window; each pass's
+    kernels and the offsets launched once (none for no keys)."""
     case = CASES[name]
-    before = dict(block_partition.launch_counts)
     keys = case.inputs(cuda_device)[0]
-    if shared is None:
-        grouped, off = block_partition.block_partition(*case.inputs(cuda_device))
-    else:
-        grouped, off = block_partition._partition_launch(keys, case.n_buckets // case.bpb,
-                                                         shared)
+    before = dict(block_partition.launch_counts)
+    grouped, off = block_partition.block_partition(keys, case.n_buckets, case.bpb)
     torch.cuda.synchronize()
     n = len(case.keys)
-    assert block_partition.launch_counts["block_histogram"] == before["block_histogram"] + bool(n)
-    assert block_partition.launch_counts["block_scatter"] == before["block_scatter"] + bool(n)
+    passes = len(block_partition.radix_passes(case.n_buckets // case.bpb))
+    launched = {"partition_histogram": passes, "partition_scan": passes,
+                "radix_scatter": passes, "radix_offsets": 1}
+    assert block_partition.launch_counts == {
+        **before, **{k: before[k] + v * bool(n) for k, v in launched.items()}}
     twin_grouped, twin_off = block_partition.block_partition_reference(*case.inputs("cpu"))
+    assert torch.equal(grouped.cpu(), twin_grouped)
     assert torch.equal(off.cpu(), twin_off)
     check_partition(keys, grouped, off, case.n_buckets, case.bpb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n_slabs", SLAB_CASES)
+def test_each_kernel_matches_its_plain_piece(name, n_slabs, cuda_device):
+    """Each kernel at a slab count of the caller's against its plain piece on
+    the same inputs, bit for bit: the histogram rows, the scan and the
+    digits' totals, each pass's scatter, the offsets."""
+    case = CASES[name]
+    keys = case.inputs(cuda_device)[0]
+    if not keys.numel():
+        pytest.skip("no keys: the kernels are not launched")
+    n_blocks = case.n_buckets // case.bpb
+    _, slab_len = block_partition.slab_layout(keys.numel(), n_slabs)
+    for shift, bits in block_partition.radix_passes(n_blocks):
+        rows = block_partition.partition_histogram(keys, n_blocks, slab_len, shift, bits)
+        assert torch.equal(rows, block_partition.slab_histograms(keys, n_blocks, slab_len,
+                                                                 shift, bits))
+        bases, doff = block_partition.slab_bases(rows)
+        totals = block_partition.partition_scan(rows)
+        assert torch.equal(rows, bases) and torch.equal(totals, doff.diff())
+        out = block_partition.radix_scatter(keys, rows, doff, n_blocks, slab_len, shift, bits)
+        assert torch.equal(out, block_partition.slab_scatter_reference(
+            keys, bases, doff, n_blocks, slab_len, shift, bits))
+        keys = out
+    assert torch.equal(block_partition.radix_offsets(keys, n_blocks),
+                       block_partition.radix_offsets_reference(keys, n_blocks))
 
 
 @pytest.mark.cuda
