@@ -34,16 +34,22 @@ result line):
      partition whole beside the cursor route (the first partition
      kernels) whole and in its kernels, the twin and torch.sort + count_offsets; the same keys
      partitioned for tables of 2^22, 2^25 and 2^29 buckets, on the main
-     path and on the cursor route; the count kernel and the first one
-     (r2_kernel_dissect's full) on the grouped and on the sorted keys;
+     path and on the cursor route; the count kernel, the first one
+     (r2_kernel_dissect's full) and the split-window one
+     (r2_window_dissect's full, its span swept) on the grouped and on the
+     sorted keys;
      then the ragged step the same way on the same bases cut into reads of
      100-151 bp (8 chunks, each one continuous buffer);
   6. dissect: the three dissection scripts of kmer_mapper_tpu_torch.scripts
      run as a user runs them, at their full sizes (their kernels must have
      launched); then every variant of each kernel against its twin, bit for
      bit, r2_kernel_dissect's full against stream_count, and the
-     tile-scheduled r2_window_dissect against both on a poly-A window; on
-     a ragged chunk, count_offsets (which end at the invalid tail, as the
+     split-window r2_window_dissect's full against both and the oracle on
+     its chunk and on a poly-A window (every variant there too), its
+     schedule kernels against their twin, its span swept on both beside
+     the per-block kernels; r3_iter_floor's vmem and dma beside their
+     serial-chain floor, mm and full at 1 to 8 CTAs a tile; on a ragged
+     chunk, count_offsets (which end at the invalid tail, as the
      partition's windows do) leave the last chain block's window without
      invalid queries;
   7. tiles: the three r9 tile-body scripts of kmer_mapper_tpu_torch.scripts
@@ -107,6 +113,11 @@ INDEX_FROM_READS = 2_000_000  # half drawn from the first 5000 reads' k-mers
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 units
 DISSECT_POLY_A = 200_000  # poly-A queries in one window, phase 6
+#: window-range sizes at which phase 6 times r2_window_dissect's full
+SPAN_SWEEP = (512, 1024, 2048, 4096, 8192, 16384)
+#: cycles of one dependent FP32 add on Hopper: the step of r3_iter_floor's
+#: serial chains (vmem, dma)
+FADD_CYCLES = 4
 LIB_HASHES = 1 << 24  # hashes of the library calls held to the oracle, phase 8
 LIB_TIMED = 1 << 26  # hashes of the timed map_kmers_to_graph_index call
 LIB_GATHER = 1 << 16  # a small map_hashes batch
@@ -177,14 +188,18 @@ def _u32(t):
 
 
 @functools.cache
+def max_sm_mhz() -> float:
+    return float(_cmd_output(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"]).splitlines()[0])
+
+
+@functools.cache
 def int32_ops_per_s() -> float:
     """The card's INT32 instruction rate: SMs x INT32 lanes x largest SM clock."""
     import torch
 
-    mhz = float(_cmd_output(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                             "--format=csv,noheader,nounits"]).splitlines()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * INT32_LANES_PER_SM * mhz * 1e6
+    return sms * INT32_LANES_PER_SM * max_sm_mhz() * 1e6
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -688,14 +703,15 @@ def large_table_report(torch, keys, what: str) -> dict:
 
 def count_report(torch, mapper, grouped, off, keys, n_buckets: int, max_probe: int,
                  what: str) -> dict:
-    """The count kernel and the first one (r2_kernel_dissect's ``full``,
-    block_count_kernel<kFull>) on one chunk's grouped keys and on the same
-    keys sorted (with count_offsets), each from zero counts == the twin's
-    counts, then timed (median of 5), beside the twin and the bound; the
-    kernels line's entry."""
+    """The count kernel, the first one (r2_kernel_dissect's ``full``,
+    block_count_kernel<kFull>) and the split-window one (r2_window_dissect's
+    ``full``, its schedule included) on one chunk's grouped keys and on the
+    same keys sorted (with count_offsets), each from zero counts == the
+    twin's counts, then timed (median of 5), beside the twin and the bound;
+    the kernels line's entry."""
     from kmer_mapper_tpu_torch.ops import stream_probe
     from kmer_mapper_tpu_torch.ops.u32hash import bucket_shift
-    from kmer_mapper_tpu_torch.scripts import r2_kernel_dissect
+    from kmer_mapper_tpu_torch.scripts import r2_kernel_dissect, r2_window_dissect
 
     shift, bpb = bucket_shift(n_buckets), min(128, n_buckets)
     table = (mapper.key_lo, mapper.key_hi)
@@ -704,6 +720,8 @@ def count_report(torch, mapper, grouped, off, keys, n_buckets: int, max_probe: i
               "sorted": (ordered, stream_probe.count_offsets(ordered, n_buckets, bpb))}
     kernels = {"stream_count": stream_probe.stream_count,
                "first kernel (r2_kernel_dissect full)": lambda *a: r2_kernel_dissect.
+               stream_count_v(*a, max_probe, "full"),
+               "split windows (r2_window_dissect full)": lambda *a: r2_window_dissect.
                stream_count_v(*a, max_probe, "full")}
 
     def run(fn, counts, window):
@@ -720,6 +738,10 @@ def count_report(torch, mapper, grouped, off, keys, n_buckets: int, max_probe: i
             t[f"{name} {order}"] = median_ms(lambda: run(fn, scratch, window))
     if err:
         raise AssertionError(f"{what}: a count kernel and the twin disagree")
+    for span in SPAN_SWEEP:  # the split-window kernel's range size, grouped keys
+        t[f"split windows, span {span}"] = median_ms(lambda: run(
+            lambda *a: r2_window_dissect.stream_count_v(*a, max_probe, "full", span=span),
+            scratch, inputs["grouped"]))
     scratch = torch.zeros_like(mapper.counts)
     t["twin"] = median_ms(
         lambda: run(stream_probe.stream_count_reference, scratch, inputs["grouped"]))
@@ -1032,7 +1054,9 @@ def phase_dissect(torch, np, device) -> list[dict]:
     log("dissect: python -m kmer_mapper_tpu_torch.scripts.r3_iter_floor")
     rc = C.main([])
     launches = {name: m.launch_counts[name] for name, m in modules.items()}
+    launches["r2_window_ranges"] = B.launch_counts["r2_window_ranges"]
     twins = {name: m.launch_counts[f"{name}_reference"] for name, m in modules.items()}
+    twins["r2_window_ranges"] = B.launch_counts["r2_window_ranges_reference"]
     if not all(launches.values()) or any(twins.values()):
         raise AssertionError(f"dissect: a kernel did not run: launches {launches}, twins {twins}")
     log(f"dissect: the three scripts ran in {time.perf_counter() - t:.1f} s; "
@@ -1107,6 +1131,10 @@ def phase_dissect(torch, np, device) -> list[dict]:
                             *args[:2], args[2].clone(), *args[3:], max_probe, "full"))):
         if not torch.equal(full_b, other):
             raise AssertionError(f"dissect: r2_window_dissect full != {name}")
+    slots = layout.query_table(ctx.index.table, fixed_read_kmers(np, ctx.reads[0].bases))
+    oracle_counts = np.bincount(slots[slots >= 0], minlength=ctx.index.table.n_slots)
+    if not np.array_equal(u32(full_b), oracle_counts.astype(np.uint32)):
+        raise AssertionError("dissect: r2_window_dissect full != the oracle on the chunk")
     per_block_ms = median_ms(lambda: stream_probe.stream_count(*per_block_args))
     # count_offsets end at the invalid tail: the last chain block's window
     # must hold no invalid query, and the count is the same
@@ -1118,6 +1146,7 @@ def phase_dissect(torch, np, device) -> list[dict]:
     if not torch.equal(full_b, stream_probe.stream_count(*main_args)):
         raise AssertionError("dissect: stream_count on count_offsets != r2_window_dissect full")
     main_ms = median_ms(lambda: stream_probe.stream_count(*main_args))
+    main_split_ms = median_ms(lambda: B.stream_count_v(*main_args, max_probe, "full"))
     table("B", times)
     lengths = off[1:] - off[:-1]
     n_invalid = int((keys == stream_probe.INVALID_KEY).sum())
@@ -1125,11 +1154,54 @@ def phase_dissect(torch, np, device) -> list[dict]:
     log(f"dissect B: {len(B.VARIANTS)} variants == twins on one {ctx.buf}-base chunk "
         f"({keys.numel()} queries, {n_invalid} of them invalid; longest window "
         f"{int(lengths.max())} queries in block {int(lengths.argmax())} of {lengths.numel()}); "
-        f"full == r2_kernel_dissect == stream_count; per-block stream_count alone "
+        f"full == r2_kernel_dissect == stream_count == oracle; per-block stream_count alone "
         f"{per_block_ms:.4f} ms on block_offsets; bound {bound_ms_b:.4f} ms by {bound_by_b}")
     log(f"dissect B: tail repair: per-block stream_count {per_block_ms:.4f} ms on "
         f"block_offsets (last window {int(lengths[-1])} queries) -> {main_ms:.4f} ms on "
-        f"count_offsets (last window {last.numel()} queries, none invalid); counts equal")
+        f"count_offsets (last window {last.numel()} queries, none invalid); counts equal; "
+        f"split-window full {times['full'][0]:.4f} -> {main_split_ms:.4f} ms")
+    # the schedule kernel == its twin on this chunk, timed
+    def ranges_entry(off, n_queries):
+        got = B.window_ranges(off, n_queries)
+        check("r2_window_ranges", "schedule", got, B.window_ranges_reference(off, n_queries))
+        return got
+
+    ranges = ranges_entry(off, keys.numel())
+    ranges_ms = median_ms(lambda: B.window_ranges(off, keys.numel()))
+    ranges_plain_ms = median_ms(lambda: B.window_ranges_reference(off, keys.numel()), reps=3)
+    n_live = int((ranges[:, 0] < lengths.numel()).sum())
+    # each window's bounds read, each row written; per block ~8 operations
+    # (its range count and scan), per row ~3
+    ranges_bound = bound(4 * off.numel() + ranges.numel() * 4,
+                         8 * lengths.numel() + 3 * ranges.shape[0])
+    log(f"dissect B: window ranges at span {B.SPAN}: {n_live} ranges for {lengths.numel()} "
+        f"windows ({ranges.shape[0]} rows), kernel == twin, {ranges_ms:.4f} ms, twin "
+        f"{ranges_plain_ms:.3f} ms; bound {ranges_bound[0]:.6f} ms by {ranges_bound[1]}")
+
+    def split_times(count_args, max_probe):
+        """full at each span of SPAN_SWEEP, the per-block stream_count and
+        the first kernel on the same inputs (from the same counts)."""
+        t = {}
+        for span in SPAN_SWEEP:
+            scratch = count_args[2].clone()
+            t[f"span {span}"] = median_ms(lambda: B.stream_count_v(
+                *count_args[:2], scratch, *count_args[3:], max_probe, "full", span=span))
+        scratch = count_args[2].clone()
+        t["stream_count"] = median_ms(lambda: stream_probe.stream_count(
+            *count_args[:2], scratch, *count_args[3:]))
+        t["first kernel"] = median_ms(lambda: A.stream_count_v(
+            *count_args[:2], scratch, *count_args[3:], max_probe, "full"))
+        return t
+
+    def split_report(what, t):
+        best = min((k for k in t if k.startswith("span")), key=t.get)
+        log(f"dissect B: {what}: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in t.items())
+            + f"; span {B.SPAN} {t[f'span {B.SPAN}']:.4f} ms is "
+            f"{t['stream_count'] / t[f'span {B.SPAN}']:.2f}x the per-block stream_count; "
+            f"fastest {best}")
+
+    chunk_sweep = split_times(args, max_probe)
+    split_report(f"span sweep on the {ctx.buf}-base chunk (block_offsets)", chunk_sweep)
     rng = np.random.default_rng(1)
     keys_pa = np.concatenate([[np.uint64(0)], np.unique(
         rng.integers(0, 1 << 62, 8000, dtype=np.uint64))])
@@ -1144,12 +1216,25 @@ def phase_dissect(torch, np, device) -> list[dict]:
     window = int((pa_args[4][1:] - pa_args[4][:-1]).max())
     if not all(torch.equal(results[0], r) for r in results[1:]) or not np.array_equal(
             u32(results[0]), case.expected()):
-        raise AssertionError("dissect: tile-scheduled count differs on the poly-A window")
-    log(f"dissect B: poly-A window of {window} queries over {-(-window // B.CAP)} tiles: "
-        "tile-scheduled == per-block == stream_count == twin == oracle")
+        raise AssertionError("dissect: split-window count differs on the poly-A window")
+    ranges_entry(pa_args[4], pa_args[3].numel())
+    for variant in B.VARIANTS:  # every variant on the poly-A window too
+        check("r2_window_dissect", f"{variant} poly-A",
+              torch.from_numpy(_u32(B.stream_count_v(*pa_args[:2], pa_args[2].clone(),
+                                                     *pa_args[3:], table_pa.max_probe, variant))),
+              torch.from_numpy(_u32(B.stream_count_v_reference(
+                  *pa_args[:2], pa_args[2].clone(), *pa_args[3:], table_pa.max_probe, variant))))
+    log(f"dissect B: poly-A window of {window} queries over {-(-window // B.SPAN)} ranges: "
+        "every variant == twin; split-window == per-block == stream_count == twin == oracle")
+    split_report(f"span sweep on the poly-A window ({window} of {queries.size} queries)",
+                 split_times(pa_args, table_pa.max_probe))
     out.append(dict(name="r2_window_dissect", source="kmer_mapper_tpu_torch/csrc/r2_window_dissect.cu",
                     replaces="scripts/r2_window_dissect.py:45", ms=times["full"][0],
                     plain_ms=times["full"][1], bound_ms=bound_ms_b, bound_by=bound_by_b))
+    out.append(dict(name="r2_window_ranges", source="kmer_mapper_tpu_torch/csrc/r2_window_dissect.cu",
+                    replaces="scripts/r2_window_dissect.py:143 (jnp schedule)", ms=ranges_ms,
+                    plain_ms=ranges_plain_ms, bound_ms=ranges_bound[0],
+                    bound_by=ranges_bound[1]))
 
     # C: the script's inputs, every variant
     off, tb, q = rc["inputs"]
@@ -1161,6 +1246,16 @@ def phase_dissect(torch, np, device) -> list[dict]:
         times[variant] = (rc["ms"][variant],
                           median_ms(lambda: C.iter_floor_reference(*twin_args), reps=3))
     table("C", times)
+    for variant in ("mm", "full"):  # CTAs a tile's iterations are cut into
+        log(f"dissect C: {variant} by parts: " + ", ".join(
+            f"{parts} {median_ms(lambda: C.iter_floor(off, tb, q, variant, parts=parts)):.4f} ms"
+            for parts in (1, 2, 4, 8)) + f" (the script runs {C.PARTS})")
+    # vmem and dma sum floats in t order: each lane is one chain of N_ITER
+    # dependent adds, which no split of the loop may shorten
+    chain_ms = C.N_ITER * FADD_CYCLES / (max_sm_mhz() * 1e3)
+    log("dissect C: vmem, dma: " + ", ".join(f"{v} {times[v][0]:.4f} ms" for v in ("vmem", "dma"))
+        + f" against their serial-chain floor {chain_ms:.4f} ms ({C.N_ITER} dependent "
+        f"float adds of {FADD_CYCLES} cycles at {max_sm_mhz():.0f} MHz), not the rates' bound")
     # bound of full: the inputs read and the output written once; per lane
     # and iteration 4 integer operations (position window, local_b, its
     # range), per live lane 8 key lanes of 2 word compares; the one float

@@ -1,11 +1,11 @@
-// The stream count for one chain block per CTA, and the variants that
-// dissect it. stream_count.cu launches block_count_kernel<kFull>, the main
-// path's count; r2_kernel_dissect.cu launches every variant of the same
-// kernel, and r2_window_dissect.cu runs the same pieces over 1024-query
-// tiles. Each variant removes one part of the count, as the Pallas variants
-// of scripts/r2_kernel_dissect.py:_kernel_v and
-// scripts/r2_window_dissect.py:_kernel_v do; the plain twin of the variants
-// is kmer_mapper_tpu_torch/scripts/r2_kernel_dissect.py:variant_twin.
+// The first stream count, one chain block per CTA, and the variants that
+// dissect it: r2_kernel_dissect.cu launches every variant of
+// block_count_kernel (its kFull is the main path's count before
+// stream_count.cu's own kernel). Each variant removes one part of the
+// count, as the Pallas variants of scripts/r2_kernel_dissect.py:_kernel_v
+// do; r2_window_dissect.cu takes the variant ids and the launch checks. The
+// plain twin of the variants is
+// kmer_mapper_tpu_torch/scripts/r2_kernel_dissect.py:variant_twin.
 //
 // A query is live when it is not the all-ones pair and its bucket lies in
 // the CTA's chain block; it walks rounds p < rounds, where rounds =
@@ -104,7 +104,7 @@ __device__ __forceinline__ void count_query(BlockTile& tile, uint32_t m_lo,
   for (int p = 0; p < rounds; ++p) {
     const int64_t bucket_p = V == kNoHot ? p : V == kNoMm1 ? local : local + p;
     const int row = static_cast<int>(bucket_p & (bpb - 1)) * kBucketKeys;
-    if (V == kNoMm1 || V == kNoMm1Rolled) {
+    if (V == kNoMm1) {
 #pragma unroll
       for (int l = 0; l < kBucketKeys; ++l) atomicAdd(&tile.cnt[row + l], 1u);
       continue;

@@ -22,80 +22,27 @@
 // changed counts (0.150 ms on a 64 Mi-base chunk).
 //
 // The windows are unordered, so the 32 lanes of a warp read 32 random
-// buckets of the tile. block_count.cuh's tile stores bucket r's lane
-// l at word r*8 + l, which lies in one of 4 banks for each l: up to 8-way
-// conflicts on every read. This kernel's design:
-//  * rows padded to kRow = 9 words: word r*9 + l is in bank (9r + l) % 32,
-//    and 9 is odd, so random buckets spread over all 32 banks (a random
-//    warp still meets ~3.5-way conflicts, the most of 32 balls in 32 bins);
-//    the staging's consecutive slots land on distinct banks but for the
-//    row ends;
-//  * a fingerprint word a bucket: lane l's 4 bits at bit 4l,
-//    0 for an empty slot (the all-ones pair) and 1 + (15 * m_hi >> 32) for a
-//    key, so a query, whose own fingerprint is never 0, reads one word a
-//    round, finds the lanes whose 4 bits equal its own with a SWAR test,
-//    and reads lo and hi words only for those. A miss reads ~1 word a round
-//    where it read 8 lo words (and more on a match of lo);
-//  * each thread loads kItems keys of its window (evict-first, issued
-//    together) before it counts them.
+// buckets of the tile; the kernel counts into count_tile.cuh's tile (rows
+// padded to 9 words, a fingerprint word a bucket), and each thread loads
+// kItems keys of its window (evict-first, issued together) before it counts
+// them.
+//
 // block_count_kernel<kFull>, the first design, stays in block_count.cuh; the
 // dissection kernel r2_kernel_dissect.cu launches it as variant `full`.
 //
 // Bound with ctypes; see kmer_mapper_tpu_torch/native.py.
 
-#include "block_count.cuh"
+#include "count_tile.cuh"
 
 namespace {
 
 using namespace kmt_count;
 
-constexpr int kRow = kBucketKeys + 1;  // a padded tile row, in words
+using kmt_tile::PaddedTile;
+using kmt_tile::kRow;
+
 constexpr int kCountThreads = 256;
 constexpr int kItems = 4;  // keys a thread loads before it counts them
-constexpr uint32_t kNibbles = 0x11111111u;
-
-// The chain block's keys, counts and fingerprints, in shared memory
-// (14.3 KB).
-struct PaddedTile {
-  uint32_t lo[kChainBlock * kRow];
-  uint32_t hi[kChainBlock * kRow];
-  unsigned int cnt[kChainBlock * kRow];
-  uint32_t fp[kChainBlock];
-};
-
-// A key's 4-bit fingerprint, 1..15 from the high bits of m_hi; 0 is kept
-// for empty slots.
-__device__ __forceinline__ uint32_t fingerprint(uint32_t m_hi) {
-  return __umulhi(m_hi, 15u) + 1u;
-}
-
-// Bit 4l + 3 set where nibble l of x is 0 (no carry crosses a nibble).
-__device__ __forceinline__ uint32_t zero_nibbles(uint32_t x) {
-  return ~(((x & 0x77777777u) + 0x77777777u) | x) & 0x88888888u;
-}
-
-// Adds one to each slot of the query's buckets whose key equals (m_lo,
-// m_hi): a round reads the bucket's fingerprint word and the key words of
-// the lanes whose fingerprint is the query's only.
-__device__ __forceinline__ void count_query(PaddedTile& tile, uint32_t m_lo, uint32_t m_hi,
-                                            int shift, int64_t bucket0, int bpb, int rounds) {
-  if (m_lo == kInvalid && m_hi == kInvalid) return;
-  // shifting a 32-bit word by 32 is undefined: one bucket holds every query
-  const int64_t bucket = shift >= 32 ? 0 : static_cast<int64_t>(m_lo >> shift);
-  const int64_t local = bucket - bucket0;
-  if (local < 0 || local >= bpb) return;
-  const uint32_t mine = fingerprint(m_hi) * kNibbles;
-  for (int p = 0; p < rounds; ++p) {
-    const int r = static_cast<int>((local + p) & (bpb - 1));
-    const int row = r * kRow;
-    for (uint32_t m = zero_nibbles(tile.fp[r] ^ mine); m; m &= m - 1) {
-      const int l = (__ffs(m) - 1) >> 2;
-      if (tile.lo[row + l] == m_lo && tile.hi[row + l] == m_hi) {
-        atomicAdd(&tile.cnt[row + l], 1u);
-      }
-    }
-  }
-}
 
 // One CTA per chain block b, as block_count_kernel<kFull>, on the padded
 // tile and through the fingerprints.
@@ -123,14 +70,7 @@ stream_count_kernel(const uint32_t* __restrict__ key_lo, const uint32_t* __restr
   }
   __syncthreads();
   for (int r = threadIdx.x; r < bpb; r += kCountThreads) {
-    uint32_t word = 0;
-#pragma unroll
-    for (int l = 0; l < kBucketKeys; ++l) {
-      const uint32_t lo = tile.lo[r * kRow + l], hi = tile.hi[r * kRow + l];
-      const uint32_t nibble = lo == kInvalid && hi == kInvalid ? 0u : fingerprint(hi);
-      word |= nibble << (4 * l);
-    }
-    tile.fp[r] = word;
+    tile.fp[r] = kmt_tile::bucket_fingerprints(tile.lo + r * kRow, tile.hi + r * kRow);
   }
   __syncthreads();
 
@@ -147,15 +87,12 @@ stream_count_kernel(const uint32_t* __restrict__ key_lo, const uint32_t* __restr
     for (int j = 0; j < kItems; ++j) {
       if (i0 + j * kCountThreads >= end) break;
       const unsigned long long u = key[j] ^ kSignBit;
-      count_query(tile, static_cast<uint32_t>(u >> 32), static_cast<uint32_t>(u), shift,
-                  bucket0, bpb, rounds);
+      kmt_tile::count_query(tile, static_cast<uint32_t>(u >> 32), static_cast<uint32_t>(u),
+                            shift, bucket0, bpb, rounds);
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n_slots; i += kCountThreads) {
-    const unsigned int c = tile.cnt[(i >> 3) * kRow + (i & 7)];
-    if (c) atomicAdd(&counts[slot0 + i], c);
-  }
+  kmt_tile::flush_tile(tile, counts, slot0, n_slots, kCountThreads);
 }
 
 }  // namespace

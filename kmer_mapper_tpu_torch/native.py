@@ -145,10 +145,13 @@ def library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     )
     lib.r2_window_dissect_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    )
+    lib.r2_window_ranges_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     lib.r3_iter_floor_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     )
     lib.r9_dot_orient_launch.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -169,7 +172,7 @@ def library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_void_p,
     ]
     for fn in (lib.r2_kernel_dissect_launch, lib.r2_window_dissect_launch,
-               lib.r3_iter_floor_launch, lib.r9_dot_orient_launch,
+               lib.r2_window_ranges_launch, lib.r3_iter_floor_launch, lib.r9_dot_orient_launch,
                lib.r9_step_parts_launch, lib.r9_block_pipeline_launch,
                lib.gather_probe_dissect_launch, lib.block_histogram_launch,
                lib.block_scatter_launch):

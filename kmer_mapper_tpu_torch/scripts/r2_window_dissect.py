@@ -1,14 +1,17 @@
-"""Dissect the stream count in context, over a flat tile schedule: the
-port's counterpart of ``scripts/r2_window_dissect.py``.
+"""Dissect the stream count in context, over a schedule of window ranges:
+the port's counterpart of ``scripts/r2_window_dissect.py``.
 
     python -m kmer_mapper_tpu_torch.scripts.r2_window_dissect [variant ...]
 
 ``stream_count_v`` launches ``csrc/r2_window_dissect.cu`` with one CTA per
-``CAP``-query tile of the flat schedule that ``tile_schedule`` builds on the
-device: each chain block's window, from its start rounded down to ``ALIGN``,
-cut into ``ceil((end - base) / CAP)`` tiles. A long (poly-A) window is thus
-spread over many CTAs, where ``stream_probe.stream_count`` gives each block
-one. The variants full, nodma and empty compute what the same variants of
+window range of the schedule that ``window_ranges`` builds on the device
+(two small kernels, no host sync): each chain block's window of L queries
+cut into ``ceil(L / SPAN)`` contiguous ranges of at most ``SPAN`` queries.
+A window of up to ``SPAN`` queries stages its block's keys once; a long
+(poly-A) window is spread over many CTAs, where ``stream_probe.stream_count``
+gives each block one. Each CTA counts into the padded, fingerprinted tile
+of ``csrc/count_tile.cuh``, the tile of ``stream_count``. The variants
+full, nodma and empty compute what the same variants of
 ``r2_kernel_dissect`` compute; this script's nomm1 adds round p's counts at
 bucket ``(local + p) & (bpb - 1)``, as its Pallas variant rolls them.
 
@@ -44,8 +47,9 @@ from .r2_kernel_dissect import KERNEL_IDS, canonical, check_blocks, variant_twin
 
 #: this script's variants -> the kernel variant that runs
 VARIANTS = {"full": "full", "nomm1": "nomm1_rolled", "nodma": "nodma", "empty": "empty"}
-CAP = 1024  # queries per tile
-ALIGN = 128  # a window's first tile starts at a multiple of min(ALIGN, CAP)
+SPAN = 8192  # most queries of one window range
+MIN_SPAN = 32
+SCHEDULE_CTA = 1024  # windows a CTA of the schedule kernels takes
 K, READ_LEN, BUF = 31, 151, 16 << 20
 STEPS = 8  # chunk steps in a timed window
 N_CHUNKS = 3
@@ -55,69 +59,113 @@ INDEX_FROM_READS = 2_000_000
 #: the row of ``main`` that runs the main path's per-block kernel
 PER_BLOCK = "stream_count"
 
-launch_counts = {"r2_window_dissect": 0, "r2_window_dissect_reference": 0}
+launch_counts = {"r2_window_dissect": 0, "r2_window_dissect_reference": 0,
+                 "r2_window_ranges": 0, "r2_window_ranges_reference": 0}
 
 
-def n_tiles_bound(n_queries: int, n_blocks: int, cap: int = CAP) -> int:
-    """An upper bound of the schedule's tile count from the sizes alone: a
-    window of length L takes at most ceil(L / cap) + 1 tiles (one more for
-    its start rounded down to ALIGN), and the lengths sum to at most
-    n_queries, so ceil(n / cap) + 2 * n_blocks tiles always suffice. The
-    Pallas script sizes its schedule one tile per block tighter
-    (``(n + pad) // CAP + n_blocks``); the extra CTAs here exit at once."""
-    return -(-n_queries // cap) + 2 * n_blocks
+def n_ranges_bound(n_queries: int, n_blocks: int, span: int = SPAN) -> int:
+    """An upper bound of the schedule's range count from the sizes alone: a
+    window of length L takes ceil(L / span) <= L / span + 1 ranges, and the
+    lengths sum to at most n_queries, so ceil(n / span) + n_blocks ranges
+    always suffice; the CTAs of the entries past the last range exit at
+    once."""
+    return -(-n_queries // span) + n_blocks
 
 
-def tile_schedule(off: torch.Tensor, n_queries: int, cap: int = CAP):
-    """(t_group int32, t_off int64) of ``n_tiles_bound`` tiles, built with
-    torch ops on ``off``'s device (no host sync): tile t serves chain block
-    ``t_group[t]`` from sorted position ``t_off[t]``; tiles past the last one
-    have ``t_group == n_blocks``. The schedule of scripts/r2_window_dissect.py
-    ``:143-153``."""
+def _check_span(span: int) -> None:
+    if span < MIN_SPAN:
+        raise ValueError(f"r2_window_dissect: span={span} < {MIN_SPAN}")
+
+
+def window_ranges(off: torch.Tensor, n_queries: int, span: int = SPAN) -> torch.Tensor:
+    """The schedule of window ranges: int32 (``n_ranges_bound``, 2), row e
+    the chain block and first position of range e; block g's window
+    [off[g], off[g+1]) of length L holds ranges ``off[g] + i * span`` for
+    i < ceil(L / span), in block order; rows past the last range hold
+    (n_blocks, off[n_blocks]).
+
+    On CUDA ``csrc/r2_window_dissect.cu``'s two schedule kernels build it
+    (one CTA per ``SCHEDULE_CTA`` windows: the CTAs' range totals, then
+    each CTA's rows after the totals before it; no host sync; a failed
+    launch raises); on the CPU :func:`window_ranges_reference`."""
+    _check_span(span)
+    n_blocks = off.shape[0] - 1
+    if off.dtype != torch.int32 or off.dim() != 1 or not off.is_contiguous():
+        raise ValueError(f"r2_window_ranges: off is {off.dtype}{tuple(off.shape)}, "
+                         "expected a contiguous int32 vector")
+    if off.device.type == "cpu":
+        return window_ranges_reference(off, n_queries, span)
+    if off.device.type != "cuda":
+        raise ValueError(f"r2_window_ranges: no kernel for device {off.device}")
+    ranges = torch.empty(n_ranges_bound(n_queries, n_blocks, span), 2, dtype=torch.int32,
+                         device=off.device)
+    totals = torch.empty(max(1, -(-n_blocks // SCHEDULE_CTA)), dtype=torch.int32,
+                         device=off.device)
+    with torch.cuda.device(off.device):
+        rc = native.library().r2_window_ranges_launch(
+            off.data_ptr(), totals.data_ptr(), ranges.data_ptr(), n_blocks, span,
+            ranges.shape[0], off.device.index, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"r2_window_ranges kernel launch failed: {native.error_string(rc)}")
+    launch_counts["r2_window_ranges"] += 1
+    return ranges
+
+
+def window_ranges_reference(off: torch.Tensor, n_queries: int, span: int = SPAN) -> torch.Tensor:
+    """Plain-torch twin of the schedule kernel (same rows, same bits)."""
+    launch_counts["r2_window_ranges_reference"] += 1
     n_blocks = off.shape[0] - 1
     dev = off.device
     off64 = off.to(torch.int64)
-    starts, ends = off64[:-1], off64[1:]
-    bases = starts & ~(min(ALIGN, cap) - 1)
-    nt = torch.where(ends > starts, (ends - bases + cap - 1) // cap, 0)
-    csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(nt, 0)])
-    t = torch.arange(n_tiles_bound(n_queries, n_blocks, cap), device=dev)
-    t_group = torch.searchsorted(csum[1:], t, right=True)
-    t_in = t - csum[t_group.clamp(max=n_blocks)]
-    t_off = bases[t_group.clamp(max=n_blocks - 1)] + t_in * cap
-    return t_group.to(torch.int32), t_off
+    e = torch.arange(n_ranges_bound(n_queries, n_blocks, span), device=dev)
+    group = torch.full_like(e, n_blocks)
+    first = torch.full_like(e, int(off64[-1]))
+    if n_blocks:
+        starts, ends = off64[:-1], off64[1:]
+        nr = torch.where(ends > starts, (ends - starts + span - 1) // span, 0)
+        csum = torch.cumsum(nr, 0)
+        g = torch.searchsorted(csum, e, right=True)
+        live = g < n_blocks
+        gl = g[live]
+        group[live] = gl
+        first[live] = starts[gl] + (e[live] - (csum[gl] - nr[gl])) * span
+    return torch.stack([group, first], 1).to(torch.int32)
 
 
 def stream_count_v(key_lo, key_hi, counts, sorted_keys, off, block_probe,
                    shift: int, bpb: int, max_probe: int, variant: str,
-                   cap: int = CAP) -> torch.Tensor:
-    """counts += the variant's contribution of the sorted queries, in place;
-    returns ``counts``. Arguments as ``r2_kernel_dissect.stream_count_v``,
-    plus the tile size.
+                   span: int = SPAN) -> torch.Tensor:
+    """counts += the variant's contribution of the grouped queries, in
+    place; returns ``counts``. Arguments as ``r2_kernel_dissect.stream_count_v``,
+    plus the most queries of a window range.
 
-    CUDA tensors launch ``csrc/r2_window_dissect.cu`` (a failed build or
-    launch raises); CPU tensors run :func:`stream_count_v_reference`."""
+    CUDA tensors launch ``csrc/r2_window_dissect.cu`` (the schedule's two
+    kernels, then the count; a failed build or launch raises); CPU tensors
+    run :func:`stream_count_v_reference`."""
     name = "r2_window_dissect"
     v = canonical(variant, VARIANTS)
     stream_probe.check_count_args(key_lo, key_hi, counts, sorted_keys, off,
                                   block_probe, shift, bpb, name)
     check_blocks(block_probe.shape[0], name)
-    if max_probe < 1 or cap < 1:
-        raise ValueError(f"{name}: max_probe={max_probe}, cap={cap}: both must be >= 1")
+    if max_probe < 1:
+        raise ValueError(f"{name}: max_probe={max_probe} < 1")
+    _check_span(span)
     if counts.device.type == "cpu":
         return stream_count_v_reference(key_lo, key_hi, counts, sorted_keys, off,
                                         block_probe, shift, bpb, max_probe, variant)
     if counts.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {counts.device}")
-    t_group, t_off = tile_schedule(off, sorted_keys.shape[0], cap)
+    if key_lo.data_ptr() % 16 or key_hi.data_ptr() % 16:
+        raise ValueError(f"{name}: the key words must start on 16 bytes (16-byte copies)")
+    ranges = window_ranges(off, sorted_keys.shape[0], span)
     fn = native.library().r2_window_dissect_launch
     with torch.cuda.device(counts.device):
         rc = fn(
             key_lo.data_ptr(), key_hi.data_ptr(), counts.data_ptr(),
             sorted_keys.data_ptr(), off.data_ptr(), block_probe.data_ptr(),
-            t_group.data_ptr(), t_off.data_ptr(), t_group.shape[0],
-            block_probe.shape[0], shift, bpb, max_probe, cap, KERNEL_IDS[v],
-            counts.device.index, torch.cuda.current_stream().cuda_stream,
+            ranges.data_ptr(), ranges.shape[0], block_probe.shape[0], shift, bpb,
+            max_probe, span, KERNEL_IDS[v], counts.device.index,
+            torch.cuda.current_stream().cuda_stream,
         )
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: {native.error_string(rc)}")
@@ -128,7 +176,7 @@ def stream_count_v(key_lo, key_hi, counts, sorted_keys, off, block_probe,
 def stream_count_v_reference(key_lo, key_hi, counts, sorted_keys, off, block_probe,
                              shift: int, bpb: int, max_probe: int,
                              variant: str) -> torch.Tensor:
-    """Plain-torch twin of the kernel: the tile split changes no count, so
+    """Plain-torch twin of the kernel: the range split changes no count, so
     it is ``r2_kernel_dissect``'s twin of the same kernel variant."""
     launch_counts["r2_window_dissect_reference"] += 1
     return variant_twin(key_lo, key_hi, counts, sorted_keys, off, block_probe,
@@ -145,6 +193,7 @@ class Context:
     block_probe: torch.Tensor
     chunks: list  # (int64-held packed words, int64 lengths, n_bases)
     buf: int
+    reads: list = dataclasses.field(default_factory=list)  # the chunks' SequenceChunks
 
     @property
     def n_buckets(self) -> int:
@@ -201,7 +250,7 @@ def make_context(device) -> Context:
         resident.append((from_int32_bits(words(packed)),
                          torch.from_numpy(lengths.astype(np.int64)).to(device), n_bases))
     return Context(index, words(table.key_lo), words(table.key_hi),
-                   torch.from_numpy(table.block_max_probe()).to(device), resident, BUF)
+                   torch.from_numpy(table.block_max_probe()).to(device), resident, BUF, chunks)
 
 
 def run(ctx: Context, variants, device) -> dict[str, tuple[float, float]]:

@@ -3,27 +3,35 @@ counterpart of ``scripts/r3_iter_floor.py``.
 
     python -m kmer_mapper_tpu_torch.scripts.r3_iter_floor [variant ...]
 
-``iter_floor`` launches ``csrc/r3_iter_floor.cu``: one CTA of ``CAP``
-threads (one per query lane) runs ``N_ITER`` iterations over ``CAP``-lane
-tiles of a (4, 64 * CAP) query array, tile t at column (t % 64) * CAP, and
-each iteration reads the scalars a = off[t % 8192] and b = off[8192 +
-t % 8192]. The output is f32 (128, 8): row 0 holds float32(int32 loop
-carry), rows 1..127 the accumulator rows 0..126.
+``iter_floor`` launches ``csrc/r3_iter_floor.cu``: ``N_ITER`` iterations
+over ``CAP``-lane tiles of a (4, 64 * CAP) query array, tile t at column
+(t % 64) * CAP, each iteration reading the scalars a = off[t % 8192] and
+b = off[8192 + t % 8192]. The output is f32 (128, 8): row 0 holds
+float32(int32 loop carry), rows 1..127 the accumulator rows 0..126.
 
     loop   carry += t
     smem   carry += a + b
-    vmem   smem, and acc[0, lane] += float(q[0]) of tile t % 4, read from
-           shared memory filled once (a stand-in: the Pallas variant reads
-           scratch that was never written)
-    dma    smem over a 4-deep cp.async ring of (4, CAP) tiles, and
+    vmem   smem, and acc[0, lane] += float(q[0]) of tile t % 4, in t order
+           (a stand-in: the Pallas variant reads scratch that was never
+           written)
+    dma    smem over the (4, CAP) tiles copied into shared memory, and
            acc[0, lane] += float(q[0]) of tile t % 64, in t order
     mm     full's tile compute on vmem's stand-in tiles, no copies (a
            stand-in, as for vmem)
-    full   dma plus the tile compute: a lane is live when its position lies
-           in [a, a + CAP) and local_b = q[0] - b % 997 in [0, 128); it hits
-           key lane k when all 8 bytes of (q[1], q[2]) equal
-           bf16(tb[local_b, p * 8 + k]), and hits count in acc[local_b, k]
+    full   dma's copies plus the tile compute: a lane is live when its
+           position lies in [a, a + CAP) and local_b = q[0] - b % 997 in
+           [0, 128); it hits key lane k when all 8 bytes of (q[1], q[2])
+           equal bf16(tb[local_b, p * 8 + k]), and hits count in
+           acc[local_b, k]
     grid   ``N_GRID`` CTAs of one iteration; the output stays zero
+
+The kernel spreads the loop over the card. The carry and the hit counts do
+not depend on the order of the iterations: loop, smem, mm and full run a
+(64, CAP / L) grid, CTA (j, s) taking the iterations t = j (mod 64) and L
+lanes of tile j, staged once, and sum into a uint32 scratch that the last
+CTA converts to f32. vmem and dma sum floats in t order, so each lane
+stays one serial chain of ``N_ITER`` adds (one warp a CTA): their floor is
+``N_ITER`` dependent float adds, not the card's rates.
 
 ``main`` times every variant (median of 5 CUDA-event times) and prints ms
 and ns per iteration (per CTA for grid).
@@ -52,6 +60,10 @@ N_TILES = 64  # tile t sits at column (t % 64) * CAP
 N_SLOTS = 4  # tiles in flight
 OFF_HALF = 8192  # a = off[t % 8192], b = off[8192 + t % 8192]
 MOD = 997
+#: the kernel's uint32 scratch: the count tile, the carry, the last-CTA ticket
+SCRATCH_WORDS = BPB * K + 2
+#: CTAs that share one tile's iterations (loop, smem, mm, full)
+PARTS = 2
 
 launch_counts = {"r3_iter_floor": 0, "r3_iter_floor_reference": 0}
 
@@ -72,10 +84,12 @@ def _check(off, tb, q, variant, cap):
 
 
 def iter_floor(off, tb, q, variant: str, n_iter: int | None = None,
-               n_grid: int | None = None, cap: int | None = None) -> torch.Tensor:
+               n_grid: int | None = None, cap: int | None = None,
+               parts: int = PARTS) -> torch.Tensor:
     """The variant's f32 (128, 8) output. ``off`` int32 (16384,), ``tb`` f32
     (128, 64), ``q`` int32 bit patterns of uint32 (4, 64 * cap); the sizes
-    default to the module's ``N_ITER``, ``N_GRID`` and ``CAP``.
+    default to the module's ``N_ITER``, ``N_GRID`` and ``CAP``; ``parts``
+    CTAs share each tile's iterations (the result does not depend on it).
 
     CUDA tensors launch ``csrc/r3_iter_floor.cu`` (a failed build or launch
     raises); CPU tensors run :func:`iter_floor_reference`."""
@@ -87,12 +101,16 @@ def iter_floor(off, tb, q, variant: str, n_iter: int | None = None,
         return iter_floor_reference(off, tb, q, variant, n_iter, n_grid, cap)
     if off.device.type != "cuda":
         raise ValueError(f"r3_iter_floor: no kernel for device {off.device}")
-    out = torch.zeros(BPB, K, dtype=torch.float32, device=off.device)
+    if q.data_ptr() % 16:
+        raise ValueError("r3_iter_floor: q must start on 16 bytes (16-byte copies)")
+    out = torch.empty(BPB, K, dtype=torch.float32, device=off.device)
     sink = torch.empty(cap, dtype=torch.float32, device=off.device)
+    scratch = torch.zeros(SCRATCH_WORDS, dtype=torch.int32, device=off.device)
     with torch.cuda.device(off.device):
         rc = native.library().r3_iter_floor_launch(
             off.data_ptr(), tb.data_ptr(), q.data_ptr(), out.data_ptr(), sink.data_ptr(),
-            n_iter, n_grid, cap, VARIANTS.index(variant), off.device.index,
+            scratch.data_ptr(), n_iter, n_grid, cap, parts, VARIANTS.index(variant),
+            off.device.index,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc:

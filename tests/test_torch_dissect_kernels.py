@@ -102,24 +102,37 @@ def test_script_variants_run_their_kernel_variants(module):
         CASE.expected())
 
 
-def schedule_loop(off, n_queries, cap):
-    """The flat tile schedule of scripts/r2_window_dissect.py, one block at
-    a time: (t_group, t_off) of the live tiles."""
-    align = min(B.ALIGN, cap)
-    groups, offsets = [], []
-    for g in range(len(off) - 1):
-        start, end = int(off[g]), int(off[g + 1])
-        if end <= start:
-            continue
-        base = start - start % align
-        for j in range(-(-(end - base) // cap)):
-            groups.append(g)
-            offsets.append(base + j * cap)
-    return np.array(groups, np.int64), np.array(offsets, np.int64)
+def ranges_loop(off, n_queries, span):
+    """The schedule of window ranges, one window at a time: (block, first
+    position) of each range, then (n_blocks, off[-1]) up to the bound."""
+    rows = [(g, first) for g in range(len(off) - 1)
+            for first in range(int(off[g]), int(off[g + 1]), span)]
+    n_blocks = len(off) - 1
+    rows += [(n_blocks, int(off[-1]))] * (B.n_ranges_bound(n_queries, n_blocks, span) - len(rows))
+    return np.array(rows, np.int64).reshape(-1, 2)
+
+
+def check_ranges(ranges, off, span):
+    """Every position of every window covered once, no range crosses its
+    window or holds more than ``span`` positions, the rows past the last
+    range marked."""
+    n_blocks = len(off) - 1
+    live = ranges[:, 0] < n_blocks
+    n_live = int(live.sum())
+    assert live[:n_live].all()
+    np.testing.assert_array_equal(ranges[n_live:], [[n_blocks, off[-1]]] * (len(ranges) - n_live))
+    covered = np.zeros(int(off[-1]), np.int64)
+    for g, first in ranges[:n_live]:
+        last = min(first + span, int(off[g + 1]))
+        assert off[g] <= first < last <= off[g + 1]
+        covered[first:last] += 1
+    np.testing.assert_array_equal(covered[int(off[0]):], 1)
 
 
 @pytest.mark.parametrize("cap", [128, 256, 1024])
 def test_tile_schedule_matches_numpy_loop_and_covers_every_query(cap):
+    """The window ranges (``cap`` is the span) on random windows with two
+    empty ones and a poly-A one."""
     rng = np.random.default_rng(cap)
     n_blocks = 16
     lengths = rng.integers(0, 3 * cap, n_blocks)
@@ -127,17 +140,56 @@ def test_tile_schedule_matches_numpy_loop_and_covers_every_query(cap):
     lengths[5] = 20 * cap + 77  # a poly-A window
     off = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
     n = int(off[-1]) + 5  # an invalid tail past the last window
-    t_group, t_off = (x.numpy() for x in B.tile_schedule(torch.from_numpy(off), n, cap))
-    groups, offsets = schedule_loop(off, n, cap)
-    assert len(t_group) == B.n_tiles_bound(n, n_blocks, cap) >= len(groups)
-    np.testing.assert_array_equal(t_group[: len(groups)], groups)
-    np.testing.assert_array_equal(t_off[: len(groups)], offsets)
-    assert (t_group[len(groups):] == n_blocks).all()
-    covered = np.zeros(n, np.int64)  # what the kernel's CTAs read
-    for g, first in zip(groups, offsets):
-        lo, hi = max(first, off[g]), min(first + cap, off[g + 1])
-        covered[lo:hi] += 1
-    np.testing.assert_array_equal(covered[: off[-1]], 1)
+    ranges = B.window_ranges(torch.from_numpy(off), n, cap).numpy().astype(np.int64)
+    assert len(ranges) == B.n_ranges_bound(n, n_blocks, cap)
+    np.testing.assert_array_equal(ranges, ranges_loop(off, n, cap))
+    check_ranges(ranges, off, cap)
+
+
+def edge_windows(kind: str, span: int):
+    """(off, n_queries) of one schedule edge case."""
+    if kind == "small_bpb":  # a 64-bucket table: one chain block of 64 buckets
+        case = make_case(poly=3 * span, n_buckets=64, n_keys=300)
+        off = case.inputs("cpu")[4].numpy()
+        assert len(off) == 2 and case.table.n_buckets == 64
+        return off, len(case.queries)
+    if kind == "many_windows":  # more windows than the schedule kernel stages at once
+        lengths = np.random.default_rng(span).integers(0, 3, 20_000) * (span // 2)
+        lengths[[0, 9000, 19_999]] = [3 * span + 1, 0, span]
+        off = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+        return off, int(off[-1])
+    lengths = {
+        "empty": [0, span, 0, 0, 3, 0],
+        "span": [span] * 4 + [1, span],
+        "span_plus_one": [span + 1, 1, span + 1, span - 1],
+        "poly_a": [5, 40 * span + 7, 0, span + 1, 2],
+    }[kind]
+    off = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    return off, int(off[-1]) + span // 2
+
+
+EDGES = ["empty", "span", "span_plus_one", "poly_a", "small_bpb", "many_windows"]
+
+
+@pytest.mark.parametrize("span", [128, 1024])
+@pytest.mark.parametrize("kind", EDGES)
+def test_window_ranges_on_edge_windows(kind, span):
+    off, n = edge_windows(kind, span)
+    ranges = B.window_ranges(torch.from_numpy(off), n, span).numpy().astype(np.int64)
+    np.testing.assert_array_equal(ranges, ranges_loop(off, n, span))
+    check_ranges(ranges, off, span)
+    lengths = np.diff(off.astype(np.int64))
+    assert (ranges[:, 0] < len(lengths)).sum() == sum(-(-lengths // span))
+
+
+def test_window_ranges_refuse_short_spans_and_other_devices():
+    off = torch.tensor([0, 5, 9], dtype=torch.int32)
+    with pytest.raises(ValueError, match="span"):
+        B.window_ranges(off, 9, B.MIN_SPAN - 1)
+    with pytest.raises(ValueError, match="no kernel"):
+        B.window_ranges(off.to("meta"), 9)
+    with pytest.raises(ValueError, match="int32"):
+        B.window_ranges(off.long(), 9)
 
 
 @pytest.mark.parametrize("module", [A, B])
@@ -290,3 +342,98 @@ def test_iter_floor_kernel_matches_its_twin(variant, kind, cuda_device):
     assert C.launch_counts["r3_iter_floor"] == before + 1
     twin = C.iter_floor_reference(off, tb, q, variant, 512, 64, 1024)
     np.testing.assert_array_equal(_u32(got), _u32(twin))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", EDGES)
+def test_window_ranges_kernel_matches_its_twin(kind, cuda_device):
+    for span in (32, 128, 1024):
+        off, n = edge_windows(kind, span)
+        before = B.launch_counts["r2_window_ranges"]
+        got = B.window_ranges(torch.from_numpy(off).to(cuda_device), n, span)
+        assert B.launch_counts["r2_window_ranges"] == before + 1
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), B.window_ranges_reference(torch.from_numpy(off), n, span).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", ["span", "span_plus_one"])
+def test_window_dissect_on_a_window_at_and_past_the_span(edge, cuda_device):
+    """Every variant == its twin with the span set to the longest window's
+    length L (a window of S queries) or to L - 1 (a window of S + 1), on a
+    case with invalid queries (valid mask) and misses."""
+    case = make_case(poly=700)
+    args = case.inputs(cuda_device)
+    longest = int((args[4][1:] - args[4][:-1]).max())
+    span = longest if edge == "span" else longest - 1
+    assert bool((args[3] == stream_probe.INVALID_KEY).any())
+    for variant in B.VARIANTS:
+        got = B.stream_count_v(*case.inputs(cuda_device), case.table.max_probe, variant,
+                               span=span)
+        twin = B.stream_count_v_reference(*case.inputs(cuda_device), case.table.max_probe,
+                                          variant)
+        np.testing.assert_array_equal(_u32(got), _u32(twin), err_msg=variant)
+
+
+def wrapping_inputs(device, cap: int = 1024):
+    """make_inputs with every b a large multiple of 997 (local_b stays q[0],
+    so the tile compute still hits): the carry wraps past 2^32 within a few
+    iterations."""
+    off, tb, q = C.make_inputs("cpu", cap, seed=4)
+    rng = np.random.default_rng(4)
+    off[C.OFF_HALF:] = torch.from_numpy(
+        (C.MOD * rng.integers(2_000_000, 2_150_000, C.OFF_HALF)).astype(np.int32))
+    return off.to(device), tb.to(device), q.to(device)
+
+
+def order_inputs(device, cap: int = 1024):
+    """make_inputs with q[0] drawn from [2^25, 2^26): float32 sums of such
+    values round differently when the iterations are split."""
+    off, tb, q = C.make_inputs("cpu", cap, seed=6)
+    rng = np.random.default_rng(6)
+    q[0] = torch.from_numpy(rng.integers(1 << 25, 1 << 26, q.shape[1]).astype(np.int32))
+    return off.to(device), tb.to(device), q.to(device)
+
+
+def test_order_input_tells_a_split_of_t_from_the_serial_sum():
+    """dma's row 1 is the serial f32 sum in t order: on ``order_inputs`` a
+    sum over two halves of t differs, and the twin equals the serial sum."""
+    cap, n_iter = 1024, 4097
+    off, tb, q = order_inputs("cpu", cap)
+    tiles = q[0].numpy().astype(np.float32).reshape(C.N_TILES, cap)[:, : C.K]
+    serial = np.zeros(C.K, np.float32)
+    for t in range(n_iter):
+        serial = serial + tiles[t % C.N_TILES]
+    halves = [np.zeros(C.K, np.float32), np.zeros(C.K, np.float32)]
+    for t in range(n_iter):
+        halves[t % 2] = halves[t % 2] + tiles[t % C.N_TILES]
+    assert not np.array_equal(serial, halves[0] + halves[1])
+    got = C.iter_floor(off, tb, q, "dma", n_iter, 2, cap)
+    np.testing.assert_array_equal(got[1].numpy().view(np.uint32), serial.view(np.uint32))
+    carry = wrapping_inputs("cpu", cap)[0].long()
+    t = torch.arange(n_iter)
+    assert int(carry[t % C.OFF_HALF].sum() + carry[C.OFF_HALF + t % C.OFF_HALF].sum()) >= 1 << 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_iter", [1, 3, 63, 65, 4097])
+@pytest.mark.parametrize("variant", C.VARIANTS)
+def test_iter_floor_kernel_on_short_and_odd_loops(variant, n_iter, cuda_device):
+    """The grid and chain splits at loop lengths around the 64 tiles, with
+    a wrapping carry, and dma's order-sensitive input."""
+    for make, parts in ((C.make_inputs, C.PARTS), (wrapping_inputs, 1), (order_inputs, 3)):
+        off, tb, q = make(cuda_device, 1024)
+        got = C.iter_floor(off, tb, q, variant, n_iter, 64, 1024, parts=parts)
+        twin = C.iter_floor_reference(off, tb, q, variant, n_iter, 64, 1024)
+        np.testing.assert_array_equal(_u32(got), _u32(twin), err_msg=make.__name__)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [32, 96, 288])
+def test_iter_floor_kernel_at_other_tile_widths(cap, cuda_device):
+    off, tb, q = C.make_inputs(cuda_device, cap, seed=cap)
+    for variant in C.VARIANTS:
+        got = C.iter_floor(off, tb, q, variant, 200, 8, cap)
+        np.testing.assert_array_equal(
+            _u32(got), _u32(C.iter_floor_reference(off, tb, q, variant, 200, 8, cap)),
+            err_msg=variant)
