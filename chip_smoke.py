@@ -36,8 +36,7 @@ result line):
      partitioned for tables of 2^22, 2^25 and 2^29 buckets, on the main
      path and on the cursor route; the count kernel, the first one
      (r2_kernel_dissect's full) and the split-window one
-     (r2_window_dissect's full, its span swept) on the grouped and on the
-     sorted keys;
+     (r2_window_dissect's full) on the grouped and on the sorted keys;
      then the ragged step the same way on the same bases cut into reads of
      100-151 bp (8 chunks, each one continuous buffer);
   6. dissect: the three dissection scripts of kmer_mapper_tpu_torch.scripts
@@ -46,9 +45,9 @@ result line):
      bit, r2_kernel_dissect's full against stream_count, and the
      split-window r2_window_dissect's full against both and the oracle on
      its chunk and on a poly-A window (every variant there too), its
-     schedule kernels against their twin, its span swept on both beside
-     the per-block kernels; r3_iter_floor's vmem and dma beside their
-     serial-chain floor, mm and full at 1 to 8 CTAs a tile; on a ragged
+     schedule kernels against their twin, timed on both beside the
+     per-block kernels; r3_iter_floor's vmem and dma beside their
+     serial-chain floor; on a ragged
      chunk, count_offsets (which end at the invalid tail, as the
      partition's windows do) leave the last chain block's window without
      invalid queries;
@@ -113,8 +112,6 @@ INDEX_FROM_READS = 2_000_000  # half drawn from the first 5000 reads' k-mers
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 units
 DISSECT_POLY_A = 200_000  # poly-A queries in one window, phase 6
-#: window-range sizes at which phase 6 times r2_window_dissect's full
-SPAN_SWEEP = (512, 1024, 2048, 4096, 8192, 16384)
 #: cycles of one dependent FP32 add on Hopper: the step of r3_iter_floor's
 #: serial chains (vmem, dma)
 FADD_CYCLES = 4
@@ -738,10 +735,6 @@ def count_report(torch, mapper, grouped, off, keys, n_buckets: int, max_probe: i
             t[f"{name} {order}"] = median_ms(lambda: run(fn, scratch, window))
     if err:
         raise AssertionError(f"{what}: a count kernel and the twin disagree")
-    for span in SPAN_SWEEP:  # the split-window kernel's range size, grouped keys
-        t[f"split windows, span {span}"] = median_ms(lambda: run(
-            lambda *a: r2_window_dissect.stream_count_v(*a, max_probe, "full", span=span),
-            scratch, inputs["grouped"]))
     scratch = torch.zeros_like(mapper.counts)
     t["twin"] = median_ms(
         lambda: run(stream_probe.stream_count_reference, scratch, inputs["grouped"]))
@@ -1179,14 +1172,11 @@ def phase_dissect(torch, np, device) -> list[dict]:
         f"{ranges_plain_ms:.3f} ms; bound {ranges_bound[0]:.6f} ms by {ranges_bound[1]}")
 
     def split_times(count_args, max_probe):
-        """full at each span of SPAN_SWEEP, the per-block stream_count and
-        the first kernel on the same inputs (from the same counts)."""
-        t = {}
-        for span in SPAN_SWEEP:
-            scratch = count_args[2].clone()
-            t[f"span {span}"] = median_ms(lambda: B.stream_count_v(
-                *count_args[:2], scratch, *count_args[3:], max_probe, "full", span=span))
+        """full (at the script's span), the per-block stream_count and the
+        first kernel on the same inputs (from the same counts)."""
         scratch = count_args[2].clone()
+        t = {f"span {B.SPAN}": median_ms(lambda: B.stream_count_v(
+            *count_args[:2], scratch, *count_args[3:], max_probe, "full"))}
         t["stream_count"] = median_ms(lambda: stream_probe.stream_count(
             *count_args[:2], scratch, *count_args[3:]))
         t["first kernel"] = median_ms(lambda: A.stream_count_v(
@@ -1194,14 +1184,12 @@ def phase_dissect(torch, np, device) -> list[dict]:
         return t
 
     def split_report(what, t):
-        best = min((k for k in t if k.startswith("span")), key=t.get)
         log(f"dissect B: {what}: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in t.items())
-            + f"; span {B.SPAN} {t[f'span {B.SPAN}']:.4f} ms is "
-            f"{t['stream_count'] / t[f'span {B.SPAN}']:.2f}x the per-block stream_count; "
-            f"fastest {best}")
+            + f"; span {B.SPAN} is {t['stream_count'] / t[f'span {B.SPAN}']:.2f}x the "
+            "per-block stream_count")
 
-    chunk_sweep = split_times(args, max_probe)
-    split_report(f"span sweep on the {ctx.buf}-base chunk (block_offsets)", chunk_sweep)
+    split_report(f"split vs per-block on the {ctx.buf}-base chunk (block_offsets)",
+                 split_times(args, max_probe))
     rng = np.random.default_rng(1)
     keys_pa = np.concatenate([[np.uint64(0)], np.unique(
         rng.integers(0, 1 << 62, 8000, dtype=np.uint64))])
@@ -1226,7 +1214,7 @@ def phase_dissect(torch, np, device) -> list[dict]:
                   *pa_args[:2], pa_args[2].clone(), *pa_args[3:], table_pa.max_probe, variant))))
     log(f"dissect B: poly-A window of {window} queries over {-(-window // B.SPAN)} ranges: "
         "every variant == twin; split-window == per-block == stream_count == twin == oracle")
-    split_report(f"span sweep on the poly-A window ({window} of {queries.size} queries)",
+    split_report(f"split vs per-block on the poly-A window ({window} of {queries.size} queries)",
                  split_times(pa_args, table_pa.max_probe))
     out.append(dict(name="r2_window_dissect", source="kmer_mapper_tpu_torch/csrc/r2_window_dissect.cu",
                     replaces="scripts/r2_window_dissect.py:45", ms=times["full"][0],
@@ -1246,10 +1234,6 @@ def phase_dissect(torch, np, device) -> list[dict]:
         times[variant] = (rc["ms"][variant],
                           median_ms(lambda: C.iter_floor_reference(*twin_args), reps=3))
     table("C", times)
-    for variant in ("mm", "full"):  # CTAs a tile's iterations are cut into
-        log(f"dissect C: {variant} by parts: " + ", ".join(
-            f"{parts} {median_ms(lambda: C.iter_floor(off, tb, q, variant, parts=parts)):.4f} ms"
-            for parts in (1, 2, 4, 8)) + f" (the script runs {C.PARTS})")
     # vmem and dma sum floats in t order: each lane is one chain of N_ITER
     # dependent adds, which no split of the loop may shorten
     chain_ms = C.N_ITER * FADD_CYCLES / (max_sm_mhz() * 1e3)

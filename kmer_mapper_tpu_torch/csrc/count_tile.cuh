@@ -1,6 +1,9 @@
 // The count tile of one chain block in shared memory, padded and
 // fingerprinted: stream_count.cu's stream_count_kernel and the split-window
-// dissection kernel r2_window_dissect.cu count into it.
+// dissection kernel r2_window_dissect.cu count into it. The tile's layout
+// lives here alone: the kernels build it with store_slot + seal_row or
+// store_row, address a slot with slot_word, and count and flush through
+// the functions below.
 //
 // Lanes of a warp read random buckets of the tile. A tile that stores
 // bucket r's lane l at word r*8 + l (block_count.cuh's BlockTile) puts each
@@ -34,6 +37,9 @@ struct PaddedTile {
   uint32_t fp[kChainBlock];
 };
 
+// The word of slot s (bucket s >> 3, lane s & 7) in lo, hi and cnt.
+__device__ __forceinline__ int slot_word(int s) { return (s >> 3) * kRow + (s & 7); }
+
 // A key's 4-bit fingerprint, 1..15 from the high bits of m_hi; 0 is kept
 // for empty slots.
 __device__ __forceinline__ uint32_t fingerprint(uint32_t m_hi) {
@@ -51,6 +57,30 @@ __device__ __forceinline__ uint32_t bucket_fingerprints(const uint32_t* lo,
     word |= nibble << (4 * l);
   }
   return word;
+}
+
+// Slot s's key into the tile, its count zeroed; its bucket's fingerprint
+// comes with seal_row once all 8 of the bucket's slots are stored.
+__device__ __forceinline__ void store_slot(PaddedTile& tile, int s, uint32_t lo, uint32_t hi) {
+  const int w = slot_word(s);
+  tile.lo[w] = lo;
+  tile.hi[w] = hi;
+  tile.cnt[w] = 0;
+}
+
+// Bucket r's fingerprint word from its 8 stored keys.
+__device__ __forceinline__ void seal_row(PaddedTile& tile, int r) {
+  tile.fp[r] = bucket_fingerprints(tile.lo + r * kRow, tile.hi + r * kRow);
+}
+
+// Bucket r's 8 keys into the tile, their counts zeroed and its fingerprint
+// set, from registers.
+__device__ __forceinline__ void store_row(PaddedTile& tile, int r,
+                                          const uint32_t (&lo)[kBucketKeys],
+                                          const uint32_t (&hi)[kBucketKeys]) {
+#pragma unroll
+  for (int l = 0; l < kBucketKeys; ++l) store_slot(tile, r * kBucketKeys + l, lo[l], hi[l]);
+  tile.fp[r] = bucket_fingerprints(lo, hi);
 }
 
 // Bit 4l + 3 set where nibble l of x is 0 (no carry crosses a nibble).
@@ -82,12 +112,27 @@ __device__ __forceinline__ void count_query(PaddedTile& tile, uint32_t m_lo, uin
   }
 }
 
+// Round p adds one to all 8 slots of the query's bucket local + p, with no
+// compare (the dissection's nomm1); live queries as in count_query.
+__device__ __forceinline__ void add_rounds(PaddedTile& tile, uint32_t m_lo, uint32_t m_hi,
+                                           int shift, int64_t bucket0, int bpb, int rounds) {
+  if (m_lo == kInvalid && m_hi == kInvalid) return;
+  const int64_t bucket = shift >= 32 ? 0 : static_cast<int64_t>(m_lo >> shift);
+  const int64_t local = bucket - bucket0;
+  if (local < 0 || local >= bpb) return;
+  for (int p = 0; p < rounds; ++p) {
+    const int r = static_cast<int>((local + p) & (bpb - 1));
+#pragma unroll
+    for (int l = 0; l < kBucketKeys; ++l) atomicAdd(&tile.cnt[slot_word(r * kBucketKeys + l)], 1u);
+  }
+}
+
 // Adds each nonzero count-tile entry into the global counts of the block's
 // slots [slot0, slot0 + n_slots).
 __device__ __forceinline__ void flush_tile(const PaddedTile& tile, unsigned int* __restrict__ counts,
                                            int64_t slot0, int n_slots, int n_threads) {
   for (int i = threadIdx.x; i < n_slots; i += n_threads) {
-    const unsigned int c = tile.cnt[(i >> 3) * kRow + (i & 7)];
+    const unsigned int c = tile.cnt[slot_word(i)];
     if (c) atomicAdd(&counts[slot0 + i], c);
   }
 }

@@ -33,7 +33,6 @@ namespace {
 
 using namespace kmt_count;
 using kmt_tile::PaddedTile;
-using kmt_tile::kRow;
 
 constexpr int kCountThreads = 256;
 constexpr int kItems = 4;  // keys a thread loads before it counts them
@@ -147,20 +146,6 @@ __device__ __forceinline__ void load_keys(unsigned long long (&key)[kItems],
   }
 }
 
-// round p adds one to all 8 slots of bucket local + p (no compare)
-__device__ __forceinline__ void add_rounds(PaddedTile& tile, uint32_t m_lo, uint32_t m_hi,
-                                           int shift, int64_t bucket0, int bpb, int rounds) {
-  if (m_lo == kInvalid && m_hi == kInvalid) return;
-  const int64_t bucket = shift >= 32 ? 0 : static_cast<int64_t>(m_lo >> shift);
-  const int64_t local = bucket - bucket0;
-  if (local < 0 || local >= bpb) return;
-  for (int p = 0; p < rounds; ++p) {
-    const int row = static_cast<int>((local + p) & (bpb - 1)) * kRow;
-#pragma unroll
-    for (int l = 0; l < kBucketKeys; ++l) atomicAdd(&tile.cnt[row + l], 1u);
-  }
-}
-
 // at most 32 registers: 8 CTAs an SM, as stream_count_kernel, to hide the
 // latency of the key stream
 template <int V>
@@ -204,7 +189,7 @@ r2_window_dissect_kernel(const uint32_t* __restrict__ key_lo,
   asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();
   for (int r = threadIdx.x; r < bpb; r += kCountThreads) {
-    uint32_t lo[kBucketKeys], hi_w[kBucketKeys];
+    uint32_t lo[kBucketKeys], hi_w[kBucketKeys];  // bucket r's keys, from the flat buffer
     const uint4* row_lo = reinterpret_cast<const uint4*>(stage + r * kBucketKeys);
     const uint4* row_hi = reinterpret_cast<const uint4*>(stage + kTileSlots + r * kBucketKeys);
 #pragma unroll
@@ -213,13 +198,7 @@ r2_window_dissect_kernel(const uint32_t* __restrict__ key_lo,
       lo[4 * h] = a.x, lo[4 * h + 1] = a.y, lo[4 * h + 2] = a.z, lo[4 * h + 3] = a.w;
       hi_w[4 * h] = b.x, hi_w[4 * h + 1] = b.y, hi_w[4 * h + 2] = b.z, hi_w[4 * h + 3] = b.w;
     }
-#pragma unroll
-    for (int l = 0; l < kBucketKeys; ++l) {
-      tile.lo[r * kRow + l] = lo[l];
-      tile.hi[r * kRow + l] = hi_w[l];
-      tile.cnt[r * kRow + l] = 0;
-    }
-    tile.fp[r] = kmt_tile::bucket_fingerprints(lo, hi_w);
+    kmt_tile::store_row(tile, r, lo, hi_w);
   }
   __syncthreads();
 
@@ -232,16 +211,16 @@ r2_window_dissect_kernel(const uint32_t* __restrict__ key_lo,
       if (i >= hi) break;
       uint32_t m_lo, m_hi;
       if (V == kNoDma) {  // the key of slot i mod n_slots stands in
-        const int s = static_cast<int>(i & (n_slots - 1));
-        m_lo = tile.lo[(s >> 3) * kRow + (s & 7)];
-        m_hi = tile.hi[(s >> 3) * kRow + (s & 7)];
+        const int w = kmt_tile::slot_word(static_cast<int>(i & (n_slots - 1)));
+        m_lo = tile.lo[w];
+        m_hi = tile.hi[w];
       } else {
         const unsigned long long u = key[j] ^ kSignBit;
         m_lo = static_cast<uint32_t>(u >> 32);
         m_hi = static_cast<uint32_t>(u);
       }
       if (V == kNoMm1Rolled) {
-        add_rounds(tile, m_lo, m_hi, shift, bucket0, bpb, rounds);
+        kmt_tile::add_rounds(tile, m_lo, m_hi, shift, bucket0, bpb, rounds);
       } else {
         kmt_tile::count_query(tile, m_lo, m_hi, shift, bucket0, bpb, rounds);
       }

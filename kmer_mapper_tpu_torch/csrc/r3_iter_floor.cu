@@ -18,7 +18,8 @@
 //          lies in [a, a + cap) and local_b = q0 - b % 997 lies in [0, 128);
 //          a live lane hits key lane k when all 8 bytes of (q1, q2) equal
 //          bf16(tb[local_b, p * 8 + k]); hits count in acc[local_b, k]
-//   grid   n_grid CTAs with a one-iteration loop (the output stays zero)
+//   grid   n_grid CTAs with a one-iteration loop, each adding its carry (0)
+//          into row 0 of the zeroed output: the launch floor
 //
 // Output f32 (128, 8): row 0 = float(int32 carry); rows 1..127 = acc rows
 // 0..126 (the count tile for mm and full, lane 0..7 sums for vmem and dma).
@@ -29,12 +30,12 @@
 // global atomic per nonzero entry); the last CTA to finish, found with a
 // ticket, converts the scratch to f32 once. Tile t sits at column t % 64,
 // so the 16,384 iterations read 64 distinct tiles: for loop, smem, mm and
-// full, CTA (j, s, p) takes part p of the iterations t = j (mod 64) and
-// lanes [s * L, (s + 1) * L) of tile j, stages its rows once (full: one
-// 16-byte cp.async a thread) and loops over those iterations, a and
-// b % 997 read from shared memory, 8 at a time before their steps (at cap
-// 1,024 and 2 parts: 512 CTAs of 8 warps, ~31 warps an SM, the fastest of
-// 1, 2, 4, 8 parts on the H100). A lane's hits depend on t only through a
+// full, CTA (j, s, p) takes part p of kParts of the iterations t = j
+// (mod 64) and lanes [s * L, (s + 1) * L) of tile j, stages its rows once
+// (full: one 16-byte cp.async a thread) and loops over those iterations, a
+// and b % 997 read from shared memory, 8 at a time before their steps (at
+// cap 1,024: 512 CTAs of 8 warps, ~31 warps an SM; 2 parts were the
+// fastest of 1, 2, 4, 8 on the H100). A lane's hits depend on t only through a
 // and local_b: it keeps the hit mask of its last local_b and a run count,
 // and adds the run into the shared count tile when local_b changes or the
 // loop ends.
@@ -69,6 +70,7 @@ constexpr int kTiles = 64;     // tile t sits at column (t % 64) * cap
 constexpr int kMaxCap = 1024;
 constexpr int kLanes = 256;    // most lanes of a tiled CTA
 constexpr int kWarp = 32;      // lanes of a chain CTA
+constexpr int kParts = 2;      // CTAs that share one tile's iterations
 // a row of the staged keys: 8 packed words, then a mask of the lanes whose
 // 8 planes are all bytes
 constexpr int kKeyStride = kK + 1;
@@ -139,7 +141,7 @@ __device__ __forceinline__ void add_run(unsigned int* s_cnt, uint32_t r, uint32_
   for (; mask; mask &= mask - 1) atomicAdd(&s_cnt[r * kK + __ffs(mask) - 1], n);
 }
 
-// loop, smem, mm, full: CTA (j, s, p) of a (64, cap / L, parts) grid, L
+// loop, smem, mm, full: CTA (j, s, p) of a (64, cap / L, kParts) grid, L
 // threads: tile j's lanes [s * L, (s + 1) * L), part p of its iterations.
 template <int V>
 __global__ void __launch_bounds__(kLanes)
@@ -317,15 +319,18 @@ r3_chain_kernel(const int32_t* __restrict__ off, const uint32_t* __restrict__ q,
   finish<V>(carry, scratch, out);
 }
 
-// grid: n_grid CTAs of cap threads, each a one-iteration loop.
+// grid: n_grid CTAs of cap threads, each a one-iteration loop whose carry
+// lanes 0..7 add into row 0 of the zeroed output.
 __global__ void __launch_bounds__(kMaxCap)
-r3_grid_kernel(float* __restrict__ out, uint32_t* __restrict__ scratch) {
+r3_grid_kernel(float* __restrict__ out) {
   uint32_t carry = 0;
   for (int t = 0; t < 1; ++t) {
     carry += static_cast<uint32_t>(t);
     asm volatile("" : "+r"(carry));
   }
-  finish<kGrid>(carry, scratch, out);
+  if (threadIdx.x < kK) {
+    atomicAdd(&out[threadIdx.x], static_cast<float>(static_cast<int32_t>(carry)));
+  }
 }
 
 // Lanes of a tiled CTA: the most of cap's multiples of 32 up to kLanes that
@@ -339,9 +344,9 @@ int tiled_lanes(int cap) {
 
 template <int V>
 cudaError_t launch_tiled(cudaStream_t s, const void* off, const void* tb, const void* q,
-                         void* out, void* scratch, int n_iter, int cap, int parts) {
+                         void* out, void* scratch, int n_iter, int cap) {
   const int lanes = tiled_lanes(cap);
-  r3_tiled_kernel<V><<<dim3(kTiles, cap / lanes, parts), lanes, 0, s>>>(
+  r3_tiled_kernel<V><<<dim3(kTiles, cap / lanes, kParts), lanes, 0, s>>>(
       static_cast<const int32_t*>(off), static_cast<const float*>(tb),
       static_cast<const uint32_t*>(q), static_cast<float*>(out),
       static_cast<uint32_t*>(scratch), n_iter, cap);
@@ -360,19 +365,18 @@ cudaError_t launch_chain(cudaStream_t s, const void* off, const void* q, void* o
 
 }  // namespace
 
-// out f32 (128, 8) := the variant's result (every entry written); sink
-// f32[cap] receives the per-lane sums of vmem and dma; scratch uint32[1026]
-// zeroed by the caller. off int32[16384], tb f32 (128, 64), q uint32
-// (4, 64 * cap) 16-byte aligned, all on CUDA device `device`. loop, smem,
-// mm and full cut each tile's iterations into `parts` CTAs; the grid
+// out f32 (128, 8) := the variant's result (grid: added into an out the
+// caller zeroed; the others write every entry); sink f32[cap] receives the
+// per-lane sums of vmem and dma; scratch uint32[1026] zeroed by the caller
+// (grid takes none). off int32[16384], tb f32 (128, 64), q uint32
+// (4, 64 * cap) 16-byte aligned, all on CUDA device `device`. The grid
 // variant launches n_grid CTAs of one iteration each. Returns the launch's
 // error code (0 on success) and does not synchronise.
 extern "C" int r3_iter_floor_launch(const void* off, const void* tb, const void* q,
                                     void* out, void* sink, void* scratch, int n_iter,
-                                    int n_grid, int cap, int parts, int variant, int device,
+                                    int n_grid, int cap, int variant, int device,
                                     void* stream) {
   if (cap < kWarp || cap > kMaxCap || cap % kWarp || n_iter < 0 || n_grid < 1 ||
-      parts < 1 || parts > 64 ||
       variant < kLoop || variant > kGrid || reinterpret_cast<uintptr_t>(q) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -381,15 +385,14 @@ extern "C" int r3_iter_floor_launch(const void* off, const void* tb, const void*
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   switch (variant) {
-    case kLoop: rc = launch_tiled<kLoop>(s, off, tb, q, out, scratch, n_iter, cap, parts); break;
-    case kSmem: rc = launch_tiled<kSmem>(s, off, tb, q, out, scratch, n_iter, cap, parts); break;
+    case kLoop: rc = launch_tiled<kLoop>(s, off, tb, q, out, scratch, n_iter, cap); break;
+    case kSmem: rc = launch_tiled<kSmem>(s, off, tb, q, out, scratch, n_iter, cap); break;
     case kVmem: rc = launch_chain<kVmem>(s, off, q, out, sink, scratch, n_iter, cap); break;
     case kDma: rc = launch_chain<kDma>(s, off, q, out, sink, scratch, n_iter, cap); break;
-    case kMm: rc = launch_tiled<kMm>(s, off, tb, q, out, scratch, n_iter, cap, parts); break;
-    case kFull: rc = launch_tiled<kFull>(s, off, tb, q, out, scratch, n_iter, cap, parts); break;
+    case kMm: rc = launch_tiled<kMm>(s, off, tb, q, out, scratch, n_iter, cap); break;
+    case kFull: rc = launch_tiled<kFull>(s, off, tb, q, out, scratch, n_iter, cap); break;
     default:
-      r3_grid_kernel<<<n_grid, cap, 0, s>>>(static_cast<float*>(out),
-                                            static_cast<uint32_t*>(scratch));
+      r3_grid_kernel<<<n_grid, cap, 0, s>>>(static_cast<float*>(out));
       rc = cudaGetLastError();
       break;
   }

@@ -39,7 +39,6 @@ namespace {
 using namespace kmt_count;
 
 using kmt_tile::PaddedTile;
-using kmt_tile::kRow;
 
 constexpr int kCountThreads = 256;
 constexpr int kItems = 4;  // keys a thread loads before it counts them
@@ -63,15 +62,10 @@ stream_count_kernel(const uint32_t* __restrict__ key_lo, const uint32_t* __restr
   // 64-bit slot arithmetic: tables past 2^28 buckets have slots past 2^31
   const int64_t slot0 = b * static_cast<int64_t>(n_slots);
   for (int i = threadIdx.x; i < n_slots; i += kCountThreads) {
-    const int w = (i >> 3) * kRow + (i & 7);
-    tile.lo[w] = key_lo[slot0 + i];
-    tile.hi[w] = key_hi[slot0 + i];
-    tile.cnt[w] = 0;
+    kmt_tile::store_slot(tile, i, key_lo[slot0 + i], key_hi[slot0 + i]);
   }
   __syncthreads();
-  for (int r = threadIdx.x; r < bpb; r += kCountThreads) {
-    tile.fp[r] = kmt_tile::bucket_fingerprints(tile.lo + r * kRow, tile.hi + r * kRow);
-  }
+  for (int r = threadIdx.x; r < bpb; r += kCountThreads) kmt_tile::seal_row(tile, r);
   __syncthreads();
 
   const int rounds = kmt_chain::probe_rounds(block_probe, b, 0, bpb);

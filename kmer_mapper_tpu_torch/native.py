@@ -151,7 +151,7 @@ def library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     lib.r3_iter_floor_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
     lib.r9_dot_orient_launch.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]

@@ -23,13 +23,14 @@ float32(int32 loop carry), rows 1..127 the accumulator rows 0..126.
            [0, 128); it hits key lane k when all 8 bytes of (q[1], q[2])
            equal bf16(tb[local_b, p * 8 + k]), and hits count in
            acc[local_b, k]
-    grid   ``N_GRID`` CTAs of one iteration; the output stays zero
+    grid   ``N_GRID`` CTAs of one iteration, each adding its carry (0)
+           into the zeroed output: the launch floor
 
 The kernel spreads the loop over the card. The carry and the hit counts do
 not depend on the order of the iterations: loop, smem, mm and full run a
-(64, CAP / L) grid, CTA (j, s) taking the iterations t = j (mod 64) and L
-lanes of tile j, staged once, and sum into a uint32 scratch that the last
-CTA converts to f32. vmem and dma sum floats in t order, so each lane
+(64, CAP / L, 2) grid, CTA (j, s, p) taking half p of the iterations
+t = j (mod 64) and L lanes of tile j, staged once, and sum into a uint32
+scratch that the last CTA converts to f32. vmem and dma sum floats in t order, so each lane
 stays one serial chain of ``N_ITER`` adds (one warp a CTA): their floor is
 ``N_ITER`` dependent float adds, not the card's rates.
 
@@ -62,8 +63,6 @@ OFF_HALF = 8192  # a = off[t % 8192], b = off[8192 + t % 8192]
 MOD = 997
 #: the kernel's uint32 scratch: the count tile, the carry, the last-CTA ticket
 SCRATCH_WORDS = BPB * K + 2
-#: CTAs that share one tile's iterations (loop, smem, mm, full)
-PARTS = 2
 
 launch_counts = {"r3_iter_floor": 0, "r3_iter_floor_reference": 0}
 
@@ -84,12 +83,10 @@ def _check(off, tb, q, variant, cap):
 
 
 def iter_floor(off, tb, q, variant: str, n_iter: int | None = None,
-               n_grid: int | None = None, cap: int | None = None,
-               parts: int = PARTS) -> torch.Tensor:
+               n_grid: int | None = None, cap: int | None = None) -> torch.Tensor:
     """The variant's f32 (128, 8) output. ``off`` int32 (16384,), ``tb`` f32
     (128, 64), ``q`` int32 bit patterns of uint32 (4, 64 * cap); the sizes
-    default to the module's ``N_ITER``, ``N_GRID`` and ``CAP``; ``parts``
-    CTAs share each tile's iterations (the result does not depend on it).
+    default to the module's ``N_ITER``, ``N_GRID`` and ``CAP``.
 
     CUDA tensors launch ``csrc/r3_iter_floor.cu`` (a failed build or launch
     raises); CPU tensors run :func:`iter_floor_reference`."""
@@ -103,14 +100,18 @@ def iter_floor(off, tb, q, variant: str, n_iter: int | None = None,
         raise ValueError(f"r3_iter_floor: no kernel for device {off.device}")
     if q.data_ptr() % 16:
         raise ValueError("r3_iter_floor: q must start on 16 bytes (16-byte copies)")
-    out = torch.empty(BPB, K, dtype=torch.float32, device=off.device)
     sink = torch.empty(cap, dtype=torch.float32, device=off.device)
-    scratch = torch.zeros(SCRATCH_WORDS, dtype=torch.int32, device=off.device)
+    if variant == "grid":  # its CTAs add into a zeroed output, with no scratch
+        out = torch.zeros(BPB, K, dtype=torch.float32, device=off.device)
+        scratch_ptr = 0
+    else:  # the last CTA writes every entry
+        out = torch.empty(BPB, K, dtype=torch.float32, device=off.device)
+        scratch = torch.zeros(SCRATCH_WORDS, dtype=torch.int32, device=off.device)
+        scratch_ptr = scratch.data_ptr()
     with torch.cuda.device(off.device):
         rc = native.library().r3_iter_floor_launch(
             off.data_ptr(), tb.data_ptr(), q.data_ptr(), out.data_ptr(), sink.data_ptr(),
-            scratch.data_ptr(), n_iter, n_grid, cap, parts, VARIANTS.index(variant),
-            off.device.index,
+            scratch_ptr, n_iter, n_grid, cap, VARIANTS.index(variant), off.device.index,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc:

@@ -421,9 +421,9 @@ def test_order_input_tells_a_split_of_t_from_the_serial_sum():
 def test_iter_floor_kernel_on_short_and_odd_loops(variant, n_iter, cuda_device):
     """The grid and chain splits at loop lengths around the 64 tiles, with
     a wrapping carry, and dma's order-sensitive input."""
-    for make, parts in ((C.make_inputs, C.PARTS), (wrapping_inputs, 1), (order_inputs, 3)):
+    for make in (C.make_inputs, wrapping_inputs, order_inputs):
         off, tb, q = make(cuda_device, 1024)
-        got = C.iter_floor(off, tb, q, variant, n_iter, 64, 1024, parts=parts)
+        got = C.iter_floor(off, tb, q, variant, n_iter, 64, 1024)
         twin = C.iter_floor_reference(off, tb, q, variant, n_iter, 64, 1024)
         np.testing.assert_array_equal(_u32(got), _u32(twin), err_msg=make.__name__)
 
