@@ -54,7 +54,11 @@ result line):
   7. tiles: the three r9 tile-body scripts of kmer_mapper_tpu_torch.scripts
      (r9_dot_orient, r9_step_parts, r9_block_pipeline) run as a user runs
      them, at their full sizes (their kernels must have launched); then
-     every variant against its twin, bit for bit, with hits;
+     every variant against its twin, bit for bit, with hits; for
+     r9_dot_orient and r9_step_parts also the kernel and its first design
+     on each hazard input (carried, -0.0 and non-byte planes; all-ones
+     keys and lanes, buckets of one key), the first design timed beside
+     the kernel, and r9_dot_orient's new at 8-64 iterations a CTA;
   8. library: the pre-hashed calls on the bench index, as KAGE calls them:
      compat.map_kmers_to_graph_index on 2^24 hashes, in_graph_index on
      2^24, map_hashes on 2^16 and GpuCounter with reverse complements on
@@ -1266,7 +1270,11 @@ def phase_dissect(torch, np, device) -> list[dict]:
 def phase_tiles(torch, np, device) -> list[dict]:
     """The tile-body path: each r9 script's main at its full size, with
     every launch count zeroed before it and read after it; then every
-    variant against its twin on the main's inputs (launches not counted)."""
+    variant against its twin on the main's inputs (launches not counted);
+    for r9_dot_orient and r9_step_parts also every variant of the kernel and
+    of its first design against the twin on each hazard input, the first
+    design timed beside the kernel, and r9_dot_orient's new at 8, 16, 32
+    and 64 iterations a CTA."""
     from kmer_mapper_tpu_torch.scripts import r9_block_pipeline as P
     from kmer_mapper_tpu_torch.scripts import r9_dot_orient as D
     from kmer_mapper_tpu_torch.scripts import r9_step_parts as S
@@ -1295,23 +1303,55 @@ def phase_tiles(torch, np, device) -> list[dict]:
         "r9_block_pipeline": (P.block_pipeline, lambda x, v: P.block_pipeline_reference(
             *x, v, P.GRID, P.TILES), "new"),
     }
+    # the redesigned kernels' first designs and hazard inputs (CPU tensors)
+    redesigned = {
+        "r9_dot_orient": (D.dot_orient_first, D.HAZARDS, lambda v, kind: D.hazard_inputs(kind, v)),
+        "r9_step_parts": (S.step_parts_first, S.HAZARDS, lambda v, kind: S.step_hazard_inputs(
+            "cpu", kind, S.FLAGS[v], S.COARSE, S.LANES)),
+    }
     out = []
     for name, m in modules.items():
         kernel, twin, main_variant = calls[name]
         res, max_err, twin_ms = results[name], 0, {}
-        for variant, inputs in res["inputs"].items():
-            got, ref = _u32(kernel(*inputs, variant)), _u32(twin(inputs, variant))
-            max_err = max(max_err, int(np.abs(got - ref).max()))
+
+        def check(fn, inputs, variant, what):
+            got, ref = _u32(fn(*inputs, variant)), _u32(twin(inputs, variant))
             if not np.array_equal(got, ref):
-                raise AssertionError(f"tiles: {name} {variant}: kernel != twin")
+                raise AssertionError(f"tiles: {name} {variant} {what}: kernel != twin")
             # hits: the count tile's sum, or the count slots that changed
             hits = int(got.sum()) if m is D else int((got != _u32(inputs[2])).sum())
             if not hits:
-                raise AssertionError(f"tiles: {name} {variant}: no hits")
+                raise AssertionError(f"tiles: {name} {variant} {what}: no hits")
+            return int(np.abs(got - ref).max()), hits
+
+        for variant, inputs in res["inputs"].items():
+            err, hits = check(kernel, inputs, variant, "main's inputs")
+            max_err = max(max_err, err)
             twin_ms[variant] = median_ms(lambda: twin(inputs, variant), reps=3)
+            first = ""
+            if name in redesigned:
+                first_fn, hazards, make = redesigned[name]
+                max_err = max(max_err, check(first_fn, inputs, variant, "first design")[0])
+                for kind in hazards:
+                    x = tuple(t.to(device) for t in make(variant, kind))
+                    for fn, what in ((kernel, kind), (first_fn, f"{kind}, first design")):
+                        max_err = max(max_err, check(fn, x, variant, what)[0])
+                first_ms = median_ms(lambda: first_fn(*inputs, variant))
+                first = (f"  first design {first_ms:9.4f} ms ({first_ms / res['ms'][variant]:.2f}"
+                         f"x the kernel); == twin on {', '.join(hazards)}")
             log(f"tiles {name}: {variant:9s} kernel {res['ms'][variant]:9.4f} ms  twin "
                 f"{twin_ms[variant]:9.3f} ms  == twin, {hits} "
-                f"{'hits' if m is D else 'count slots changed'}")
+                f"{'hits' if m is D else 'count slots changed'}{first}")
+        if m is D:  # the sweep that chose ITERS_PER_CTA
+            x, chosen, sweep = res["inputs"]["new"], D.ITERS_PER_CTA, {}
+            try:
+                for n in (8, 16, 32, 64):
+                    D.ITERS_PER_CTA = n
+                    sweep[n] = median_ms(lambda: D.dot_orient(*x, "new"))
+            finally:
+                D.ITERS_PER_CTA = chosen
+            log(f"tiles r9_dot_orient: new at ITERS_PER_CTA " + ", ".join(
+                f"{n}: {ms:.4f} ms" for n, ms in sweep.items()) + f" (the constant: {chosen})")
         # bound: the inputs read and the outputs written once; 4 integer
         # operations per lane and tile (bucket, live), 16 word compares per
         # live lane (2 words of 8 key lanes)

@@ -19,8 +19,13 @@ The variants are the layouts the Pallas variants' dot orientations give:
     d2old   tb (W8, GPB), counts (GPB, K)
 
 The kernel spreads the iterations over CTAs of ``ITERS_PER_CTA`` each (an
-order-free integer sum). ``main`` prints the grid, then ms and ns per tile
-for each variant.
+order-free integer sum). Each CTA first builds a packed tile: the three
+packs of every (key lane, bucket) as canonical float32 bits (``pack_bits``)
+and a word of 4-bit fingerprints a bucket (``fingerprint``), so a live lane
+reads one word a tile and compares packs only in the key lanes whose
+fingerprint is its query's. ``dot_orient_first`` launches the first design
+(64 plane reads a live lane-tile), kept to be timed beside it. ``main``
+prints the grid, then ms and ns per tile for each variant.
 """
 from __future__ import annotations
 
@@ -49,7 +54,10 @@ HIT_SHARE = 0.9  # share of query lanes drawn from the pool
 #: elements of (tiles, lanes, key lanes) a twin handles at once
 TWIN_ELEMENTS = 1 << 24
 
-launch_counts = {"r9_dot_orient": 0, "r9_dot_orient_reference": 0}
+#: inputs whose planes the packing treats otherwise than bytes (``hazard_inputs``)
+HAZARDS = ("carry", "negzero", "nonbyte")
+
+launch_counts = {"r9_dot_orient": 0, "r9_dot_orient_first": 0, "r9_dot_orient_reference": 0}
 
 
 def lane_buckets(t: torch.Tensor, c: torch.Tensor, lanes: int):
@@ -107,6 +115,17 @@ def dot_orient(tb, q, variant: str, iters: int | None = None) -> torch.Tensor:
 
     CUDA tensors launch ``csrc/r9_dot_orient.cu`` (a failed build or launch
     raises); CPU tensors run :func:`dot_orient_reference`."""
+    return _launch("r9_dot_orient", tb, q, variant, iters)
+
+
+def dot_orient_first(tb, q, variant: str, iters: int | None = None) -> torch.Tensor:
+    """:func:`dot_orient` with the kernel's first design, which reads all 64
+    planes of a live lane's bucket from the bf16 tile; kept to be timed
+    beside it."""
+    return _launch("r9_dot_orient_first", tb, q, variant, iters)
+
+
+def _launch(name: str, tb, q, variant: str, iters: int | None) -> torch.Tensor:
     iters = ITERS if iters is None else iters
     _check(tb, q, variant)
     if iters < 1:
@@ -118,14 +137,14 @@ def dot_orient(tb, q, variant: str, iters: int | None = None) -> torch.Tensor:
     out = torch.zeros(count_shape(variant), dtype=torch.int32, device=tb.device)
     tb_bm, count_bm = LAYOUTS[variant]
     with torch.cuda.device(tb.device):
-        rc = native.library().r9_dot_orient_launch(
+        rc = getattr(native.library(), f"{name}_launch")(
             tb.data_ptr(), q.data_ptr(), out.data_ptr(), iters, ITERS_PER_CTA, q.shape[1],
             int(tb_bm) | int(count_bm) << 1, tb.device.index,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc:
-        raise RuntimeError(f"r9_dot_orient kernel launch failed: {native.error_string(rc)}")
-    launch_counts["r9_dot_orient"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: {native.error_string(rc)}")
+    launch_counts[name] += 1
     return out
 
 
@@ -136,18 +155,42 @@ def query_packs(q: torch.Tensor):
     return [p.to(torch.float32) for p in packs]
 
 
+def key_packs(tb, variant: str):
+    """The float32 packing of every (bucket, key lane)'s 8 planes, three
+    (GPB, K) tensors, in the kernel's order: (g0 + 256 g1) + 65536 g2."""
+    planes = tb.to(torch.float32)
+    planes = (planes.T if LAYOUTS[variant][0] else planes).reshape(PLANES, K, GPB)
+    g = planes.transpose(1, 2)  # (plane, bucket, key lane)
+    return (g[0] + 256.0 * g[1] + 65536.0 * g[2], g[3] + 256.0 * g[4] + 65536.0 * g[5],
+            g[6] + 256.0 * g[7])
+
+
+def float_bits(x: torch.Tensor) -> torch.Tensor:
+    """Canonical float32 bits as int64 in [0, 2^32): x + 0.0, so -0.0 gives
+    the bits of +0.0 and equal bits mean equal floats (NaN aside)."""
+    return (x + 0.0).view(torch.int32).to(torch.int64) & MASK32
+
+
+def pack_bits(tb, variant: str) -> torch.Tensor:
+    """int64 (3, GPB, K): the packed tile the kernel builds, less its
+    fingerprints: each pack of each (bucket, key lane) as canonical bits."""
+    return torch.stack([float_bits(p) for p in key_packs(tb, variant)])
+
+
+def fingerprint(a, b, c=0) -> torch.Tensor:
+    """The kernels' 4-bit fingerprint (``csrc/r9_tile.cuh``) of a key's words,
+    int64 tensors of uint32 values: 1..15, never 0."""
+    h = ((a * 0x9E3779B1) & MASK32) ^ ((b * 0x85EBCA77) & MASK32) ^ ((c * 0xC2B2AE3D) & MASK32)
+    return ((h * 15) >> 32) + 1
+
+
 def dot_orient_reference(tb, q, variant: str, iters: int) -> torch.Tensor:
     """Plain-torch twin of the kernel (same contract, same bits): the
     packed planes of every (key lane, bucket), compared with every live
     lane of every tile, the hits added up per (key lane, bucket)."""
     launch_counts["r9_dot_orient_reference"] += 1
     dev = tb.device
-    planes = tb.to(torch.float32)
-    planes = (planes.T if LAYOUTS[variant][0] else planes).reshape(PLANES, K, GPB)
-    g = planes.transpose(1, 2)  # (plane, bucket, key lane)
-    # the kernel's float32 order: (g0 + 256 g1) + 65536 g2
-    packs = (g[0] + 256.0 * g[1] + 65536.0 * g[2], g[3] + 256.0 * g[4] + 65536.0 * g[5],
-             g[6] + 256.0 * g[7])
+    packs = key_packs(tb, variant)
     qp = query_packs(q)
 
     def match(sel, bp):
@@ -199,6 +242,69 @@ def make_inputs(device, variant: str = "new", lanes: int | None = None, seed: in
     tb = torch.from_numpy(np.ascontiguousarray(planes)).to(torch.bfloat16)
     q = torch.from_numpy(pool_queries(rng, pool, lanes).view(np.int32))
     return tb.to(device), q.to(device)
+
+
+#: non-byte planes (g0..g7) of a key whose packs are integers a query can
+#: hold, the float32 packing rounding (1.5 + 65536 * 200 -> 13107202) or
+#: carrying; and one whose packs are not (0.5 + ...), which no query hits
+NONBYTE_KEYS = ((1.5, 0, 200, -3, 1, 2, 300, 1), (2.5, 255, 255, 256, 300, 0, -1, 3),
+                (0.5, 1, 2, 3, 4, 5, 6, 7))
+
+
+def planes_packs(g: np.ndarray) -> np.ndarray:
+    """float32 (3, ...) packs of float32 (8, ...) planes, the kernel's order."""
+    f = np.float32
+    return np.stack([(g[0] + f(256) * g[1]) + f(65536) * g[2],
+                     (g[3] + f(256) * g[4]) + f(65536) * g[5], g[6] + f(256) * g[7]])
+
+
+def packs_query(p) -> tuple[int, int] | None:
+    """The (lo, hi) words whose packs are p, or None where no query's are."""
+    limits = (1 << 24, 1 << 24, 1 << 16)
+    if not all(float(x).is_integer() and 0 <= x < m for x, m in zip(p, limits)):
+        return None
+    p0, p1, p2 = (int(x) for x in p)
+    return p0 | (p1 & 0xFF) << 24, p1 >> 8 | p2 << 16
+
+
+def hazard_inputs(kind: str, variant: str = "new", lanes: int | None = None, seed: int = 0):
+    """(tb, q) on the CPU: :func:`make_inputs` with planes the packing
+    treats otherwise than bytes, and query lanes that hit them.
+
+    carry    in half the keys whose g0 is even and g1 >= 1, g0 + 256 and
+             g1 - 1: the same packs, so the same hits, from other planes;
+    negzero  every 8th (key lane, bucket) all zero planes, some -0.0 (bf16
+             0x8000; a pack of three -0.0 is -0.0, which equals 0), and
+             every 8th query lane all zero bytes;
+    nonbyte  every 8th (key lane, bucket) a key of ``NONBYTE_KEYS``, and
+             every 8th query lane one whose packs equal such a key's."""
+    if kind not in HAZARDS:
+        raise ValueError(f"unknown hazard {kind!r}; expected one of {HAZARDS}")
+    tb, q = make_inputs("cpu", variant, lanes, seed)
+    tb, q = tb.to(torch.float32).numpy().copy(), q.numpy().view(np.uint32).copy()
+    planes = tb.T if LAYOUTS[variant][0] else tb  # a view, (W8, GPB): row p*8+k
+    g = planes.reshape(PLANES, K, GPB)  # a view
+    rng = np.random.default_rng(seed + 1)
+    if kind == "carry":
+        g0, g1 = g[0], g[1]
+        carry = (g0 % 2 == 0) & (g1 >= 1) & (rng.random(g0.shape) < 0.5)
+        g0[carry] += 256  # exact in bf16: even values below 512
+        g1[carry] -= 1
+    else:
+        slots = rng.random((K, GPB)) < 1 / 8
+        if kind == "negzero":
+            g[:, slots] = np.where(rng.random((PLANES, int(slots.sum()))) < 0.5, -0.0, 0.0)
+            g[:3, slots & (np.arange(GPB) % 2 == 0)] = -0.0  # gp0 -0.0 in some
+            g[:, slots & (np.arange(GPB) % 4 == 0)] = -0.0  # every pack in some
+            queries = [(0, 0)]
+        else:
+            keys = np.array(NONBYTE_KEYS, np.float32)[rng.integers(0, len(NONBYTE_KEYS),
+                                                                    int(slots.sum()))]
+            g[:, slots] = keys.T
+            queries = [w for w in map(packs_query, planes_packs(keys.T).T) if w is not None]
+        lane_keys = np.array(queries, np.uint32)[rng.integers(0, len(queries), q.shape[1])]
+        q[:, ::8] = lane_keys[::8].T
+    return torch.from_numpy(tb).to(torch.bfloat16), torch.from_numpy(q.view(np.int32))
 
 
 def n_ctas(iters: int | None = None) -> int:

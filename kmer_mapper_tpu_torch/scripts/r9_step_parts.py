@@ -22,8 +22,13 @@ step's tiles; every step still does its work.
     oldfull    keys and counts (2048, 8), row g*128 + bucket: the 2-D layout
 
 The kernel runs the steps on persistent CTAs, one per SM, each with the
-whole block in shared memory (128 KB of key words, 64 KB of counts).
-``main`` prints the grid, then ms and ns per tile for each variant.
+whole block in shared memory (128 KB of key words, 64 KB of counts and a
+word of 4-bit key fingerprints a bucket, 8 KB), staged with 16-byte copies:
+a live lane reads its bucket's fingerprint word and compares key words only
+in the key lanes whose fingerprint is its query's. ``step_parts_first``
+launches the first design (a word-loop staging, up to 16 key-word reads a
+live lane-tile), kept to be timed beside it. ``main`` prints the grid, then
+ms and ns per tile for each variant.
 """
 from __future__ import annotations
 
@@ -49,7 +54,11 @@ GRID = 512  # steps: 8192 chain blocks / COARSE
 TILES = 18  # tiles per step: ~ the bench's tile count per chunk
 STEP_THREADS = 1024
 
-launch_counts = {"r9_step_parts": 0, "r9_step_parts_reference": 0}
+#: step inputs with keys the tile body must not treat specially
+#: (``step_hazard_inputs``)
+HAZARDS = ("allones", "onekey")
+
+launch_counts = {"r9_step_parts": 0, "r9_step_parts_first": 0, "r9_step_parts_reference": 0}
 
 
 def step_shape(flags: int, n_groups: int) -> tuple:
@@ -134,6 +143,18 @@ def step_parts(key_lo, key_hi, counts_in, q, variant: str, grid: int | None = No
 
     CUDA tensors launch ``csrc/r9_step_parts.cu`` (a failed build or launch
     raises); CPU tensors run :func:`step_parts_reference`."""
+    return _step_parts("r9_step_parts", key_lo, key_hi, counts_in, q, variant, grid, tiles)
+
+
+def step_parts_first(key_lo, key_hi, counts_in, q, variant: str, grid: int | None = None,
+                     tiles: int | None = None) -> torch.Tensor:
+    """:func:`step_parts` with the kernel's first design (``r9_steps_kernel``
+    of ``csrc/r9_tile.cuh``); kept to be timed beside it."""
+    return _step_parts("r9_step_parts_first", key_lo, key_hi, counts_in, q, variant, grid,
+                       tiles)
+
+
+def _step_parts(name, key_lo, key_hi, counts_in, q, variant, grid, tiles) -> torch.Tensor:
     grid = GRID if grid is None else grid
     tiles = TILES if tiles is None else tiles
     if variant not in VARIANTS:
@@ -145,9 +166,11 @@ def step_parts(key_lo, key_hi, counts_in, q, variant: str, grid: int | None = No
         return step_parts_reference(key_lo, key_hi, counts_in, q, variant, grid, tiles)
     if key_lo.device.type != "cuda":
         raise ValueError(f"r9_step_parts: no kernel for device {key_lo.device}")
-    out = launch_steps("r9_step_parts", key_lo, key_hi, counts_in, q,
-                       VARIANTS.index(variant), grid, tiles)
-    launch_counts["r9_step_parts"] += 1
+    if any(t.data_ptr() % 16 for t in (key_lo, key_hi, counts_in)):
+        raise ValueError("r9_step_parts: keys and counts must start on 16 bytes (16-byte "
+                         "copies)")
+    out = launch_steps(name, key_lo, key_hi, counts_in, q, VARIANTS.index(variant), grid, tiles)
+    launch_counts[name] += 1
     return out
 
 
@@ -160,21 +183,56 @@ def step_parts_reference(key_lo, key_hi, counts_in, q, variant: str, grid: int,
     return steps_twin(key_lo, key_hi, counts_in, q, FLAGS[variant], last, tiles)
 
 
+def step_keys(n_groups: int, lanes: int, seed: int = 0):
+    """(key_lo, key_hi, counts_in) int64 (n_groups, K, GPB) and q uint32
+    (2, lanes) of :func:`make_step_inputs`, in the 3-D layout, as numpy."""
+    rng = np.random.default_rng(seed)
+    pool = key_pool(rng)
+    keys = pool[rng.integers(0, len(pool), (n_groups, K, GPB))]  # (g, k, b, word)
+    counts = rng.integers(0, 1 << 32, (n_groups, K, GPB), dtype=np.int64)
+    return keys[..., 0], keys[..., 1], counts, pool_queries(rng, pool, lanes)
+
+
+def step_tensors(device, flags: int, key_lo, key_hi, counts, q):
+    """The numpy arrays of :func:`step_keys` as int32 bit patterns on
+    ``device``, keys and counts in the layout of ``flags``."""
+    arrays = [key_lo, key_hi, counts]
+    if flags & BUCKET_MAJOR:
+        n_groups = key_lo.shape[0]
+        arrays = [a.transpose(0, 2, 1).reshape(n_groups * GPB, K) for a in arrays]
+    return tuple(torch.from_numpy(np.ascontiguousarray(a).astype(np.uint32).view(np.int32))
+                 .to(device) for a in (*arrays, q))
+
+
 def make_step_inputs(device, flags: int, n_groups: int, lanes: int, seed: int = 0):
     """(key_lo, key_hi, counts_in, q) int32 bit patterns in the layout of
     ``flags``, built so that the tile body hits: every key slot holds a key
     of a pool of ``r9_dot_orient.POOL``, and most query lanes too;
     counts_in is random. One seed gives the same keys in both layouts."""
-    rng = np.random.default_rng(seed)
-    pool = key_pool(rng)
-    keys = pool[rng.integers(0, len(pool), (n_groups, K, GPB))]  # (g, k, b, word)
-    counts = rng.integers(0, 1 << 32, (n_groups, K, GPB), dtype=np.int64)
-    arrays = [keys[..., 0], keys[..., 1], counts]
-    if flags & BUCKET_MAJOR:
-        arrays = [a.transpose(0, 2, 1).reshape(n_groups * GPB, K) for a in arrays]
-    arrays.append(pool_queries(rng, pool, lanes))
-    return tuple(torch.from_numpy(np.ascontiguousarray(a).astype(np.uint32).view(np.int32))
-                 .to(device) for a in arrays)
+    return step_tensors(device, flags, *step_keys(n_groups, lanes, seed))
+
+
+def step_hazard_inputs(device, kind: str, flags: int, n_groups: int, lanes: int,
+                       seed: int = 0):
+    """:func:`make_step_inputs` with keys a fingerprinted tile could treat
+    specially:
+
+    allones  one key lane of every bucket (lane b % 8) holds the all-ones
+             pair, an ordinary key here (an empty slot in the main path's
+             count tile), and so does every 8th query lane;
+    onekey   every other bucket's 8 key lanes hold one key (its lane 0's),
+             so a query of it hits all 8."""
+    if kind not in HAZARDS:
+        raise ValueError(f"unknown hazard {kind!r}; expected one of {HAZARDS}")
+    key_lo, key_hi, counts, q = step_keys(n_groups, lanes, seed)
+    if kind == "allones":
+        b = np.arange(GPB)
+        key_lo[:, b % K, b] = key_hi[:, b % K, b] = MASK32
+        q[:, ::8] = MASK32
+    else:
+        key_lo[:, :, ::2] = key_lo[:, :1, ::2]
+        key_hi[:, :, ::2] = key_hi[:, :1, ::2]
+    return step_tensors(device, flags, key_lo, key_hi, counts, q)
 
 
 def make_inputs(device, variant: str = "newfull", lanes: int | None = None, seed: int = 0):

@@ -36,26 +36,23 @@ def pallas():
 
 def inputs(kind, variant):
     """(tb float32 holding bf16 values, q uint32) as numpy: the script's
-    uniform random bytes and queries, the port's hit-dense recipe, or the
-    hit-dense tile with carries between planes (g0 + 256, g1 - 1), which
-    the float32 packing counts as the same key."""
+    uniform random bytes and queries, the port's hit-dense recipe, or one
+    of its hazards (``D.hazard_inputs``): the hit-dense tile with carries
+    between planes (g0 + 256, g1 - 1), which the float32 packing counts as
+    the same key; with -0.0 planes and all-zero query lanes; with non-byte
+    planes (1.5, -3, 300, ...) whose packs the float32 packing rounds."""
     if kind == "script":
         rng = np.random.default_rng(4)
         tb = rng.integers(0, 256, D.tb_shape(variant)).astype(np.float32)
         return tb, rng.integers(0, 1 << 32, (2, LANES), dtype=np.uint32)
-    tb, q = D.make_inputs("cpu", variant, LANES, seed=6)
-    tb = tb.to(torch.float32).numpy().copy()
-    if kind == "carry":
-        planes = tb.T if D.LAYOUTS[variant][0] else tb  # (W8, GPB): row p*8+k
-        g0, g1 = planes[: D.K], planes[D.K : 2 * D.K]  # views
-        carry = (g0 % 2 == 0) & (g1 >= 1) & (np.random.default_rng(7).random(g0.shape) < 0.5)
-        g0[carry] += 256  # exact in bf16: even values below 512
-        g1[carry] -= 1
-        assert carry.any()
-    return tb, q.numpy().view(np.uint32)
+    if kind == "dense":
+        tb, q = D.make_inputs("cpu", variant, LANES, seed=6)
+    else:
+        tb, q = D.hazard_inputs(kind, variant, LANES, seed=6)
+    return tb.to(torch.float32).numpy().copy(), q.numpy().view(np.uint32)
 
 
-@pytest.mark.parametrize("kind", ["script", "dense", "carry"])
+@pytest.mark.parametrize("kind", ["script", "dense", *D.HAZARDS])
 @pytest.mark.parametrize("variant", D.VARIANTS)
 def test_twin_matches_pallas(variant, kind, pallas, monkeypatch):
     monkeypatch.setattr(pallas, "ITERS", ITERS)

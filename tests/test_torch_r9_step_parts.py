@@ -37,15 +37,21 @@ def pallas():
 
 def inputs(kind, variant):
     """(key_lo, key_hi, counts_in, q) uint32 numpy arrays: the script's
-    uniform random keys and queries from zero counts, or the port's
-    hit-dense recipe (random counts_in)."""
+    uniform random keys and queries from zero counts, the port's hit-dense
+    recipe (random counts_in), or one of its hazards
+    (``S.step_hazard_inputs``): an all-ones key in every bucket beside
+    all-ones query lanes; buckets whose 8 key lanes hold one key."""
     shape = S.step_shape(S.FLAGS[variant], S.COARSE)
     if kind == "script":
         rng = np.random.default_rng(8)
         klo, khi = (rng.integers(0, 1 << 32, shape, dtype=np.uint32) for _ in range(2))
         q = rng.integers(0, 1 << 32, (2, LANES), dtype=np.uint32)
         return klo, khi, np.zeros(shape, np.uint32), q
-    return tuple(x.numpy().view(np.uint32) for x in S.make_inputs("cpu", variant, LANES, seed=9))
+    if kind == "dense":
+        arrays = S.make_inputs("cpu", variant, LANES, seed=9)
+    else:
+        arrays = S.step_hazard_inputs("cpu", kind, S.FLAGS[variant], S.COARSE, LANES, seed=9)
+    return tuple(x.numpy().view(np.uint32) for x in arrays)
 
 
 def run_pallas(pallas, monkeypatch, variant, arrays):
@@ -63,13 +69,13 @@ def twin(variant, arrays):
     return S.step_parts(*t, variant, GRID, TILES).numpy().view(np.uint32)
 
 
-@pytest.mark.parametrize("kind", ["script", "dense"])
+@pytest.mark.parametrize("kind", ["script", "dense", *S.HAZARDS])
 @pytest.mark.parametrize("variant", S.VARIANTS)
 def test_twin_matches_pallas(variant, kind, pallas, monkeypatch):
     arrays = inputs(kind, variant)
     expect = run_pallas(pallas, monkeypatch, variant, arrays)
     np.testing.assert_array_equal(twin(variant, arrays), expect)
-    if kind == "dense":
+    if kind != "script":
         assert (expect != arrays[2]).any()  # the tile body found hits
 
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from kmer_mapper_tpu_torch.ops.u32hash import from_int32_bits
 from kmer_mapper_tpu_torch.scripts import r9_block_pipeline as P
 from kmer_mapper_tpu_torch.scripts import r9_dot_orient as D
 from kmer_mapper_tpu_torch.scripts import r9_step_parts as S
@@ -123,6 +124,75 @@ def test_layouts_count_the_same_hits():
         np.testing.assert_array_equal(_u32(a.transpose(1, 2).reshape(-1, K)), _u32(b))
 
 
+def dot_inputs(kind, variant, lanes, seed=6):
+    """The hit-dense (tb, q) or one of ``D.HAZARDS``."""
+    if kind == "dense":
+        return D.make_inputs("cpu", variant, lanes, seed=seed)
+    return D.hazard_inputs(kind, variant, lanes, seed=seed)
+
+
+def step_inputs(device, kind, flags, n_groups, lanes):
+    """The hit-dense step arrays or one of ``S.HAZARDS``."""
+    if kind == "dense":
+        return S.make_step_inputs(device, flags, n_groups, lanes)
+    return S.step_hazard_inputs(device, kind, flags, n_groups, lanes)
+
+
+@pytest.mark.parametrize("kind", ["dense", *D.HAZARDS])
+@pytest.mark.parametrize("variant", D.VARIANTS)
+def test_fingerprinted_tile_counts_the_twins_hits(variant, kind):
+    """The packed tile's rule, in torch: a live lane compares the canonical
+    pack bits of only the key lanes whose fingerprint equals its query's,
+    and counts what the twin's float compare counts."""
+    tb, q = dot_inputs(kind, variant, 256)
+    bits = D.pack_bits(tb, variant)  # (3, GPB, K)
+    key_fp = D.fingerprint(*bits)
+    q_bits = torch.stack([D.float_bits(p) for p in D.query_packs(q)])
+    q_fp = D.fingerprint(*q_bits)
+    assert 1 <= int(key_fp.min()) and int(key_fp.max()) <= 15
+
+    def match(sel, bp):
+        hit = key_fp[bp] == q_fp[None, :, None]
+        for j in range(3):
+            hit &= bits[j][bp] == q_bits[j][None, :, None]
+        return hit
+
+    t = torch.arange(64)
+    zero = torch.zeros_like(t)
+    got = D.tile_counts(match, t, zero, zero, q.shape[1], 1).view(K, GPB)
+    twin = D.dot_orient_reference(tb, q, variant, 64).to(torch.int64)
+    np.testing.assert_array_equal(got.numpy(), (twin.T if D.LAYOUTS[variant][1] else twin).numpy())
+
+
+@pytest.mark.parametrize("kind", D.HAZARDS)
+def test_dot_hazard_lanes_hit_the_hazard_keys(kind):
+    """The hazard's query lanes (every 8th) hit: on -0.0 and non-byte keys,
+    which no pool key equals, and, for carry, on the carried slots."""
+    tb, q = D.hazard_inputs(kind, "new", 256, seed=6)
+    if kind == "carry":
+        dense, _ = D.make_inputs("cpu", "new", 256, seed=6)
+        carried = (tb != dense).reshape(8, K, GPB).any(0)
+        counts = D.dot_orient(tb, q, "new", 64)
+        assert carried.any() and int(counts[carried].sum()) > 0
+    else:
+        assert int(D.dot_orient(tb, q[:, ::8].contiguous(), "new", 64).sum()) > 0
+
+
+@pytest.mark.parametrize("kind", S.HAZARDS)
+def test_step_hazards_hit_and_keep_nonzero_fingerprints(kind):
+    """All-ones lanes hit the all-ones keys (whose fingerprint, as every
+    key's, is 1..15); a bucket of one key gives 8 equal fingerprints."""
+    key_lo, key_hi, counts, q = step_inputs("cpu", kind, 0, S.COARSE, 256)
+    fp = D.fingerprint(*(from_int32_bits(x) for x in (key_lo, key_hi)))
+    assert 1 <= int(fp.min()) and int(fp.max()) <= 15
+    if kind == "allones":
+        lanes = q[:, ::8].contiguous()
+        assert (lanes == -1).all()
+        assert (S.step_parts(key_lo, key_hi, counts, lanes, "newfull", 3, 2) != counts).any()
+    else:
+        assert (fp[:, :, ::2] == fp[:, :1, ::2]).all()
+
+
 def test_wrappers_check_their_arguments():
     tb, q = D.make_inputs("cpu", "new", lanes=64)
     with pytest.raises(ValueError, match="unknown variant"):
@@ -155,7 +225,10 @@ def test_wrappers_check_their_arguments():
 
 @pytest.mark.parametrize("module,fn,inputs", [
     (D, "dot_orient", lambda: (*D.make_inputs("cpu", "new", lanes=64), "new", 2)),
+    (D, "dot_orient_first", lambda: (*D.make_inputs("cpu", "new", lanes=64), "new", 2)),
     (S, "step_parts", lambda: (*S.make_inputs("cpu", "newfull", lanes=64), "newfull", 2, 2)),
+    (S, "step_parts_first",
+     lambda: (*S.make_inputs("cpu", "newfull", lanes=64), "newfull", 2, 2)),
     (P, "block_pipeline", lambda: (*S.make_step_inputs("cpu", P.FLAGS["new"], 2 * S.COARSE, 64),
                                    "new", 2, 2)),
 ])
@@ -163,7 +236,7 @@ def test_cpu_tensors_run_the_twin(module, fn, inputs):
     name = module.__name__.rsplit(".", 1)[1]
     before = dict(module.launch_counts)
     getattr(module, fn)(*inputs())
-    assert module.launch_counts[name] == before[name]
+    assert all(module.launch_counts[k] == before[k] for k in before if k != f"{name}_reference")
     assert module.launch_counts[f"{name}_reference"] == before[f"{name}_reference"] + 1
 
 
@@ -191,31 +264,44 @@ def test_main_runs_on_the_cpu_and_never_falls_back(module, monkeypatch, capsys):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("first", [False, True])
+@pytest.mark.parametrize("kind", ["dense", *D.HAZARDS])
 @pytest.mark.parametrize("lanes", [7168, 1000])
 @pytest.mark.parametrize("variant", D.VARIANTS)
-def test_dot_orient_kernel_matches_its_twin(variant, lanes, cuda_device):
-    tb, q = D.make_inputs(cuda_device, variant, lanes)
-    before = D.launch_counts["r9_dot_orient"]
-    got = D.dot_orient(tb, q, variant, 100)
+def test_dot_orient_kernel_matches_its_twin(variant, lanes, kind, first, cuda_device):
+    """The kernel (and its first design) on the hit-dense inputs and on
+    each hazard: carried, -0.0 and non-byte planes."""
+    tb, q = (x.to(cuda_device) for x in dot_inputs(kind, variant, lanes, seed=0))
+    name = "r9_dot_orient_first" if first else "r9_dot_orient"
+    before = D.launch_counts[name]
+    got = (D.dot_orient_first if first else D.dot_orient)(tb, q, variant, 100)
     torch.cuda.synchronize()
-    assert D.launch_counts["r9_dot_orient"] == before + 1
+    assert D.launch_counts[name] == before + 1
     twin = D.dot_orient_reference(tb, q, variant, 100)
     np.testing.assert_array_equal(_u32(got), _u32(twin))
     assert _u32(got).sum() > 0
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", *S.HAZARDS])
 @pytest.mark.parametrize("lanes", [7168, 1000])
-@pytest.mark.parametrize("module,variant,flags,n_groups", [
-    (S, v, f, 16) for v, f in S.FLAGS.items()] + [(P, v, f, 16 * 300) for v, f in P.FLAGS.items()])
-def test_step_kernels_match_their_twins(module, variant, flags, n_groups, lanes, cuda_device):
-    """300 steps: more than one per SM, so each persistent CTA runs several."""
-    args = S.make_step_inputs(cuda_device, flags, n_groups, lanes)
+@pytest.mark.parametrize("module,variant,flags,n_groups,first", [
+    (S, v, f, 16, first) for v, f in S.FLAGS.items() for first in (False, True)]
+    + [(P, v, f, 16 * 300, False) for v, f in P.FLAGS.items()])
+def test_step_kernels_match_their_twins(module, variant, flags, n_groups, first, lanes, kind,
+                                        cuda_device):
+    """300 steps: more than one per SM, so each persistent CTA runs several;
+    on the hit-dense inputs and on each hazard (all-ones keys and lanes,
+    buckets of one key); r9_step_parts' kernel and its first design,
+    r9_block_pipeline's one design."""
+    args = step_inputs(cuda_device, kind, flags, n_groups, lanes)
     name = module.__name__.rsplit(".", 1)[1]
-    kernel, twin = (getattr(module, name[3:]), getattr(module, f"{name[3:]}_reference"))
-    before = module.launch_counts[name]
+    fn = f"{name[3:]}_first" if first else name[3:]
+    kernel, twin = (getattr(module, fn), getattr(module, f"{name[3:]}_reference"))
+    counter = f"{name}_first" if first else name
+    before = module.launch_counts[counter]
     got = kernel(*args, variant, 300, 18)
     torch.cuda.synchronize()
-    assert module.launch_counts[name] == before + 1
+    assert module.launch_counts[counter] == before + 1
     np.testing.assert_array_equal(_u32(got), _u32(twin(*args, variant, 300, 18)))
     assert (_u32(got) != _u32(args[2])).any()
