@@ -55,10 +55,10 @@ result line):
      (r9_dot_orient, r9_step_parts, r9_block_pipeline) run as a user runs
      them, at their full sizes (their kernels must have launched); then
      every variant against its twin, bit for bit, with hits; for
-     r9_dot_orient and r9_step_parts also the kernel and its first design
-     on each hazard input (carried, -0.0 and non-byte planes; all-ones
-     keys and lanes, buckets of one key), the first design timed beside
-     the kernel, and r9_dot_orient's new at 8-64 iterations a CTA;
+     r9_dot_orient and r9_step_parts also on each hazard input (carried,
+     -0.0 and non-byte planes; all-ones keys and lanes, buckets of one
+     key), and the candidates and loop trips of their fingerprinted tiles
+     on the main's inputs, counted in torch;
   8. library: the pre-hashed calls on the bench index, as KAGE calls them:
      compat.map_kmers_to_graph_index on 2^24 hashes, in_graph_index on
      2^24, map_hashes on 2^16 and GpuCounter with reverse complements on
@@ -1271,10 +1271,10 @@ def phase_tiles(torch, np, device) -> list[dict]:
     """The tile-body path: each r9 script's main at its full size, with
     every launch count zeroed before it and read after it; then every
     variant against its twin on the main's inputs (launches not counted);
-    for r9_dot_orient and r9_step_parts also every variant of the kernel and
-    of its first design against the twin on each hazard input, the first
-    design timed beside the kernel, and r9_dot_orient's new at 8, 16, 32
-    and 64 iterations a CTA."""
+    for r9_dot_orient and r9_step_parts also every variant against the twin
+    on each hazard input, and what the candidate loop of each variant does
+    on the main's inputs (candidates and hits a live lane-tile, trips a
+    warp-tile)."""
     from kmer_mapper_tpu_torch.scripts import r9_block_pipeline as P
     from kmer_mapper_tpu_torch.scripts import r9_dot_orient as D
     from kmer_mapper_tpu_torch.scripts import r9_step_parts as S
@@ -1303,11 +1303,12 @@ def phase_tiles(torch, np, device) -> list[dict]:
         "r9_block_pipeline": (P.block_pipeline, lambda x, v: P.block_pipeline_reference(
             *x, v, P.GRID, P.TILES), "new"),
     }
-    # the redesigned kernels' first designs and hazard inputs (CPU tensors)
-    redesigned = {
-        "r9_dot_orient": (D.dot_orient_first, D.HAZARDS, lambda v, kind: D.hazard_inputs(kind, v)),
-        "r9_step_parts": (S.step_parts_first, S.HAZARDS, lambda v, kind: S.step_hazard_inputs(
-            "cpu", kind, S.FLAGS[v], S.COARSE, S.LANES)),
+    # the fingerprinted kernels' hazard inputs (CPU tensors) and loop counts
+    fingerprinted = {
+        "r9_dot_orient": (D.HAZARDS, lambda v, kind: D.hazard_inputs(kind, v),
+                          lambda x, v: D.candidate_loop(*x, v)),
+        "r9_step_parts": (S.HAZARDS, lambda v, kind: S.step_hazard_inputs(
+            "cpu", kind, S.FLAGS[v], S.COARSE, S.LANES), lambda x, v: S.candidate_loop(*x, v)),
     }
     out = []
     for name, m in modules.items():
@@ -1328,30 +1329,21 @@ def phase_tiles(torch, np, device) -> list[dict]:
             err, hits = check(kernel, inputs, variant, "main's inputs")
             max_err = max(max_err, err)
             twin_ms[variant] = median_ms(lambda: twin(inputs, variant), reps=3)
-            first = ""
-            if name in redesigned:
-                first_fn, hazards, make = redesigned[name]
-                max_err = max(max_err, check(first_fn, inputs, variant, "first design")[0])
+            extra = ""
+            if name in fingerprinted:
+                hazards, make, loop = fingerprinted[name]
                 for kind in hazards:
                     x = tuple(t.to(device) for t in make(variant, kind))
-                    for fn, what in ((kernel, kind), (first_fn, f"{kind}, first design")):
-                        max_err = max(max_err, check(fn, x, variant, what)[0])
-                first_ms = median_ms(lambda: first_fn(*inputs, variant))
-                first = (f"  first design {first_ms:9.4f} ms ({first_ms / res['ms'][variant]:.2f}"
-                         f"x the kernel); == twin on {', '.join(hazards)}")
+                    max_err = max(max_err, check(kernel, x, variant, kind)[0])
+                n = loop(inputs, variant)
+                extra = (f"; == twin on {', '.join(hazards)}; a live lane-tile "
+                         f"{n['candidates'] / n['lane_tiles']:.4f} candidates, "
+                         f"{n['hits'] / n['lane_tiles']:.4f} hits; a live warp-tile "
+                         f"{n['trips'] / n['warp_tiles']:.4f} loop trips ({n['lane_tiles']} "
+                         f"lane-tiles, {n['warp_tiles']} warp-tiles)")
             log(f"tiles {name}: {variant:9s} kernel {res['ms'][variant]:9.4f} ms  twin "
                 f"{twin_ms[variant]:9.3f} ms  == twin, {hits} "
-                f"{'hits' if m is D else 'count slots changed'}{first}")
-        if m is D:  # the sweep that chose ITERS_PER_CTA
-            x, chosen, sweep = res["inputs"]["new"], D.ITERS_PER_CTA, {}
-            try:
-                for n in (8, 16, 32, 64):
-                    D.ITERS_PER_CTA = n
-                    sweep[n] = median_ms(lambda: D.dot_orient(*x, "new"))
-            finally:
-                D.ITERS_PER_CTA = chosen
-            log(f"tiles r9_dot_orient: new at ITERS_PER_CTA " + ", ".join(
-                f"{n}: {ms:.4f} ms" for n, ms in sweep.items()) + f" (the constant: {chosen})")
+                f"{'hits' if m is D else 'count slots changed'}{extra}")
         # bound: the inputs read and the outputs written once; 4 integer
         # operations per lane and tile (bucket, live), 16 word compares per
         # live lane (2 words of 8 key lanes)

@@ -37,13 +37,9 @@
 //
 // What bounds it: one shared read and a SWAR test a live lane-tile, then
 // for each candidate (the hits and ~1/15 of the other key lanes) a 16-byte
-// read, a branch-free compare and, on a hit, a shared atomic. The hit-dense inputs give
-// ~0.45 hits a live lane-tile; the warp runs its candidate loop as often as
-// its busiest lane does.
-//
-// The first design (r9_dot_planes_kernel) reads the 8 planes of all 8 key
-// lanes, 64 bf16 words, and packs them, a live lane-tile; it is kept to be
-// timed beside the kernel.
+// read, a branch-free compare and, on a hit, a shared atomic. A warp runs
+// its candidate loop as often as its busiest lane has candidates;
+// scripts/r9_dot_orient.py:candidate_loop counts both on any input.
 //
 // Bound with ctypes; see kmer_mapper_tpu_torch/native.py.
 
@@ -135,62 +131,13 @@ r9_dot_orient_kernel(const uint16_t* __restrict__ tb, const uint32_t* __restrict
   }
 }
 
-// The first design: the bf16 tile staged as it is, 64 plane reads a live
-// lane-tile.
-template <bool kTbBucketMajor, bool kCountBucketMajor>
-__global__ void __launch_bounds__(kDotThreads)
-r9_dot_planes_kernel(const uint16_t* __restrict__ tb, const uint32_t* __restrict__ q,
-                     unsigned int* __restrict__ out, int iters, int iters_per_cta, int lanes) {
-  __shared__ uint16_t s_tb[kW8 * kGpb];
-  __shared__ unsigned int s_cnt[kK * kGpb];
-  for (int i = threadIdx.x; i < kW8 * kGpb; i += blockDim.x) s_tb[i] = tb[i];
-  for (int i = threadIdx.x; i < kK * kGpb; i += blockDim.x) s_cnt[i] = 0;
-  __syncthreads();
-  const int i0 = blockIdx.x * iters_per_cta;
-  const int i1 = min(iters, i0 + iters_per_cta);
-  const PlaneTile<kTbBucketMajor> tile{s_tb};
-  const CountTile<kCountBucketMajor> counts{s_cnt};
-  for (int l = threadIdx.x; l < lanes; l += blockDim.x) {
-    const LaneQuery lq = lane_query(q, lanes, l);
-    for (int i = i0; i < i1; ++i) tile_lane(tile, counts, l, lq, i, 0);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kK * kGpb; i += blockDim.x) {
-    const unsigned int c = s_cnt[i];
-    if (c) atomicAdd(&out[i], c);
-  }
-}
-
-template <bool kFirst, bool kTb, bool kCount>
+template <bool kTb, bool kCount>
 cudaError_t launch(int grid, cudaStream_t stream, const void* tb, const void* q, void* out,
                    int iters, int iters_per_cta, int lanes) {
-  const auto kernel =
-      kFirst ? r9_dot_planes_kernel<kTb, kCount> : r9_dot_orient_kernel<kTb, kCount>;
-  kernel<<<grid, kDotThreads, 0, stream>>>(
+  r9_dot_orient_kernel<kTb, kCount><<<grid, kDotThreads, 0, stream>>>(
       static_cast<const uint16_t*>(tb), static_cast<const uint32_t*>(q),
       static_cast<unsigned int*>(out), iters, iters_per_cta, lanes);
   return cudaGetLastError();
-}
-
-template <bool kFirst>
-int launch_layout(const void* tb, const void* q, void* out, int iters, int iters_per_cta,
-                  int lanes, int layout, int device, void* stream) {
-  if (iters < 1 || iters_per_cta < 1 || lanes < 1 || layout < 0 || layout > 3) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const int grid = (iters - 1) / iters_per_cta + 1;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto args = [&](auto fn) { return fn(grid, s, tb, q, out, iters, iters_per_cta, lanes); };
-  cudaError_t rc;
-  switch (layout) {
-    case 0: rc = args(launch<kFirst, false, false>); break;
-    case 1: rc = args(launch<kFirst, true, false>); break;
-    case 2: rc = args(launch<kFirst, false, true>); break;
-    default: rc = args(launch<kFirst, true, true>); break;
-  }
-  return static_cast<int>(rc);
 }
 
 }  // namespace
@@ -200,15 +147,23 @@ int launch_layout(const void* tb, const void* q, void* out, int iters, int iters
 // device `device`. layout bit 0: tb is (128, 64) bucket-major; bit 1: out
 // is (128, 8) bucket-major. Launches ceil(iters / iters_per_cta) CTAs on
 // `stream`, returns the launch's error code (0 on success) and does not
-// synchronise. r9_dot_orient_first_launch: the same with the first design.
+// synchronise.
 extern "C" int r9_dot_orient_launch(const void* tb, const void* q, void* out, int iters,
                                     int iters_per_cta, int lanes, int layout, int device,
                                     void* stream) {
-  return launch_layout<false>(tb, q, out, iters, iters_per_cta, lanes, layout, device, stream);
-}
-
-extern "C" int r9_dot_orient_first_launch(const void* tb, const void* q, void* out, int iters,
-                                          int iters_per_cta, int lanes, int layout, int device,
-                                          void* stream) {
-  return launch_layout<true>(tb, q, out, iters, iters_per_cta, lanes, layout, device, stream);
+  if (iters < 1 || iters_per_cta < 1 || lanes < 1 || layout < 0 || layout > 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int grid = (iters - 1) / iters_per_cta + 1;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t rc;
+  switch (layout) {
+    case 0: rc = launch<false, false>(grid, s, tb, q, out, iters, iters_per_cta, lanes); break;
+    case 1: rc = launch<true, false>(grid, s, tb, q, out, iters, iters_per_cta, lanes); break;
+    case 2: rc = launch<false, true>(grid, s, tb, q, out, iters, iters_per_cta, lanes); break;
+    default: rc = launch<true, true>(grid, s, tb, q, out, iters, iters_per_cta, lanes); break;
+  }
+  return static_cast<int>(rc);
 }

@@ -37,11 +37,11 @@
 //
 // What bounds it: the shared reads and the candidate loop of each warp,
 // which runs as often as its busiest lane has candidates (the hits and
-// ~1/15 of the other key lanes; the hit-dense inputs give ~0.45 hits a
-// live lane-tile); then the 512 steps over 132 SMs, 4 rounds.
+// ~1/15 of the other key lanes; scripts/r9_step_parts.py:candidate_loop
+// counts both on any input); then the 512 steps over 132 SMs, 4 rounds.
 //
-// The first design (r9_steps_kernel<F> of r9_tile.cuh: word-loop staging,
-// up to 16 key-word reads a live lane-tile) is kept to be timed beside it.
+// The step kernel of r9_tile.cuh, r9_steps_kernel (word-loop staging, up to
+// 16 key-word reads a live lane-tile), runs r9_block_pipeline.
 //
 // Bound with ctypes; see kmer_mapper_tpu_torch/native.py.
 
@@ -155,12 +155,20 @@ cudaError_t launch_parts(int n_ctas, cudaStream_t stream, const void* key_lo,
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <bool kFirst>
-int launch_variant(const void* key_lo, const void* key_hi, const void* counts_in,
-                   const void* q, void* counts_out, void* sink, int n_steps, int n_tiles,
-                   int lanes, int n_ctas, int variant, int device, void* stream) {
-  if (!kFirst && !(aligned16(key_lo) && aligned16(key_hi) && aligned16(counts_in) &&
-                   aligned16(counts_out))) {
+}  // namespace
+
+// counts_out = counts_in + the last step's counts. key_lo, key_hi,
+// counts_in and counts_out are uint32 blocks of 16 x 8 x 128 slots in the
+// variant's layout, each starting on 16 bytes, q uint32 (2, lanes), sink
+// uint32[n_ctas * 1024], all on CUDA device `device`. variant 0..4 as
+// above. Returns the launch's error code (0 on success) and does not
+// synchronise.
+extern "C" int r9_step_parts_launch(const void* key_lo, const void* key_hi,
+                                    const void* counts_in, const void* q, void* counts_out,
+                                    void* sink, int n_steps, int n_tiles, int lanes,
+                                    int n_ctas, int variant, int device, void* stream) {
+  if (!(aligned16(key_lo) && aligned16(key_hi) && aligned16(counts_in) &&
+        aligned16(counts_out))) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   const cudaError_t set = check_steps(n_steps, n_tiles, lanes, n_ctas, device);
@@ -172,37 +180,12 @@ int launch_variant(const void* key_lo, const void* key_hi, const void* counts_in
   };
   cudaError_t rc;
   switch (variant) {
-    case 0: rc = args(kFirst ? launch_steps<0> : launch_parts<0>); break;
-    case 1: rc = args(kFirst ? launch_steps<kTbStatic> : launch_parts<kTbStatic>); break;
-    case 2: rc = args(kFirst ? launch_steps<kRmwStatic> : launch_parts<kRmwStatic>); break;
-    case 3: rc = args(kFirst ? launch_steps<kPrepOnce> : launch_parts<kPrepOnce>); break;
-    case 4: rc = args(kFirst ? launch_steps<kBucketMajor> : launch_parts<kBucketMajor>); break;
+    case 0: rc = args(launch_parts<0>); break;
+    case 1: rc = args(launch_parts<kTbStatic>); break;
+    case 2: rc = args(launch_parts<kRmwStatic>); break;
+    case 3: rc = args(launch_parts<kPrepOnce>); break;
+    case 4: rc = args(launch_parts<kBucketMajor>); break;
     default: rc = cudaErrorInvalidValue; break;
   }
   return static_cast<int>(rc);
-}
-
-}  // namespace
-
-// counts_out = counts_in + the last step's counts. key_lo, key_hi,
-// counts_in and counts_out are uint32 blocks of 16 x 8 x 128 slots in the
-// variant's layout, each starting on 16 bytes, q uint32 (2, lanes), sink
-// uint32[n_ctas * 1024], all on CUDA device `device`. variant 0..4 as
-// above. Returns the launch's error code (0 on success) and does not
-// synchronise. r9_step_parts_first_launch: the same with the first design.
-extern "C" int r9_step_parts_launch(const void* key_lo, const void* key_hi,
-                                    const void* counts_in, const void* q, void* counts_out,
-                                    void* sink, int n_steps, int n_tiles, int lanes,
-                                    int n_ctas, int variant, int device, void* stream) {
-  return launch_variant<false>(key_lo, key_hi, counts_in, q, counts_out, sink, n_steps,
-                               n_tiles, lanes, n_ctas, variant, device, stream);
-}
-
-extern "C" int r9_step_parts_first_launch(const void* key_lo, const void* key_hi,
-                                          const void* counts_in, const void* q,
-                                          void* counts_out, void* sink, int n_steps,
-                                          int n_tiles, int lanes, int n_ctas, int variant,
-                                          int device, void* stream) {
-  return launch_variant<true>(key_lo, key_hi, counts_in, q, counts_out, sink, n_steps,
-                              n_tiles, lanes, n_ctas, variant, device, stream);
 }

@@ -14,38 +14,38 @@
 // matmul and its 128x7168 one-hot have no counterpart. What stays is the
 // layout of each tile in shared memory, which is what the variants measure.
 //
-// This header holds the first design of the body, in which a live lane
-// reads all 8 key lanes of its bucket:
+// The tiles the three kernels read:
 //
 //   PlaneTile   bf16 byte planes: plane p of key lane k at bucket b is row
 //               p*8+k, column b of a (64, 128) tile, or row b, column p*8+k
-//               of a (128, 64) tile ("bucket-major"). A lane compares the
-//               float32 packing of the 8 planes with its query's, as the
-//               Pallas kernel does: exact for byte values, the same float32
-//               rounding for any finite tile. 64 shared reads a lane-tile.
+//               of a (128, 64) tile ("bucket-major"). packs gives the
+//               float32 packing of a key lane's 8 planes, as the Pallas
+//               kernel forms it: exact for byte values, the same float32
+//               rounding for any finite tile. r9_dot_orient.cu builds its
+//               packed tile from it once a CTA.
 //   WordTile    packed words: the key tile is built from (lo, hi) words, so
 //               its 8 planes are the words' bytes and a compare of the two
 //               words is the same test. Word w (0 lo, 1 hi) of key lane k at
 //               bucket b sits at (w*8 + k)*128 + b of its group (the 3-D
 //               plane layout), or at b*16 + w*8 + k (the 2-D layout,
-//               bucket-major). Up to 16 shared reads a lane-tile.
+//               bucket-major).
 //   CountTile   counts[k][b] at k*128 + b, or at b*8 + k (bucket-major).
 //
-// and r9_steps_kernel, the persistent step kernel on the word tile that
-// r9_block_pipeline.cu launches (and r9_step_parts.cu as its first design).
-// r9_dot_orient.cu and r9_step_parts.cu count on a fingerprinted tile
-// instead: one word a bucket holds a 4-bit fingerprint of each key lane
-// (fingerprint, below), so a live lane reads that one word, finds with a
-// SWAR test the key lanes whose fingerprint is its own, and reads key words
-// only for those.
+// r9_dot_orient.cu and r9_step_parts.cu count on a fingerprinted tile: one
+// word a bucket holds a 4-bit fingerprint of each key lane (fingerprint,
+// below), so a live lane reads that one word, finds with a SWAR test the
+// key lanes whose fingerprint is its own, and reads key words only for
+// those. r9_steps_kernel, below, the persistent step kernel that
+// r9_block_pipeline.cu launches, runs the plain body instead: a live lane
+// reads all 8 key lanes of its bucket (tile_lane), up to 16 shared reads a
+// lane-tile.
 //
-// What bounds the first design: neither bytes nor operations at these
-// sizes, but the shared-memory reads of the gather. In a bucket-major tile
-// the lanes of a warp, which look at 32 distinct buckets, read one column: a
-// bf16 row of 128 bytes (or a word row of 64 bytes) puts that column in one
-// bank (or two), so each read is replayed 32 (or 16) times. The
-// bucket-minor tiles spread the column over the banks. The conflicts are
-// kept: they are what the layout variants compare.
+// What bounds that body: neither bytes nor operations at these sizes, but
+// the shared-memory reads of the gather. In a bucket-major tile the lanes
+// of a warp, which look at 32 distinct buckets, read one column: a word
+// row of 64 bytes puts that column in two banks, so each read is replayed
+// 16 times. The bucket-minor tiles spread the column over the banks. The
+// conflicts are kept: they are what the layout variants compare.
 #pragma once
 
 #include <cstdint>
@@ -146,12 +146,6 @@ struct PlaneTile {
     gp[1] = __fadd_rn(__fadd_rn(g[3], __fmul_rn(256.0f, g[4])), __fmul_rn(65536.0f, g[5]));
     gp[2] = __fadd_rn(g[6], __fmul_rn(256.0f, g[7]));
   }
-
-  __device__ __forceinline__ bool match(int k, int b, const LaneQuery& q) const {
-    float gp[kPacks];
-    packs(k, b, gp);
-    return gp[0] == q.p0 && gp[1] == q.p1 && gp[2] == q.p2;
-  }
 };
 
 template <bool kBucketMajorTile>
@@ -238,8 +232,10 @@ namespace {
 
 using namespace kmt_r9;
 
-// The grid steps of r9_step_parts (F without kOwnBlocks) and
-// r9_block_pipeline (F with kOwnBlocks) on persistent CTAs: CTA j runs
+// The grid steps of r9_block_pipeline (F with kOwnBlocks), and of the
+// r9_step_parts variants (F without it), on persistent CTAs; only
+// r9_block_pipeline.cu launches it (r9_step_parts.cu runs the same steps
+// on a fingerprinted tile, r9_parts_kernel). CTA j runs
 // steps j, j + gridDim.x, ... One step stages its block's counts and (each
 // step, or with kPrepOnce the CTA's first only) its 16 key groups into
 // shared memory in the layout's order, runs n_tiles tiles, tile t on key

@@ -153,10 +153,10 @@ def library() -> ctypes.CDLL:
     lib.r3_iter_floor_launch.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
-    for fn in (lib.r9_dot_orient_launch, lib.r9_dot_orient_first_launch):
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    for fn in (lib.r9_step_parts_launch, lib.r9_step_parts_first_launch,
-               lib.r9_block_pipeline_launch):
+    lib.r9_dot_orient_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    for fn in (lib.r9_step_parts_launch, lib.r9_block_pipeline_launch):
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.gather_probe_dissect_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 3
@@ -173,8 +173,7 @@ def library() -> ctypes.CDLL:
     ]
     for fn in (lib.r2_kernel_dissect_launch, lib.r2_window_dissect_launch,
                lib.r2_window_ranges_launch, lib.r3_iter_floor_launch, lib.r9_dot_orient_launch,
-               lib.r9_dot_orient_first_launch, lib.r9_step_parts_launch,
-               lib.r9_step_parts_first_launch, lib.r9_block_pipeline_launch,
+               lib.r9_step_parts_launch, lib.r9_block_pipeline_launch,
                lib.gather_probe_dissect_launch, lib.block_histogram_launch,
                lib.block_scatter_launch):
         fn.restype = ctypes.c_int

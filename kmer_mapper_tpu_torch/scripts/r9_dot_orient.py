@@ -23,9 +23,9 @@ order-free integer sum). Each CTA first builds a packed tile: the three
 packs of every (key lane, bucket) as canonical float32 bits (``pack_bits``)
 and a word of 4-bit fingerprints a bucket (``fingerprint``), so a live lane
 reads one word a tile and compares packs only in the key lanes whose
-fingerprint is its query's. ``dot_orient_first`` launches the first design
-(64 plane reads a live lane-tile), kept to be timed beside it. ``main``
-prints the grid, then ms and ns per tile for each variant.
+fingerprint is its query's. ``candidate_loop`` counts, in torch, the
+candidates a live lane meets and the trips a warp's candidate loop makes.
+``main`` prints the grid, then ms and ns per tile for each variant.
 """
 from __future__ import annotations
 
@@ -56,8 +56,11 @@ TWIN_ELEMENTS = 1 << 24
 
 #: inputs whose planes the packing treats otherwise than bytes (``hazard_inputs``)
 HAZARDS = ("carry", "negzero", "nonbyte")
+#: lanes of a warp: the kernels' threads take neighbouring query lanes, so
+#: lanes 32 w .. 32 w + 31 run in one warp
+WARP = 32
 
-launch_counts = {"r9_dot_orient": 0, "r9_dot_orient_first": 0, "r9_dot_orient_reference": 0}
+launch_counts = {"r9_dot_orient": 0, "r9_dot_orient_reference": 0}
 
 
 def lane_buckets(t: torch.Tensor, c: torch.Tensor, lanes: int):
@@ -115,17 +118,6 @@ def dot_orient(tb, q, variant: str, iters: int | None = None) -> torch.Tensor:
 
     CUDA tensors launch ``csrc/r9_dot_orient.cu`` (a failed build or launch
     raises); CPU tensors run :func:`dot_orient_reference`."""
-    return _launch("r9_dot_orient", tb, q, variant, iters)
-
-
-def dot_orient_first(tb, q, variant: str, iters: int | None = None) -> torch.Tensor:
-    """:func:`dot_orient` with the kernel's first design, which reads all 64
-    planes of a live lane's bucket from the bf16 tile; kept to be timed
-    beside it."""
-    return _launch("r9_dot_orient_first", tb, q, variant, iters)
-
-
-def _launch(name: str, tb, q, variant: str, iters: int | None) -> torch.Tensor:
     iters = ITERS if iters is None else iters
     _check(tb, q, variant)
     if iters < 1:
@@ -137,14 +129,14 @@ def _launch(name: str, tb, q, variant: str, iters: int | None) -> torch.Tensor:
     out = torch.zeros(count_shape(variant), dtype=torch.int32, device=tb.device)
     tb_bm, count_bm = LAYOUTS[variant]
     with torch.cuda.device(tb.device):
-        rc = getattr(native.library(), f"{name}_launch")(
+        rc = native.library().r9_dot_orient_launch(
             tb.data_ptr(), q.data_ptr(), out.data_ptr(), iters, ITERS_PER_CTA, q.shape[1],
             int(tb_bm) | int(count_bm) << 1, tb.device.index,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc:
-        raise RuntimeError(f"{name} kernel launch failed: {native.error_string(rc)}")
-    launch_counts[name] += 1
+        raise RuntimeError(f"r9_dot_orient kernel launch failed: {native.error_string(rc)}")
+    launch_counts["r9_dot_orient"] += 1
     return out
 
 
@@ -182,6 +174,55 @@ def fingerprint(a, b, c=0) -> torch.Tensor:
     int64 tensors of uint32 values: 1..15, never 0."""
     h = ((a * 0x9E3779B1) & MASK32) ^ ((b * 0x85EBCA77) & MASK32) ^ ((c * 0xC2B2AE3D) & MASK32)
     return ((h * 15) >> 32) + 1
+
+
+def loop_counts(candidates, hits, t, c, lanes: int) -> dict:
+    """What a fingerprinted kernel's candidate loop does over tile t[j] at
+    step c[j], counted in torch. ``candidates(sel, bp)`` and ``hits(sel,
+    bp)`` are bool (tiles, lanes, K): the key lanes whose fingerprint is the
+    query lane's, and those it hits. Returns int counts: ``lane_tiles``
+    (live lane-tiles), ``candidates`` and ``hits`` over them,
+    ``warp_tiles`` (warp-tiles with a live lane) and ``trips``, the
+    iterations of their candidate loops: a warp runs the loop as often as
+    its busiest lane has candidates."""
+    out = dict.fromkeys(("lane_tiles", "candidates", "hits", "warp_tiles", "trips"), 0)
+    pad = (0, -lanes % WARP)
+    step = max(1, TWIN_ELEMENTS // (lanes * K))
+    for j0 in range(0, t.numel(), step):
+        sel = slice(j0, j0 + step)
+        bp, live = lane_buckets(t[sel], c[sel], lanes)
+        cand = candidates(sel, bp).sum(-1) * live
+        by_warp = torch.nn.functional.pad(cand, pad).view(cand.shape[0], -1, WARP)
+        out["lane_tiles"] += int(live.sum())
+        out["candidates"] += int(cand.sum())
+        out["hits"] += int((hits(sel, bp) & live[:, :, None]).sum())
+        out["warp_tiles"] += int(torch.nn.functional.pad(live, pad).view_as(by_warp).any(-1).sum())
+        out["trips"] += int(by_warp.amax(-1).sum())
+    return out
+
+
+def candidate_loop(tb, q, variant: str, iters: int | None = None) -> dict:
+    """:func:`loop_counts` of the kernel on (tb, q): a lane's candidates are
+    the key lanes of its bucket whose fingerprint of the canonical pack
+    bits equals its query's, its hits those whose bits all do."""
+    iters = ITERS if iters is None else iters
+    _check(tb, q, variant)
+    bits = pack_bits(tb, variant)  # (3, GPB, K)
+    key_fp = fingerprint(*bits)
+    q_bits = [float_bits(p) for p in query_packs(q)]
+    q_fp = fingerprint(*q_bits)
+
+    def candidates(sel, bp):
+        return key_fp[bp] == q_fp[None, :, None]
+
+    def hits(sel, bp):
+        hit = candidates(sel, bp)
+        for key, lane in zip(bits, q_bits):
+            hit &= key[bp] == lane[None, :, None]
+        return hit
+
+    t = torch.arange(iters, device=tb.device)
+    return loop_counts(candidates, hits, t, torch.zeros_like(t), q.shape[1])
 
 
 def dot_orient_reference(tb, q, variant: str, iters: int) -> torch.Tensor:

@@ -25,10 +25,10 @@ The kernel runs the steps on persistent CTAs, one per SM, each with the
 whole block in shared memory (128 KB of key words, 64 KB of counts and a
 word of 4-bit key fingerprints a bucket, 8 KB), staged with 16-byte copies:
 a live lane reads its bucket's fingerprint word and compares key words only
-in the key lanes whose fingerprint is its query's. ``step_parts_first``
-launches the first design (a word-loop staging, up to 16 key-word reads a
-live lane-tile), kept to be timed beside it. ``main`` prints the grid, then
-ms and ns per tile for each variant.
+in the key lanes whose fingerprint is its query's. ``candidate_loop``
+counts, in torch, the candidates a live lane meets and the trips a warp's
+candidate loop makes. ``main`` prints the grid, then ms and ns per tile for
+each variant.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ import torch
 from .. import native
 from ..ops.u32hash import MASK32, from_int32_bits, to_int32_bits
 from . import device_arg, device_name, median_ms, pick_device
-from .r9_dot_orient import GPB, K, key_pool, pool_queries, tile_counts
+from .r9_dot_orient import GPB, K, fingerprint, key_pool, loop_counts, pool_queries, tile_counts
 
 VARIANTS = ("newfull", "tbstatic", "rmwstatic", "noprep", "oldfull")
 #: csrc/r9_tile.cuh StepFlags
@@ -58,7 +58,7 @@ STEP_THREADS = 1024
 #: (``step_hazard_inputs``)
 HAZARDS = ("allones", "onekey")
 
-launch_counts = {"r9_step_parts": 0, "r9_step_parts_first": 0, "r9_step_parts_reference": 0}
+launch_counts = {"r9_step_parts": 0, "r9_step_parts_reference": 0}
 
 
 def step_shape(flags: int, n_groups: int) -> tuple:
@@ -107,21 +107,12 @@ def steps_twin(key_lo, key_hi, counts_in, q, flags: int, steps: torch.Tensor,
     bucket_major = flags & BUCKET_MAJOR
     n_groups = key_lo.numel() // (K * GPB)
 
-    def by_bucket(x):  # (group, bucket, key lane) int64 words
-        x = from_int32_bits(x)
-        return x.view(n_groups, GPB, K) if bucket_major else x.transpose(1, 2)
-
     def by_key_lane(x):  # (group, key lane, bucket) order, flat
         return x.view(n_groups, GPB, K).transpose(1, 2).reshape(-1) if bucket_major else x.view(-1)
 
-    klo, khi = by_bucket(key_lo), by_bucket(key_hi)
+    klo, khi = by_bucket(key_lo, flags), by_bucket(key_hi, flags)
     q_lo, q_hi = from_int32_bits(q[0]), from_int32_bits(q[1])
-    t = torch.arange(tiles, device=key_lo.device).repeat(steps.numel())
-    c = steps.repeat_interleave(tiles)
-    g = (t * 7 + c) % COARSE
-    base = c * COARSE if flags & OWN_BLOCKS else torch.zeros_like(c)
-    g_tb = base + (0 if flags & TB_STATIC else g)
-    g_cnt = base + (0 if flags & RMW_STATIC else g)
+    t, c, g_tb, g_cnt = step_tiles(flags, steps, tiles)
 
     def match(sel, bp):
         rows = g_tb[sel, None]
@@ -134,6 +125,25 @@ def steps_twin(key_lo, key_hi, counts_in, q, flags: int, steps: torch.Tensor,
     return total.reshape(counts_in.shape).contiguous()
 
 
+def by_bucket(x, flags: int) -> torch.Tensor:
+    """int64 (group, bucket, key lane) words of int32 keys in the layout of
+    ``flags``."""
+    n_groups = x.numel() // (K * GPB)
+    x = from_int32_bits(x)
+    return x.view(n_groups, GPB, K) if flags & BUCKET_MAJOR else x.transpose(1, 2)
+
+
+def step_tiles(flags: int, steps: torch.Tensor, tiles: int):
+    """(t, c, g_tb, g_cnt), one entry a tile of each step of ``steps``: the
+    tile index, the step, and the key and count group it runs on."""
+    t = torch.arange(tiles, device=steps.device).repeat(steps.numel())
+    c = steps.repeat_interleave(tiles)
+    g = (t * 7 + c) % COARSE
+    base = c * COARSE if flags & OWN_BLOCKS else torch.zeros_like(c)
+    return (t, c, base + (0 if flags & TB_STATIC else g),
+            base + (0 if flags & RMW_STATIC else g))
+
+
 def step_parts(key_lo, key_hi, counts_in, q, variant: str, grid: int | None = None,
                tiles: int | None = None) -> torch.Tensor:
     """counts_in plus the last of ``grid`` steps of ``tiles`` tiles (the
@@ -143,18 +153,6 @@ def step_parts(key_lo, key_hi, counts_in, q, variant: str, grid: int | None = No
 
     CUDA tensors launch ``csrc/r9_step_parts.cu`` (a failed build or launch
     raises); CPU tensors run :func:`step_parts_reference`."""
-    return _step_parts("r9_step_parts", key_lo, key_hi, counts_in, q, variant, grid, tiles)
-
-
-def step_parts_first(key_lo, key_hi, counts_in, q, variant: str, grid: int | None = None,
-                     tiles: int | None = None) -> torch.Tensor:
-    """:func:`step_parts` with the kernel's first design (``r9_steps_kernel``
-    of ``csrc/r9_tile.cuh``); kept to be timed beside it."""
-    return _step_parts("r9_step_parts_first", key_lo, key_hi, counts_in, q, variant, grid,
-                       tiles)
-
-
-def _step_parts(name, key_lo, key_hi, counts_in, q, variant, grid, tiles) -> torch.Tensor:
     grid = GRID if grid is None else grid
     tiles = TILES if tiles is None else tiles
     if variant not in VARIANTS:
@@ -169,8 +167,9 @@ def _step_parts(name, key_lo, key_hi, counts_in, q, variant, grid, tiles) -> tor
     if any(t.data_ptr() % 16 for t in (key_lo, key_hi, counts_in)):
         raise ValueError("r9_step_parts: keys and counts must start on 16 bytes (16-byte "
                          "copies)")
-    out = launch_steps(name, key_lo, key_hi, counts_in, q, VARIANTS.index(variant), grid, tiles)
-    launch_counts[name] += 1
+    out = launch_steps("r9_step_parts", key_lo, key_hi, counts_in, q, VARIANTS.index(variant),
+                       grid, tiles)
+    launch_counts["r9_step_parts"] += 1
     return out
 
 
@@ -181,6 +180,32 @@ def step_parts_reference(key_lo, key_hi, counts_in, q, variant: str, grid: int,
     launch_counts["r9_step_parts_reference"] += 1
     last = torch.full((1,), grid - 1, dtype=torch.int64, device=key_lo.device)
     return steps_twin(key_lo, key_hi, counts_in, q, FLAGS[variant], last, tiles)
+
+
+def candidate_loop(key_lo, key_hi, counts_in, q, variant: str, grid: int | None = None,
+                   tiles: int | None = None) -> dict:
+    """``r9_dot_orient.loop_counts`` of the kernel over all ``grid`` steps
+    (each does its tiles' work): a lane's candidates are the key lanes of
+    its bucket whose fingerprint of (lo, hi) equals its query's, its hits
+    those whose words do."""
+    grid = GRID if grid is None else grid
+    tiles = TILES if tiles is None else tiles
+    flags = FLAGS[variant]
+    check_steps("r9_step_parts", key_lo, key_hi, counts_in, q, flags, COARSE)
+    klo, khi = by_bucket(key_lo, flags), by_bucket(key_hi, flags)
+    key_fp = fingerprint(klo, khi)
+    q_lo, q_hi = from_int32_bits(q[0]), from_int32_bits(q[1])
+    q_fp = fingerprint(q_lo, q_hi)
+    t, c, g_tb, _ = step_tiles(flags, torch.arange(grid, device=key_lo.device), tiles)
+
+    def candidates(sel, bp):
+        return key_fp[g_tb[sel, None], bp] == q_fp[None, :, None]
+
+    def hits(sel, bp):
+        rows = g_tb[sel, None]
+        return (klo[rows, bp] == q_lo[None, :, None]) & (khi[rows, bp] == q_hi[None, :, None])
+
+    return loop_counts(candidates, hits, t, c, q.shape[1])
 
 
 def step_keys(n_groups: int, lanes: int, seed: int = 0):

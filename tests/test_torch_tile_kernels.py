@@ -193,6 +193,75 @@ def test_step_hazards_hit_and_keep_nonzero_fingerprints(kind):
         assert (fp[:, :, ::2] == fp[:, :1, ::2]).all()
 
 
+def zero_nibbles(x):
+    """csrc/r9_tile.cuh zero_nibbles on uint32 numpy words."""
+    x = x.astype(np.uint32)
+    return ~((x & np.uint32(0x77777777)) + np.uint32(0x77777777) | x) & np.uint32(0x88888888)
+
+
+def swar_loop(words, q_fp, tiles, lanes):
+    """The kernels' candidate loop in numpy, tile by tile: lane l of tile
+    (t, c, g) reads bucket word words[g][b], takes the zero nibbles of it
+    xor its fingerprint in every nibble as candidates, and its warp (32
+    neighbouring lanes) loops as often as its busiest live lane."""
+    l = np.arange(lanes)
+    mine = q_fp.astype(np.uint32) * np.uint32(0x11111111)
+    out = dict.fromkeys(("lane_tiles", "candidates", "warp_tiles", "trips"), 0)
+    pad = (0, -lanes % 32)
+    for t, c, g in tiles:
+        b = (37 * l + t + c) & (GPB - 1)
+        live = l >= (t & 63)
+        m = zero_nibbles(words[g][b] ^ mine)
+        cand = sum((m >> np.uint32(4 * k + 3)) & np.uint32(1) for k in range(K)) * live
+        out["lane_tiles"] += int(live.sum())
+        out["candidates"] += int(cand.sum())
+        out["warp_tiles"] += int(np.pad(live, pad).reshape(-1, 32).any(1).sum())
+        out["trips"] += int(np.pad(cand, pad).reshape(-1, 32).max(1).sum())
+    return out
+
+
+def bucket_words(fp):
+    """uint32 words of (..., GPB, K) fingerprints, key lane k at bit 4k."""
+    return sum(fp[..., k].numpy().astype(np.uint32) << np.uint32(4 * k) for k in range(K))
+
+
+@pytest.mark.parametrize("kind", ["dense", *D.HAZARDS])
+@pytest.mark.parametrize("variant", ["new", "old"])
+def test_dot_candidate_loop_counts_the_kernels_swar_loop(variant, kind):
+    """D.candidate_loop == the kernel's loop emulated on bucket words; its
+    hits == the twin's; every hit is a candidate. 200 lanes: a warp of 8."""
+    tb, q = dot_inputs(kind, variant, 200)
+    got = D.candidate_loop(tb, q, variant, 70)
+    words = bucket_words(D.fingerprint(*D.pack_bits(tb, variant)))[None]
+    q_fp = D.fingerprint(*(D.float_bits(p) for p in D.query_packs(q))).numpy()
+    expect = swar_loop(words, q_fp, [(t, 0, 0) for t in range(70)], 200)
+    assert {k: got[k] for k in expect} == expect
+    assert got["hits"] == int(_u32(D.dot_orient_reference(tb, q, variant, 70)).sum())
+    assert 0 < got["hits"] <= got["candidates"] <= K * got["lane_tiles"]
+    assert got["warp_tiles"] <= got["trips"] <= got["candidates"]
+
+
+@pytest.mark.parametrize("kind", ["dense", *S.HAZARDS])
+@pytest.mark.parametrize("variant", ["newfull", "tbstatic", "oldfull"])
+def test_step_candidate_loop_counts_the_kernels_swar_loop(variant, kind):
+    """S.candidate_loop over every step == the kernel's loop emulated on
+    (group, bucket) words; its hits == the twin's over every step."""
+    flags = S.FLAGS[variant]
+    key_lo, key_hi, counts, q = step_inputs("cpu", kind, flags, S.COARSE, 200)
+    got = S.candidate_loop(key_lo, key_hi, counts, q, variant, 5, 18)
+    klo, khi = S.by_bucket(key_lo, flags), S.by_bucket(key_hi, flags)
+    words = bucket_words(D.fingerprint(klo, khi))
+    q_fp = D.fingerprint(*(from_int32_bits(x) for x in q)).numpy()
+    tiles = [(t, c, 0 if flags & S.TB_STATIC else (7 * t + c) % S.COARSE)
+             for c in range(5) for t in range(18)]
+    expect = swar_loop(words, q_fp, tiles, 200)
+    assert {k: got[k] for k in expect} == expect
+    steps = torch.arange(5)
+    hits = S.steps_twin(key_lo, key_hi, torch.zeros_like(counts), q, flags, steps, 18)
+    assert got["hits"] == int(_u32(hits).sum())
+    assert 0 < got["hits"] <= got["candidates"] and got["warp_tiles"] <= got["trips"]
+
+
 def test_wrappers_check_their_arguments():
     tb, q = D.make_inputs("cpu", "new", lanes=64)
     with pytest.raises(ValueError, match="unknown variant"):
@@ -225,10 +294,7 @@ def test_wrappers_check_their_arguments():
 
 @pytest.mark.parametrize("module,fn,inputs", [
     (D, "dot_orient", lambda: (*D.make_inputs("cpu", "new", lanes=64), "new", 2)),
-    (D, "dot_orient_first", lambda: (*D.make_inputs("cpu", "new", lanes=64), "new", 2)),
     (S, "step_parts", lambda: (*S.make_inputs("cpu", "newfull", lanes=64), "newfull", 2, 2)),
-    (S, "step_parts_first",
-     lambda: (*S.make_inputs("cpu", "newfull", lanes=64), "newfull", 2, 2)),
     (P, "block_pipeline", lambda: (*S.make_step_inputs("cpu", P.FLAGS["new"], 2 * S.COARSE, 64),
                                    "new", 2, 2)),
 ])
@@ -264,19 +330,17 @@ def test_main_runs_on_the_cpu_and_never_falls_back(module, monkeypatch, capsys):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("first", [False, True])
 @pytest.mark.parametrize("kind", ["dense", *D.HAZARDS])
 @pytest.mark.parametrize("lanes", [7168, 1000])
 @pytest.mark.parametrize("variant", D.VARIANTS)
-def test_dot_orient_kernel_matches_its_twin(variant, lanes, kind, first, cuda_device):
-    """The kernel (and its first design) on the hit-dense inputs and on
-    each hazard: carried, -0.0 and non-byte planes."""
+def test_dot_orient_kernel_matches_its_twin(variant, lanes, kind, cuda_device):
+    """The kernel on the hit-dense inputs and on each hazard: carried, -0.0
+    and non-byte planes."""
     tb, q = (x.to(cuda_device) for x in dot_inputs(kind, variant, lanes, seed=0))
-    name = "r9_dot_orient_first" if first else "r9_dot_orient"
-    before = D.launch_counts[name]
-    got = (D.dot_orient_first if first else D.dot_orient)(tb, q, variant, 100)
+    before = D.launch_counts["r9_dot_orient"]
+    got = D.dot_orient(tb, q, variant, 100)
     torch.cuda.synchronize()
-    assert D.launch_counts[name] == before + 1
+    assert D.launch_counts["r9_dot_orient"] == before + 1
     twin = D.dot_orient_reference(tb, q, variant, 100)
     np.testing.assert_array_equal(_u32(got), _u32(twin))
     assert _u32(got).sum() > 0
@@ -285,23 +349,19 @@ def test_dot_orient_kernel_matches_its_twin(variant, lanes, kind, first, cuda_de
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["dense", *S.HAZARDS])
 @pytest.mark.parametrize("lanes", [7168, 1000])
-@pytest.mark.parametrize("module,variant,flags,n_groups,first", [
-    (S, v, f, 16, first) for v, f in S.FLAGS.items() for first in (False, True)]
-    + [(P, v, f, 16 * 300, False) for v, f in P.FLAGS.items()])
-def test_step_kernels_match_their_twins(module, variant, flags, n_groups, first, lanes, kind,
+@pytest.mark.parametrize("module,variant,flags,n_groups", [
+    (S, v, f, 16) for v, f in S.FLAGS.items()] + [(P, v, f, 16 * 300) for v, f in P.FLAGS.items()])
+def test_step_kernels_match_their_twins(module, variant, flags, n_groups, lanes, kind,
                                         cuda_device):
     """300 steps: more than one per SM, so each persistent CTA runs several;
     on the hit-dense inputs and on each hazard (all-ones keys and lanes,
-    buckets of one key); r9_step_parts' kernel and its first design,
-    r9_block_pipeline's one design."""
+    buckets of one key)."""
     args = step_inputs(cuda_device, kind, flags, n_groups, lanes)
     name = module.__name__.rsplit(".", 1)[1]
-    fn = f"{name[3:]}_first" if first else name[3:]
-    kernel, twin = (getattr(module, fn), getattr(module, f"{name[3:]}_reference"))
-    counter = f"{name}_first" if first else name
-    before = module.launch_counts[counter]
+    kernel, twin = (getattr(module, name[3:]), getattr(module, f"{name[3:]}_reference"))
+    before = module.launch_counts[name]
     got = kernel(*args, variant, 300, 18)
     torch.cuda.synchronize()
-    assert module.launch_counts[counter] == before + 1
+    assert module.launch_counts[name] == before + 1
     np.testing.assert_array_equal(_u32(got), _u32(twin(*args, variant, 300, 18)))
     assert (_u32(got) != _u32(args[2])).any()
