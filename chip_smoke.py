@@ -34,15 +34,18 @@ result line):
      partition whole beside the cursor route (the first partition
      kernels) whole and in its kernels, the twin and torch.sort + count_offsets; the same keys
      partitioned for tables of 2^22, 2^25 and 2^29 buckets, on the main
-     path and on the cursor route; the count kernel, the first one
-     (r2_kernel_dissect's full) and the split-window one
-     (r2_window_dissect's full) on the grouped and on the sorted keys;
+     path and on the cursor route; the count kernel, the per-block
+     dissection kernel (r2_kernel_dissect's full, the count's design with
+     nothing removed) and the split-window one (r2_window_dissect's full)
+     on the grouped and on the sorted keys;
      then the ragged step the same way on the same bases cut into reads of
      100-151 bp (8 chunks, each one continuous buffer);
   6. dissect: the three dissection scripts of kmer_mapper_tpu_torch.scripts
      run as a user runs them, at their full sizes (their kernels must have
      launched); then every variant of each kernel against its twin, bit for
-     bit, r2_kernel_dissect's full against stream_count, and the
+     bit, also on the stream-count hazard cases the TPU grid takes (empty
+     slots, buckets of one key), r2_kernel_dissect's full against
+     stream_count, and the
      split-window r2_window_dissect's full against both and the oracle on
      its chunk and on a poly-A window (every variant there too), its
      schedule kernels against their twin, timed on both beside the
@@ -54,11 +57,11 @@ result line):
   7. tiles: the three r9 tile-body scripts of kmer_mapper_tpu_torch.scripts
      (r9_dot_orient, r9_step_parts, r9_block_pipeline) run as a user runs
      them, at their full sizes (their kernels must have launched); then
-     every variant against its twin, bit for bit, with hits; for
-     r9_dot_orient and r9_step_parts also on each hazard input (carried,
-     -0.0 and non-byte planes; all-ones keys and lanes, buckets of one
-     key), and the candidates and loop trips of their fingerprinted tiles
-     on the main's inputs, counted in torch;
+     every variant against its twin, bit for bit, with hits, and on each
+     hazard input (carried, -0.0 and non-byte planes; all-ones keys and
+     lanes, buckets of one key), and the candidates and loop trips of
+     their fingerprinted tiles on the main's inputs, counted in torch;
+     r9_block_pipeline's new at each size of its ring's phase;
   8. library: the pre-hashed calls on the bench index, as KAGE calls them:
      compat.map_kmers_to_graph_index on 2^24 hashes, in_graph_index on
      2^24, map_hashes on 2^16 and GpuCounter with reverse complements on
@@ -704,9 +707,10 @@ def large_table_report(torch, keys, what: str) -> dict:
 
 def count_report(torch, mapper, grouped, off, keys, n_buckets: int, max_probe: int,
                  what: str) -> dict:
-    """The count kernel, the first one (r2_kernel_dissect's ``full``,
-    block_count_kernel<kFull>) and the split-window one (r2_window_dissect's
-    ``full``, its schedule included) on one chunk's grouped keys and on the
+    """The count kernel, the per-block dissection kernel (r2_kernel_dissect's
+    ``full``: the same design, its variants take it apart) and the
+    split-window one (r2_window_dissect's ``full``, its schedule included)
+    on one chunk's grouped keys and on the
     same keys sorted (with count_offsets), each from zero counts == the
     twin's counts, then timed (median of 5), beside the twin and the bound;
     the kernels line's entry."""
@@ -720,7 +724,7 @@ def count_report(torch, mapper, grouped, off, keys, n_buckets: int, max_probe: i
     inputs = {"grouped": (grouped, off),
               "sorted": (ordered, stream_probe.count_offsets(ordered, n_buckets, bpb))}
     kernels = {"stream_count": stream_probe.stream_count,
-               "first kernel (r2_kernel_dissect full)": lambda *a: r2_kernel_dissect.
+               "per-block dissection (r2_kernel_dissect full)": lambda *a: r2_kernel_dissect.
                stream_count_v(*a, max_probe, "full"),
                "split windows (r2_window_dissect full)": lambda *a: r2_window_dissect.
                stream_count_v(*a, max_probe, "full")}
@@ -1111,6 +1115,32 @@ def phase_dissect(torch, np, device) -> list[dict]:
     log(f"dissect A: {len(A.VARIANTS)} variants == twins; full == stream_count; "
         f"stream_count {main_ms:.4f} ms on the same inputs; "
         f"bound {bound_ms:.4f} ms by {bound_by}")
+    # every variant of both r2 kernels on the hazard cases the TPU grid takes
+    hazards = A.hazard_cases()
+    for case in hazards:
+        h_args = case.inputs(device)
+
+        def run(fn, *variant):  # from a copy of the case's counts
+            return fn(*h_args[:2], h_args[2].clone(), *h_args[3:], *variant)
+
+        main_full = run(stream_probe.stream_count)
+        for module in (A, B):
+            name = module.__name__.rsplit(".", 1)[1]
+            for variant in module.VARIANTS:
+                check(name, f"{variant} {case.name}",
+                      torch.from_numpy(_u32(run(module.stream_count_v, case.table.max_probe,
+                                                variant))),
+                      torch.from_numpy(_u32(run(module.stream_count_v_reference,
+                                                case.table.max_probe, variant))))
+            full = run(module.stream_count_v, case.table.max_probe, "full")
+            if not torch.equal(full, main_full) or (
+                    case.name != "one_key_buckets" and not np.array_equal(u32(full),
+                                                                          case.expected())):
+                raise AssertionError(f"dissect: {name} full != stream_count or the oracle on "
+                                     f"{case.name}")
+    log(f"dissect A, B: every variant == twin on the hazard cases "
+        f"{', '.join(c.name for c in hazards)}; full == stream_count (== oracle but on "
+        "one_key_buckets, whose oracle finds one slot a query)")
     out.append(dict(name="r2_kernel_dissect", source="kmer_mapper_tpu_torch/csrc/r2_kernel_dissect.cu",
                     replaces="scripts/r2_kernel_dissect.py:52", ms=ra["ms"]["full"],
                     plain_ms=times["full"][1], bound_ms=bound_ms, bound_by=bound_by))
@@ -1176,14 +1206,14 @@ def phase_dissect(torch, np, device) -> list[dict]:
         f"{ranges_plain_ms:.3f} ms; bound {ranges_bound[0]:.6f} ms by {ranges_bound[1]}")
 
     def split_times(count_args, max_probe):
-        """full (at the script's span), the per-block stream_count and the
-        first kernel on the same inputs (from the same counts)."""
+        """full (at the script's span), the per-block stream_count and
+        r2_kernel_dissect's full on the same inputs (from the same counts)."""
         scratch = count_args[2].clone()
         t = {f"span {B.SPAN}": median_ms(lambda: B.stream_count_v(
             *count_args[:2], scratch, *count_args[3:], max_probe, "full"))}
         t["stream_count"] = median_ms(lambda: stream_probe.stream_count(
             *count_args[:2], scratch, *count_args[3:]))
-        t["first kernel"] = median_ms(lambda: A.stream_count_v(
+        t["r2_kernel_dissect full"] = median_ms(lambda: A.stream_count_v(
             *count_args[:2], scratch, *count_args[3:], max_probe, "full"))
         return t
 
@@ -1270,11 +1300,10 @@ def phase_dissect(torch, np, device) -> list[dict]:
 def phase_tiles(torch, np, device) -> list[dict]:
     """The tile-body path: each r9 script's main at its full size, with
     every launch count zeroed before it and read after it; then every
-    variant against its twin on the main's inputs (launches not counted);
-    for r9_dot_orient and r9_step_parts also every variant against the twin
-    on each hazard input, and what the candidate loop of each variant does
-    on the main's inputs (candidates and hits a live lane-tile, trips a
-    warp-tile)."""
+    variant against its twin on the main's inputs (launches not counted)
+    and on each hazard input, and what the candidate loop of each variant
+    does on the main's inputs (candidates and hits a live lane-tile, trips
+    a warp-tile); r9_block_pipeline's new at each phase size of its ring."""
     from kmer_mapper_tpu_torch.scripts import r9_block_pipeline as P
     from kmer_mapper_tpu_torch.scripts import r9_dot_orient as D
     from kmer_mapper_tpu_torch.scripts import r9_step_parts as S
@@ -1309,6 +1338,9 @@ def phase_tiles(torch, np, device) -> list[dict]:
                           lambda x, v: D.candidate_loop(*x, v)),
         "r9_step_parts": (S.HAZARDS, lambda v, kind: S.step_hazard_inputs(
             "cpu", kind, S.FLAGS[v], S.COARSE, S.LANES), lambda x, v: S.candidate_loop(*x, v)),
+        "r9_block_pipeline": (S.HAZARDS, lambda v, kind: S.step_hazard_inputs(
+            "cpu", kind, P.FLAGS[v], P.GRID * S.COARSE, P.LANES),
+            lambda x, v: P.candidate_loop(*x, v)),
     }
     out = []
     for name, m in modules.items():
@@ -1344,6 +1376,15 @@ def phase_tiles(torch, np, device) -> list[dict]:
             log(f"tiles {name}: {variant:9s} kernel {res['ms'][variant]:9.4f} ms  twin "
                 f"{twin_ms[variant]:9.3f} ms  == twin, {hits} "
                 f"{'hits' if m is D else 'count slots changed'}{extra}")
+        if m is P:  # the ring's phase sizes, on the main's inputs of new
+            x, ref = res["inputs"]["new"], _u32(P.block_pipeline(*res["inputs"]["new"], "new"))
+            sweep = {}
+            for units in range(1, P.MAX_PHASE_UNITS + 1):
+                if not np.array_equal(_u32(P.block_pipeline(*x, "new", phase_units=units)), ref):
+                    raise AssertionError(f"tiles: {name} new, {units} units a phase: != twin")
+                sweep[units] = median_ms(lambda: P.block_pipeline(*x, "new", phase_units=units))
+            log(f"tiles {name}: new by groups a phase (PHASE_UNITS {P.PHASE_UNITS}), each == "
+                "the twin: " + ", ".join(f"{u} {ms:.4f} ms" for u, ms in sweep.items()))
         # bound: the inputs read and the outputs written once; 4 integer
         # operations per lane and tile (bucket, live), 16 word compares per
         # live lane (2 words of 8 key lanes)

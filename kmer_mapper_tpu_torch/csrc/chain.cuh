@@ -1,5 +1,5 @@
 // The chain walk's round bound, shared by the stream count
-// (block_count.cuh) and the gather probe (gather_probe.cu).
+// (stream_count.cu, count_range.cuh) and the gather probe (gather_probe.cu).
 //
 // A table's chains wrap inside 128-bucket chain blocks, and
 // layout.block_max_probe gives each block 1 + the largest distance of one

@@ -1,12 +1,12 @@
 // The count tile of one chain block in shared memory, padded and
-// fingerprinted: stream_count.cu's stream_count_kernel and the split-window
-// dissection kernel r2_window_dissect.cu count into it. The tile's layout
-// lives here alone: the kernels build it with store_slot + seal_row or
+// fingerprinted: stream_count.cu's stream_count_kernel and the two
+// dissection kernels (count_range.cuh's body) count into it. The tile's
+// layout lives here alone: the kernels build it with store_slot + seal_row or
 // store_row, address a slot with slot_word, and count and flush through
 // the functions below.
 //
 // Lanes of a warp read random buckets of the tile. A tile that stores
-// bucket r's lane l at word r*8 + l (block_count.cuh's BlockTile) puts each
+// bucket r's lane l at word r*8 + l (the count's first tile) puts each
 // l in one of 4 banks: up to 8-way conflicts on every read. This tile:
 //  * rows padded to kRow = 9 words: word r*9 + l is in bank (9r + l) % 32,
 //    and 9 is odd, so random buckets spread over all 32 banks (a random

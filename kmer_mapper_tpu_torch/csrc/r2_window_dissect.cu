@@ -13,13 +13,13 @@
 // window_ranges_kernel adds the totals before its CTA and writes its
 // windows' rows; rows past the last range hold group n_blocks.
 //
-// A CTA stages its block's 8 KB of keys with 16-byte cp.async copies into a
-// flat buffer, loads its first kItems keys a thread (evict-first) while
-// they land, then builds count_tile.cuh's tile from the buffer (rows padded
-// to 9 words, a fingerprint word a bucket), counts its range into it and
-// adds the nonzero entries into the global counts. The variants full,
-// nodma and empty compute what the same variants of r2_kernel_dissect.cu
-// compute; this script's nomm1 adds round p's counts at bucket local + p,
+// A CTA counts its range with count_range.cuh's body, the body of
+// r2_kernel_dissect.cu too: the block's keys staged with 16-byte cp.async
+// copies while its first queries load, count_tile.cuh's tile built from
+// them, the range counted into the tile and the tile added into the global
+// counts. The variants full, nodma and empty compute what the same variants
+// of r2_kernel_dissect.cu compute (this kernel's empty exits before the
+// staging); this script's nomm1 adds round p's counts at bucket local + p,
 // as its Pallas variant rolls them.
 //
 // What bounds it: the queries' 8-byte sort keys, read once; the keys of
@@ -27,25 +27,17 @@
 //
 // Bound with ctypes; see kmer_mapper_tpu_torch/native.py.
 
-#include "count_tile.cuh"
+#include "count_range.cuh"
 
 namespace {
 
-using namespace kmt_count;
-using kmt_tile::PaddedTile;
+using namespace kmt_range;
 
-constexpr int kCountThreads = 256;
-constexpr int kItems = 4;  // keys a thread loads before it counts them
 constexpr int kScheduleThreads = 1024;
 // ranges of one window that the thread owning the window writes alone; the
 // rest of a longer window its warp writes together
 constexpr int kInline = 4;
 constexpr int kMinSpan = 32;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
 
 // ceil((end - start) / span), 0 for an empty window; 32-bit division (a
 // window holds fewer than 2^31 queries)
@@ -134,18 +126,6 @@ window_ranges_kernel(const int32_t* __restrict__ off, const int* __restrict__ to
   }
 }
 
-template <int V>
-__device__ __forceinline__ void load_keys(unsigned long long (&key)[kItems],
-                                          const unsigned long long* __restrict__ sorted_keys,
-                                          int64_t i0, int64_t hi) {
-  if (V == kNoDma) return;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t i = i0 + j * kCountThreads;
-    key[j] = i < hi ? __ldcs(&sorted_keys[i]) : 0;
-  }
-}
-
 // at most 32 registers: 8 CTAs an SM, as stream_count_kernel, to hide the
 // latency of the key stream
 template <int V>
@@ -158,8 +138,7 @@ r2_window_dissect_kernel(const uint32_t* __restrict__ key_lo,
                          const int32_t* __restrict__ block_probe,
                          const int2* __restrict__ ranges, int shift, int bpb,
                          int max_probe, int n_blocks, int span) {
-  __shared__ PaddedTile tile;
-  __shared__ __align__(16) uint32_t stage[2 * kTileSlots];
+  __shared__ RangeSmem sm;
   const int2 range = ranges[blockIdx.x];
   const int64_t g = range.x;
   if (g >= n_blocks) return;  // past the last range of the schedule
@@ -171,66 +150,8 @@ r2_window_dissect_kernel(const uint32_t* __restrict__ key_lo,
     if (first > end && threadIdx.x == 0) atomicAdd(&counts[0], 0u);
     return;
   }
-  const int64_t hi = first + span < end ? first + span : end;
-
-  const int n_slots = bpb * kBucketKeys;
-  // 64-bit slot arithmetic: tables past 2^28 buckets have slots past 2^31
-  const int64_t slot0 = g * static_cast<int64_t>(n_slots);
-  const int n_chunks = n_slots / 4;  // 16-byte chunks of each key word
-  for (int c = threadIdx.x; c < 2 * n_chunks; c += kCountThreads) {
-    const bool upper = c >= n_chunks;
-    const int w = (upper ? c - n_chunks : c) * 4;
-    cp_async16(stage + (upper ? kTileSlots : 0) + w, (upper ? key_hi : key_lo) + slot0 + w);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-  int64_t i0 = first + threadIdx.x;
-  unsigned long long key[kItems];
-  load_keys<V>(key, sorted_keys, i0, hi);  // in flight while the keys land
-  asm volatile("cp.async.wait_all;\n" ::);
-  __syncthreads();
-  for (int r = threadIdx.x; r < bpb; r += kCountThreads) {
-    uint32_t lo[kBucketKeys], hi_w[kBucketKeys];  // bucket r's keys, from the flat buffer
-    const uint4* row_lo = reinterpret_cast<const uint4*>(stage + r * kBucketKeys);
-    const uint4* row_hi = reinterpret_cast<const uint4*>(stage + kTileSlots + r * kBucketKeys);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint4 a = row_lo[h], b = row_hi[h];
-      lo[4 * h] = a.x, lo[4 * h + 1] = a.y, lo[4 * h + 2] = a.z, lo[4 * h + 3] = a.w;
-      hi_w[4 * h] = b.x, hi_w[4 * h + 1] = b.y, hi_w[4 * h + 2] = b.z, hi_w[4 * h + 3] = b.w;
-    }
-    kmt_tile::store_row(tile, r, lo, hi_w);
-  }
-  __syncthreads();
-
-  const int rounds = probe_rounds(block_probe, g, 1, max_probe);
-  const int64_t bucket0 = g * static_cast<int64_t>(bpb);
-  for (;;) {
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int64_t i = i0 + j * kCountThreads;
-      if (i >= hi) break;
-      uint32_t m_lo, m_hi;
-      if (V == kNoDma) {  // the key of slot i mod n_slots stands in
-        const int w = kmt_tile::slot_word(static_cast<int>(i & (n_slots - 1)));
-        m_lo = tile.lo[w];
-        m_hi = tile.hi[w];
-      } else {
-        const unsigned long long u = key[j] ^ kSignBit;
-        m_lo = static_cast<uint32_t>(u >> 32);
-        m_hi = static_cast<uint32_t>(u);
-      }
-      if (V == kNoMm1Rolled) {
-        kmt_tile::add_rounds(tile, m_lo, m_hi, shift, bucket0, bpb, rounds);
-      } else {
-        kmt_tile::count_query(tile, m_lo, m_hi, shift, bucket0, bpb, rounds);
-      }
-    }
-    i0 += kCountThreads * kItems;
-    if (i0 >= hi) break;
-    load_keys<V>(key, sorted_keys, i0, hi);
-  }
-  __syncthreads();
-  kmt_tile::flush_tile(tile, counts, slot0, n_slots, kCountThreads);
+  count_range<V>(sm, key_lo, key_hi, counts, sorted_keys, block_probe, g, first,
+                 first + span < end ? first + span : end, shift, bpb, max_probe);
 }
 
 template <int V>
@@ -245,8 +166,6 @@ void launch(int grid, cudaStream_t stream, const void* key_lo, const void* key_h
       static_cast<const int32_t*>(off), static_cast<const int32_t*>(block_probe),
       static_cast<const int2*>(ranges), shift, bpb, max_probe, n_blocks, span);
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 

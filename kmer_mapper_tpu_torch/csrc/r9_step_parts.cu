@@ -40,8 +40,8 @@
 // ~1/15 of the other key lanes; scripts/r9_step_parts.py:candidate_loop
 // counts both on any input); then the 512 steps over 132 SMs, 4 rounds.
 //
-// The step kernel of r9_tile.cuh, r9_steps_kernel (word-loop staging, up to
-// 16 key-word reads a live lane-tile), runs r9_block_pipeline.
+// r9_block_pipeline.cu runs the same body over blocks of its own, one
+// group at a time through a ring of stages.
 //
 // Bound with ctypes; see kmer_mapper_tpu_torch/native.py.
 
@@ -54,11 +54,6 @@ namespace {
 constexpr int kFpWords = kCoarse * kGpb;  // a fingerprint word per (group, bucket)
 constexpr size_t kPartsShared = kStepShared + kFpWords * sizeof(uint32_t);
 static_assert(kPartsShared <= 232448, "a CTA may use 227 KB of shared memory");
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -75,7 +70,7 @@ r9_parts_kernel(const uint32_t* __restrict__ key_lo, const uint32_t* __restrict_
                 const uint32_t* __restrict__ counts_in, const uint32_t* __restrict__ q,
                 uint32_t* __restrict__ counts_out, uint32_t* __restrict__ sink, int n_steps,
                 int n_tiles, int lanes) {
-  static_assert(!(F & kOwnBlocks), "r9_block_pipeline runs r9_steps_kernel");
+  static_assert(!(F & kOwnBlocks), "r9_block_pipeline.cu runs the steps on blocks of their own");
   constexpr bool kBm = F & kBucketMajor;
   extern __shared__ __align__(16) uint32_t parts_smem[];
   uint32_t* s_keys = parts_smem;                          // [kCoarse][kGroupWords]
@@ -152,8 +147,6 @@ cudaError_t launch_parts(int n_ctas, cudaStream_t stream, const void* key_lo,
       lanes);
   return cudaGetLastError();
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 

@@ -31,21 +31,19 @@
 //               bucket-major).
 //   CountTile   counts[k][b] at k*128 + b, or at b*8 + k (bucket-major).
 //
-// r9_dot_orient.cu and r9_step_parts.cu count on a fingerprinted tile: one
-// word a bucket holds a 4-bit fingerprint of each key lane (fingerprint,
-// below), so a live lane reads that one word, finds with a SWAR test the
-// key lanes whose fingerprint is its own, and reads key words only for
-// those. r9_steps_kernel, below, the persistent step kernel that
-// r9_block_pipeline.cu launches, runs the plain body instead: a live lane
-// reads all 8 key lanes of its bucket (tile_lane), up to 16 shared reads a
-// lane-tile.
+// The three kernels count on a fingerprinted tile: one word a bucket holds
+// a 4-bit fingerprint of each key lane (fingerprint, below), so a live lane
+// reads that one word, finds with a SWAR test the key lanes whose
+// fingerprint is its own, and reads key words only for those (the
+// candidates), compared without a branch (WordTile::equal).
 //
 // What bounds that body: neither bytes nor operations at these sizes, but
-// the shared-memory reads of the gather. In a bucket-major tile the lanes
-// of a warp, which look at 32 distinct buckets, read one column: a word
-// row of 64 bytes puts that column in two banks, so each read is replayed
-// 16 times. The bucket-minor tiles spread the column over the banks. The
-// conflicts are kept: they are what the layout variants compare.
+// the shared-memory reads of the gather and a warp's candidate loop, which
+// runs as often as its busiest lane has candidates. In a bucket-major tile
+// the lanes of a warp, which look at 32 distinct buckets, read one column:
+// a word row of 64 bytes puts that column in two banks, so each read is
+// replayed 16 times. The bucket-minor tiles spread the column over the
+// banks. The conflicts are kept: they are what the layout variants compare.
 #pragma once
 
 #include <cstdint>
@@ -68,7 +66,8 @@ constexpr size_t kStepShared = static_cast<size_t>(kCoarse) * (kGroupWords + kGr
                                sizeof(uint32_t);
 
 // the variant flags of the step kernels (kmer_mapper_tpu_torch/scripts/
-// r9_step_parts.py FLAGS and r9_block_pipeline.py FLAGS)
+// r9_step_parts.py FLAGS and r9_block_pipeline.py FLAGS; r9_step_parts.cu
+// takes the first four, r9_block_pipeline.cu kBucketMajor with kOwnBlocks)
 enum StepFlags : int {
   kBucketMajor = 1,  // the 2-D layout: keys (groups*128, 8), counts the same
   kTbStatic = 2,     // every tile reads key group 0
@@ -156,12 +155,9 @@ struct WordTile {
     return kBucketMajorTile ? b * 2 * kK + word * kK + k : (word * kK + k) * kGpb + b;
   }
 
-  __device__ __forceinline__ bool match(int k, int b, const LaneQuery& q) const {
-    return w[index(0, k, b)] == q.lo && w[index(1, k, b)] == q.hi;
-  }
-
-  // match with both words read and no branch: a warp's candidate loop,
-  // whose lanes are mostly idle, then runs no nested divergent branch
+  // key lane k of bucket b equals the query, both words read and no
+  // branch: a warp's candidate loop, whose lanes are mostly idle, then runs
+  // no nested divergent branch
   __device__ __forceinline__ bool equal(int k, int b, const LaneQuery& q) const {
     return (w[index(0, k, b)] == q.lo) & (w[index(1, k, b)] == q.hi);
   }
@@ -204,17 +200,14 @@ struct CountTile {
   }
 };
 
-// The tile body for one lane of tile t at step c.
-template <class Tile, class Counts>
-__device__ __forceinline__ void tile_lane(const Tile& tile, const Counts& counts, int l,
-                                          const LaneQuery& q, int t, int c) {
-  if (!lane_live(l, t)) return;
-  const int b = lane_bucket(l, t, c);
-#pragma unroll
-  for (int k = 0; k < kK; ++k) {
-    if (tile.match(k, b, q)) counts.add(k, b);
-  }
+// A 16-byte asynchronous copy from device to shared memory (cp.async; both
+// addresses on 16 bytes).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // Checks the step kernels' launch arguments and selects the tensors' device.
 inline cudaError_t check_steps(int n_steps, int n_tiles, int lanes, int n_ctas, int device) {
@@ -225,91 +218,3 @@ inline cudaError_t check_steps(int n_steps, int n_tiles, int lanes, int n_ctas, 
 }
 
 }  // namespace kmt_r9
-
-// Internal linkage: each source that launches a kernel has its own copy (a
-// top-level unnamed namespace, as in block_count.cuh).
-namespace {
-
-using namespace kmt_r9;
-
-// The grid steps of r9_block_pipeline (F with kOwnBlocks), and of the
-// r9_step_parts variants (F without it), on persistent CTAs; only
-// r9_block_pipeline.cu launches it (r9_step_parts.cu runs the same steps
-// on a fingerprinted tile, r9_parts_kernel). CTA j runs
-// steps j, j + gridDim.x, ... One step stages its block's counts and (each
-// step, or with kPrepOnce the CTA's first only) its 16 key groups into
-// shared memory in the layout's order, runs n_tiles tiles, tile t on key
-// group g = (7 t + c) % 16 and count group g (0 for kTbStatic, kRmwStatic),
-// and writes its counts out. Without kOwnBlocks every step starts again
-// from counts_in (the Pallas kernel copies counts_in into counts_out at
-// every step under a constant block index), so only the last step's counts
-// reach counts_out; the others go into a data-dependent fold in `sink`,
-// which keeps their work.
-template <int F>
-__global__ void __launch_bounds__(kStepThreads)
-r9_steps_kernel(const uint32_t* __restrict__ key_lo, const uint32_t* __restrict__ key_hi,
-                const uint32_t* __restrict__ counts_in, const uint32_t* __restrict__ q,
-                uint32_t* __restrict__ counts_out, uint32_t* __restrict__ sink,
-                int n_steps, int n_tiles, int lanes) {
-  constexpr bool kBm = F & kBucketMajor;
-  extern __shared__ uint32_t smem[];
-  uint32_t* s_keys = smem;                         // [kCoarse][kGroupWords]
-  unsigned int* s_cnt = smem + kCoarse * kGroupWords;  // [kCoarse][kGroupSlots]
-  bool staged = false;
-  for (int c = blockIdx.x; c < n_steps; c += gridDim.x) {
-    const int64_t block0 = (F & kOwnBlocks) ? static_cast<int64_t>(c) * kStepSlots : 0;
-    const bool prep = !((F & kPrepOnce) && staged);
-    for (int i = threadIdx.x; i < kStepSlots; i += blockDim.x) {
-      s_cnt[i] = counts_in[block0 + i];
-      if (prep) {
-        // slot i is (row, k) = (g*128 + b, k) in the 2-D layout, (g, k, b)
-        // in the 3-D one; its lo and hi words go to the tile's order
-        const int lo = kBm ? (i / kK) * 2 * kK + i % kK
-                           : (i / kGroupSlots) * kGroupWords + i % kGroupSlots;
-        const int hi = lo + (kBm ? kK : kGroupSlots);
-        s_keys[lo] = key_lo[block0 + i];
-        s_keys[hi] = key_hi[block0 + i];
-      }
-    }
-    staged = true;
-    __syncthreads();
-    for (int l = threadIdx.x; l < lanes; l += blockDim.x) {
-      const LaneQuery lq = lane_query(q, lanes, l);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int g = (t * 7 + c) % kCoarse;
-        const WordTile<kBm> tile{s_keys + ((F & kTbStatic) ? 0 : g) * kGroupWords};
-        const CountTile<kBm> counts{s_cnt + ((F & kRmwStatic) ? 0 : g) * kGroupSlots};
-        tile_lane(tile, counts, l, lq, t, c);
-      }
-    }
-    __syncthreads();
-    if ((F & kOwnBlocks) || c == n_steps - 1) {
-      for (int i = threadIdx.x; i < kStepSlots; i += blockDim.x) {
-        counts_out[block0 + i] = s_cnt[i];
-      }
-    } else {
-      uint32_t fold = 0;
-      for (int i = threadIdx.x; i < kStepSlots; i += blockDim.x) fold = fold * 31u + s_cnt[i];
-      sink[blockIdx.x * blockDim.x + threadIdx.x] = fold;
-    }
-    __syncthreads();  // the next step restages the tiles
-  }
-}
-
-template <int F>
-cudaError_t launch_steps(int n_ctas, cudaStream_t stream, const void* key_lo,
-                         const void* key_hi, const void* counts_in, const void* q,
-                         void* counts_out, void* sink, int n_steps, int n_tiles, int lanes) {
-  const cudaError_t attr = cudaFuncSetAttribute(
-      r9_steps_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kStepShared));
-  if (attr != cudaSuccess) return attr;
-  r9_steps_kernel<F><<<n_ctas, kStepThreads, kStepShared, stream>>>(
-      static_cast<const uint32_t*>(key_lo), static_cast<const uint32_t*>(key_hi),
-      static_cast<const uint32_t*>(counts_in), static_cast<const uint32_t*>(q),
-      static_cast<uint32_t*>(counts_out), static_cast<uint32_t*>(sink), n_steps, n_tiles,
-      lanes);
-  return cudaGetLastError();
-}
-
-}  // namespace

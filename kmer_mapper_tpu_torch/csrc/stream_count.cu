@@ -27,8 +27,9 @@
 // kItems keys of its window (evict-first, issued together) before it counts
 // them.
 //
-// block_count_kernel<kFull>, the first design, stays in block_count.cuh; the
-// dissection kernel r2_kernel_dissect.cu launches it as variant `full`.
+// The dissection kernel r2_kernel_dissect.cu takes this design apart: its
+// variants remove one part each of the same per-block count on the same
+// tile (count_range.cuh), and its `full` equals this kernel's counts.
 //
 // Bound with ctypes; see kmer_mapper_tpu_torch/native.py.
 
@@ -43,8 +44,9 @@ using kmt_tile::PaddedTile;
 constexpr int kCountThreads = 256;
 constexpr int kItems = 4;  // keys a thread loads before it counts them
 
-// One CTA per chain block b, as block_count_kernel<kFull>, on the padded
-// tile and through the fingerprints.
+// One CTA per chain block b: every query in b's window [off[b], off[b+1])
+// touches only b's keys, counted on the padded tile through the
+// fingerprints.
 __global__ void __launch_bounds__(kCountThreads)
 stream_count_kernel(const uint32_t* __restrict__ key_lo, const uint32_t* __restrict__ key_hi,
                     unsigned int* __restrict__ counts,

@@ -156,8 +156,12 @@ def library() -> ctypes.CDLL:
     lib.r9_dot_orient_launch.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
-    for fn in (lib.r9_step_parts_launch, lib.r9_block_pipeline_launch):
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.r9_step_parts_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    )
+    lib.r9_block_pipeline_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    )
     lib.gather_probe_dissect_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 3
         + [ctypes.c_uint] + [ctypes.c_int] * 3 + [ctypes.c_void_p]

@@ -4,9 +4,11 @@ counterpart of ``scripts/r2_kernel_dissect.py``.
     python -m kmer_mapper_tpu_torch.scripts.r2_kernel_dissect [variant ...]
 
 ``stream_count_v`` launches ``csrc/r2_kernel_dissect.cu``, the count of
-``csrc/stream_count.cu`` with one part removed per variant, so that the
-times of the variants split the kernel's time into table staging, bucket
-addressing, the 8-lane compare, the atomics and the query loads:
+``csrc/stream_count.cu`` (one CTA per chain block on the padded,
+fingerprinted tile of ``csrc/count_tile.cuh``) with one part removed per
+variant, so that the times of the variants split the kernel's time into
+table staging, bucket addressing, the fingerprinted compare, the atomics
+and the query loads:
 
     full        the count itself (equals ``stream_probe.stream_count``)
     nomm2       each hit of key lane k, in any round, adds 1 to slot
@@ -24,13 +26,15 @@ addressing, the 8-lane compare, the atomics and the query loads:
 
 A query is live when it is not the all-ones pair and its bucket lies in its
 block; it walks ``max(1, min(max_probe, block_probe[b]))`` rounds, as the
-Pallas kernel does. ``main`` builds the script's inputs (4,000,000 uniform
+Pallas kernel does. ``hazard_cases`` are the inputs that the variants are
+held to their twin on besides the script's. ``main`` builds the script's inputs (4,000,000 uniform
 keys, 16 Mi queries of which half are drawn from the keys) and prints one
 line per variant: the median of 5 CUDA-event times and ns per query.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -38,7 +42,7 @@ import torch
 from .. import native
 from ..index import layout
 from ..index.layout import BUCKET_KEYS
-from ..ops import stream_probe
+from ..ops import stream_count_cases, stream_probe
 from ..ops.stream_count_cases import Case
 from ..ops.u32hash import MASK32, bucket_from_mlo_torch, from_int32_bits, to_int32_bits
 from . import device_arg, device_name, median_ms, pick_device
@@ -103,6 +107,8 @@ def stream_count_v(key_lo, key_hi, counts, sorted_keys, off, block_probe,
                                         block_probe, shift, bpb, max_probe, variant)
     if counts.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {counts.device}")
+    if key_lo.data_ptr() % 16 or key_hi.data_ptr() % 16:
+        raise ValueError(f"{name}: the key words must start on 16 bytes (16-byte copies)")
     fn = native.library().r2_kernel_dissect_launch
     with torch.cuda.device(counts.device):
         rc = fn(
@@ -174,6 +180,37 @@ def variant_twin(key_lo, key_hi, counts, sorted_keys, off, block_probe,
     total = (counts.to(torch.int64) & MASK32) + hits
     counts.copy_(to_int32_bits(total & MASK32))
     return counts
+
+
+def one_key_case(seed: int = 7) -> Case:
+    """A chained table of 1024 buckets (8 chain blocks) in which every other
+    bucket holds its lane 0's key in all 8 lanes (all-ones where lane 0 is
+    empty), so that a query of such a key hits 8 slots of one bucket, and
+    the other buckets keep their empty (all-ones) slots. The host oracle
+    (``layout.query_table``) finds one slot a query, so this case has no
+    ``expected`` counts: it holds a kernel to its twin."""
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.integers(0, 1 << 62, 3000, dtype=np.uint64))
+    table = layout.build_table(keys, n_buckets=1024)
+    key_lo, key_hi = table.key_lo.copy(), table.key_hi.copy()
+    key_lo[::2], key_hi[::2] = key_lo[::2, :1], key_hi[::2, :1]
+    table = dataclasses.replace(table, key_lo=key_lo, key_hi=key_hi)
+    queries = np.concatenate([rng.choice(keys, 4000),
+                              rng.integers(0, 1 << 62, 1000, dtype=np.uint64)])
+    counts0 = rng.integers(0, 1 << 32, table.n_slots, dtype=np.int64).astype(np.uint32)
+    return Case("one_key_buckets", table, queries, rng.random(len(queries)) < 0.9, counts0)
+
+
+def hazard_cases() -> list[Case]:
+    """The inputs the variants are held to their twin on: each case of
+    ``ops.stream_count_cases`` whose table the TPU grid takes (a block count
+    that is a multiple of ``COARSE``; every such table has empty slots,
+    whose fingerprint nibble is 0), then :func:`one_key_case`."""
+    def n_blocks(case):
+        return case.table.n_buckets // min(layout.CHAIN_BLOCK, case.table.n_buckets)
+
+    table_cases = [c for c in stream_count_cases.cases() if n_blocks(c) % COARSE == 0]
+    return table_cases + [one_key_case()]
 
 
 def make_inputs(device):

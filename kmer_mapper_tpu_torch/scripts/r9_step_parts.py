@@ -80,25 +80,6 @@ def check_steps(name, key_lo, key_hi, counts_in, q, flags: int, n_groups: int):
         raise ValueError(f"{name}: no query lanes")
 
 
-def launch_steps(name, key_lo, key_hi, counts_in, q, variant_id: int, grid: int,
-                 tiles: int) -> torch.Tensor:
-    """Launches ``<name>_launch`` of the native library on persistent CTAs
-    (one per SM, at most one per step); returns the new counts."""
-    dev = key_lo.device
-    out = torch.empty_like(counts_in)
-    ctas = n_ctas(dev, grid)
-    sink = torch.empty(ctas * STEP_THREADS, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = getattr(native.library(), f"{name}_launch")(
-            key_lo.data_ptr(), key_hi.data_ptr(), counts_in.data_ptr(), q.data_ptr(),
-            out.data_ptr(), sink.data_ptr(), grid, tiles, q.shape[1], ctas, variant_id,
-            dev.index, torch.cuda.current_stream().cuda_stream,
-        )
-    if rc:
-        raise RuntimeError(f"{name} kernel launch failed: {native.error_string(rc)}")
-    return out
-
-
 def steps_twin(key_lo, key_hi, counts_in, q, flags: int, steps: torch.Tensor,
                tiles: int) -> torch.Tensor:
     """counts_in plus the tiles of ``steps`` (the step ids whose counts
@@ -167,8 +148,18 @@ def step_parts(key_lo, key_hi, counts_in, q, variant: str, grid: int | None = No
     if any(t.data_ptr() % 16 for t in (key_lo, key_hi, counts_in)):
         raise ValueError("r9_step_parts: keys and counts must start on 16 bytes (16-byte "
                          "copies)")
-    out = launch_steps("r9_step_parts", key_lo, key_hi, counts_in, q, VARIANTS.index(variant),
-                       grid, tiles)
+    dev = key_lo.device
+    out = torch.empty_like(counts_in)
+    ctas = n_ctas(dev, grid)  # persistent: one per SM, at most one per step
+    sink = torch.empty(ctas * STEP_THREADS, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = native.library().r9_step_parts_launch(
+            key_lo.data_ptr(), key_hi.data_ptr(), counts_in.data_ptr(), q.data_ptr(),
+            out.data_ptr(), sink.data_ptr(), grid, tiles, q.shape[1], ctas,
+            VARIANTS.index(variant), dev.index, torch.cuda.current_stream().cuda_stream,
+        )
+    if rc:
+        raise RuntimeError(f"r9_step_parts kernel launch failed: {native.error_string(rc)}")
     launch_counts["r9_step_parts"] += 1
     return out
 
@@ -184,19 +175,25 @@ def step_parts_reference(key_lo, key_hi, counts_in, q, variant: str, grid: int,
 
 def candidate_loop(key_lo, key_hi, counts_in, q, variant: str, grid: int | None = None,
                    tiles: int | None = None) -> dict:
-    """``r9_dot_orient.loop_counts`` of the kernel over all ``grid`` steps
-    (each does its tiles' work): a lane's candidates are the key lanes of
-    its bucket whose fingerprint of (lo, hi) equals its query's, its hits
-    those whose words do."""
+    """:func:`steps_candidate_loop` of the kernel over all ``grid`` steps
+    (each does its tiles' work)."""
     grid = GRID if grid is None else grid
     tiles = TILES if tiles is None else tiles
     flags = FLAGS[variant]
     check_steps("r9_step_parts", key_lo, key_hi, counts_in, q, flags, COARSE)
+    return steps_candidate_loop(key_lo, key_hi, q, flags, grid, tiles)
+
+
+def steps_candidate_loop(key_lo, key_hi, q, flags: int, grid: int, tiles: int) -> dict:
+    """``r9_dot_orient.loop_counts`` of a step kernel's ``grid`` steps of
+    ``tiles`` tiles for the kernel's flags: a lane's candidates are the key
+    lanes of its bucket whose fingerprint of (lo, hi) equals its query's,
+    its hits those whose words do."""
     klo, khi = by_bucket(key_lo, flags), by_bucket(key_hi, flags)
     key_fp = fingerprint(klo, khi)
     q_lo, q_hi = from_int32_bits(q[0]), from_int32_bits(q[1])
     q_fp = fingerprint(q_lo, q_hi)
-    t, c, g_tb, _ = step_tiles(flags, torch.arange(grid, device=key_lo.device), tiles)
+    t, c, g_tb, _ = step_tiles(flags, torch.arange(grid, device=q.device), tiles)
 
     def candidates(sel, bp):
         return key_fp[g_tb[sel, None], bp] == q_fp[None, :, None]

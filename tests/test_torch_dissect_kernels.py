@@ -92,6 +92,33 @@ def test_twin_matches_numpy_loop(kernel_variant):
     np.testing.assert_array_equal(_u32(got), loop_count(CASE, kernel_variant))
 
 
+HAZARDS = {case.name: case for case in A.hazard_cases()}
+
+
+@pytest.mark.parametrize("kernel_variant", list(A.KERNEL_IDS))
+@pytest.mark.parametrize("name", list(HAZARDS))
+def test_twin_matches_numpy_loop_on_hazard_cases(name, kernel_variant):
+    """The tables the TPU grid takes, each with empty (all-ones) slots, and
+    buckets whose 8 lanes hold one key: nodma's stand-in queries include the
+    empty slots' all-ones pair, and a query of a one-key bucket hits 8
+    slots."""
+    case = HAZARDS[name]
+    got = A.variant_twin(*case.inputs("cpu")[:6], min(128, case.table.n_buckets),
+                         case.table.max_probe, kernel_variant)
+    np.testing.assert_array_equal(_u32(got), loop_count(case, kernel_variant))
+
+
+def test_hazard_cases_hold_empty_slots_and_one_key_buckets():
+    for case in HAZARDS.values():
+        n_blocks = case.table.n_buckets // min(128, case.table.n_buckets)
+        assert n_blocks % A.COARSE == 0
+        assert ((case.table.key_lo == 0xFFFFFFFF) & (case.table.key_hi == 0xFFFFFFFF)).any()
+    case = HAZARDS["one_key_buckets"]
+    full = _u32(A.stream_count_v(*case.inputs("cpu"), case.table.max_probe, "full"))
+    changed = (full != case.counts0).reshape(-1, 8)
+    assert changed[::2].all(axis=1).any() and not changed[1::2].all(axis=1).any()
+
+
 @pytest.mark.parametrize("module", [A, B])
 def test_script_variants_run_their_kernel_variants(module):
     for variant, kernel_variant in module.VARIANTS.items():
@@ -314,6 +341,36 @@ def test_r2_kernels_match_their_twins(module, name, cuda_device):
     np.testing.assert_array_equal(_u32(full), case.expected())
     np.testing.assert_array_equal(
         _u32(full), _u32(stream_probe.stream_count(*case.inputs(cuda_device))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(HAZARDS))
+@pytest.mark.parametrize("module,kernel", [(A, "r2_kernel_dissect"), (B, "r2_window_dissect")])
+def test_r2_kernels_match_their_twins_on_hazard_cases(module, kernel, name, cuda_device):
+    """Every variant == its twin on each hazard case the TPU grid takes;
+    full == stream_count, and == the oracle where the case has one."""
+    case = HAZARDS[name]
+    for variant in module.VARIANTS:
+        got = module.stream_count_v(*case.inputs(cuda_device), case.table.max_probe, variant)
+        twin = module.stream_count_v_reference(*case.inputs(cuda_device),
+                                               case.table.max_probe, variant)
+        np.testing.assert_array_equal(_u32(got), _u32(twin), err_msg=variant)
+    full = module.stream_count_v(*case.inputs(cuda_device), case.table.max_probe, "full")
+    np.testing.assert_array_equal(
+        _u32(full), _u32(stream_probe.stream_count(*case.inputs(cuda_device))))
+    if name != "one_key_buckets":
+        np.testing.assert_array_equal(_u32(full), case.expected())
+
+
+@pytest.mark.cuda
+def test_kernel_dissect_refuses_misaligned_keys(cuda_device):
+    args = list(CASE.inputs(cuda_device))
+    shifted = torch.empty(args[0].numel() + 1, dtype=torch.int32, device=cuda_device)
+    args[0] = shifted[1:].view(args[0].shape).copy_(args[0])
+    before = A.launch_counts["r2_kernel_dissect"]
+    with pytest.raises(ValueError, match="16 bytes"):
+        A.stream_count_v(*args, CASE.table.max_probe, "full")
+    assert A.launch_counts["r2_kernel_dissect"] == before
 
 
 def near_one_inputs(device, cap: int):

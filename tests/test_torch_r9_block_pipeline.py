@@ -1,7 +1,8 @@
 """The block-pipeline kernel's twin (``kmer_mapper_tpu_torch.scripts.
 r9_block_pipeline``) against the Pallas variants of
 ``scripts/r9_block_pipeline.py`` run in forced TPU interpret mode on the
-CPU, bit for bit, at GRID 3, TILES 2 and LANES 256."""
+CPU, bit for bit, at GRID 3, TILES 2 and LANES 256: the script's inputs,
+the port's hit-dense ones and its hazards (``S.HAZARDS``)."""
 import importlib.util
 import sys
 from pathlib import Path
@@ -38,7 +39,8 @@ def pallas():
 def inputs(kind, variant):
     """(key_lo, key_hi, counts_in, q) uint32 numpy arrays of GRID * 16
     groups: the script's uniform random keys and queries from zero counts,
-    or the port's hit-dense recipe (random counts_in)."""
+    the port's hit-dense recipe (random counts_in), or one of its hazards
+    (all-ones keys and lanes, buckets of one key)."""
     flags, n_groups = P.FLAGS[variant], GRID * S.COARSE
     if kind == "script":
         rng = np.random.default_rng(10)
@@ -46,11 +48,14 @@ def inputs(kind, variant):
         klo, khi = (rng.integers(0, 1 << 32, shape, dtype=np.uint32) for _ in range(2))
         q = rng.integers(0, 1 << 32, (2, LANES), dtype=np.uint32)
         return klo, khi, np.zeros(shape, np.uint32), q
-    return tuple(x.numpy().view(np.uint32)
-                 for x in S.make_step_inputs("cpu", flags, n_groups, LANES, seed=12))
+    if kind == "dense":
+        arrays = S.make_step_inputs("cpu", flags, n_groups, LANES, seed=12)
+    else:
+        arrays = S.step_hazard_inputs("cpu", kind, flags, n_groups, LANES, seed=12)
+    return tuple(x.numpy().view(np.uint32) for x in arrays)
 
 
-@pytest.mark.parametrize("kind", ["script", "dense"])
+@pytest.mark.parametrize("kind", ["script", "dense", *S.HAZARDS])
 @pytest.mark.parametrize("variant", P.VARIANTS)
 def test_twin_matches_pallas(variant, kind, pallas, monkeypatch):
     for name, value in (("GRID", GRID), ("TILES", TILES), ("LANES", LANES)):
@@ -63,7 +68,7 @@ def test_twin_matches_pallas(variant, kind, pallas, monkeypatch):
     got = P.block_pipeline(*(torch.from_numpy(a.view(np.int32)) for a in arrays), variant,
                            GRID, TILES).numpy().view(np.uint32)
     np.testing.assert_array_equal(got, expect)
-    if kind == "dense":
+    if kind != "script":
         # every step's block changed: each step owns its block
         changed = (expect != arrays[2]).reshape(GRID, -1).any(axis=1)
         assert changed.all()

@@ -242,21 +242,26 @@ def test_dot_candidate_loop_counts_the_kernels_swar_loop(variant, kind):
 
 
 @pytest.mark.parametrize("kind", ["dense", *S.HAZARDS])
-@pytest.mark.parametrize("variant", ["newfull", "tbstatic", "oldfull"])
+@pytest.mark.parametrize("variant", ["newfull", "tbstatic", "oldfull", *P.VARIANTS])
 def test_step_candidate_loop_counts_the_kernels_swar_loop(variant, kind):
-    """S.candidate_loop over every step == the kernel's loop emulated on
-    (group, bucket) words; its hits == the twin's over every step."""
-    flags = S.FLAGS[variant]
-    key_lo, key_hi, counts, q = step_inputs("cpu", kind, flags, S.COARSE, 200)
-    got = S.candidate_loop(key_lo, key_hi, counts, q, variant, 5, 18)
+    """S.candidate_loop (P.candidate_loop for the block pipeline's variants,
+    each step on its own block) over every step == the kernel's loop
+    emulated on (group, bucket) words; its hits == the twin's over every
+    step."""
+    module = P if variant in P.VARIANTS else S
+    flags, grid = module.FLAGS[variant], 5
+    n_groups = grid * S.COARSE if module is P else S.COARSE
+    key_lo, key_hi, counts, q = step_inputs("cpu", kind, flags, n_groups, 200)
+    got = module.candidate_loop(key_lo, key_hi, counts, q, variant, grid, 18)
     klo, khi = S.by_bucket(key_lo, flags), S.by_bucket(key_hi, flags)
     words = bucket_words(D.fingerprint(klo, khi))
     q_fp = D.fingerprint(*(from_int32_bits(x) for x in q)).numpy()
-    tiles = [(t, c, 0 if flags & S.TB_STATIC else (7 * t + c) % S.COARSE)
-             for c in range(5) for t in range(18)]
+    base = [c * S.COARSE if flags & S.OWN_BLOCKS else 0 for c in range(grid)]
+    tiles = [(t, c, base[c] + (0 if flags & S.TB_STATIC else (7 * t + c) % S.COARSE))
+             for c in range(grid) for t in range(18)]
     expect = swar_loop(words, q_fp, tiles, 200)
     assert {k: got[k] for k in expect} == expect
-    steps = torch.arange(5)
+    steps = torch.arange(grid)
     hits = S.steps_twin(key_lo, key_hi, torch.zeros_like(counts), q, flags, steps, 18)
     assert got["hits"] == int(_u32(hits).sum())
     assert 0 < got["hits"] <= got["candidates"] and got["warp_tiles"] <= got["trips"]
@@ -290,6 +295,9 @@ def test_wrappers_check_their_arguments():
         P.block_pipeline(*args[:3], args[3].T.contiguous().T, "new", 2, 2)
     with pytest.raises(ValueError, match="no kernel"):
         P.block_pipeline(*(a.to("meta") for a in args), "new", 2, 2)
+    for phase_units in (0, P.MAX_PHASE_UNITS + 1):
+        with pytest.raises(ValueError, match="phase_units"):
+            P.block_pipeline(*args, "new", 2, 2, phase_units=phase_units)
 
 
 @pytest.mark.parametrize("module,fn,inputs", [
@@ -365,3 +373,36 @@ def test_step_kernels_match_their_twins(module, variant, flags, n_groups, lanes,
     assert module.launch_counts[name] == before + 1
     np.testing.assert_array_equal(_u32(got), _u32(twin(*args, variant, 300, 18)))
     assert (_u32(got) != _u32(args[2])).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arg", [0, 1, 2])
+def test_block_pipeline_refuses_misaligned_keys_and_counts(arg, cuda_device):
+    """The kernel stages with 16-byte copies: a key or count array that does
+    not start on 16 bytes raises before any launch; more lanes than the
+    kernel keeps in registers raise too."""
+    args = list(S.make_step_inputs(cuda_device, P.FLAGS["new"], 2 * S.COARSE, 64))
+    shifted = torch.empty(args[arg].numel() + 1, dtype=torch.int32, device=cuda_device)
+    args[arg] = shifted[1:].view(args[arg].shape).copy_(args[arg])
+    assert args[arg].data_ptr() % 16 and args[arg].is_contiguous()
+    before = P.launch_counts["r9_block_pipeline"]
+    with pytest.raises(ValueError, match="16 bytes"):
+        P.block_pipeline(*args, "new", 2, 2)
+    q = torch.zeros(2, P.MAX_LANES + 1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="lanes"):
+        P.block_pipeline(*S.make_step_inputs(cuda_device, P.FLAGS["new"], 2 * S.COARSE, 64)[:3],
+                         q, "new", 2, 2)
+    assert P.launch_counts["r9_block_pipeline"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase_units", [1, 3, P.MAX_PHASE_UNITS])
+@pytest.mark.parametrize("variant", P.VARIANTS)
+def test_block_pipeline_ring_depths_match_the_twin(variant, phase_units, cuda_device):
+    """Every phase size of the kernel's ring gives the twin's bits: 37 steps
+    (592 groups) over the persistent CTAs, 20 tiles (t = 16 .. 19 revisit
+    groups), 5,000 lanes."""
+    args = S.make_step_inputs(cuda_device, P.FLAGS[variant], 37 * S.COARSE, 5000)
+    got = P.block_pipeline(*args, variant, 37, 20, phase_units=phase_units)
+    twin = P.block_pipeline_reference(*args, variant, 37, 20)
+    np.testing.assert_array_equal(_u32(got), _u32(twin))
