@@ -61,7 +61,6 @@ result line):
      hazard input (carried, -0.0 and non-byte planes; all-ones keys and
      lanes, buckets of one key), and the candidates and loop trips of
      their fingerprinted tiles on the main's inputs, counted in torch;
-     r9_block_pipeline's new at each size of its ring's phase;
   8. library: the pre-hashed calls on the bench index, as KAGE calls them:
      compat.map_kmers_to_graph_index on 2^24 hashes, in_graph_index on
      2^24, map_hashes on 2^16 and GpuCounter with reverse complements on
@@ -1303,7 +1302,7 @@ def phase_tiles(torch, np, device) -> list[dict]:
     variant against its twin on the main's inputs (launches not counted)
     and on each hazard input, and what the candidate loop of each variant
     does on the main's inputs (candidates and hits a live lane-tile, trips
-    a warp-tile); r9_block_pipeline's new at each phase size of its ring."""
+    a warp-tile)."""
     from kmer_mapper_tpu_torch.scripts import r9_block_pipeline as P
     from kmer_mapper_tpu_torch.scripts import r9_dot_orient as D
     from kmer_mapper_tpu_torch.scripts import r9_step_parts as S
@@ -1376,15 +1375,6 @@ def phase_tiles(torch, np, device) -> list[dict]:
             log(f"tiles {name}: {variant:9s} kernel {res['ms'][variant]:9.4f} ms  twin "
                 f"{twin_ms[variant]:9.3f} ms  == twin, {hits} "
                 f"{'hits' if m is D else 'count slots changed'}{extra}")
-        if m is P:  # the ring's phase sizes, on the main's inputs of new
-            x, ref = res["inputs"]["new"], _u32(P.block_pipeline(*res["inputs"]["new"], "new"))
-            sweep = {}
-            for units in range(1, P.MAX_PHASE_UNITS + 1):
-                if not np.array_equal(_u32(P.block_pipeline(*x, "new", phase_units=units)), ref):
-                    raise AssertionError(f"tiles: {name} new, {units} units a phase: != twin")
-                sweep[units] = median_ms(lambda: P.block_pipeline(*x, "new", phase_units=units))
-            log(f"tiles {name}: new by groups a phase (PHASE_UNITS {P.PHASE_UNITS}), each == "
-                "the twin: " + ", ".join(f"{u} {ms:.4f} ms" for u, ms in sweep.items()))
         # bound: the inputs read and the outputs written once; 4 integer
         # operations per lane and tile (bucket, live), 16 word compares per
         # live lane (2 words of 8 key lanes)

@@ -9,25 +9,28 @@
 // they land, then builds the tile from the buffer (rows padded to 9 words,
 // a fingerprint word a bucket), counts its range into it and adds the
 // nonzero entries into the global counts. What a round of each variant does
-// on the tile (block_count.cuh names the variants):
+// on the tile (block_count.cuh names the variants; each is count_tile.cuh's
+// query_rounds):
 //
-//   kFull, kNoDma  count_tile.cuh's count_query: the bucket's fingerprint
-//                  word, then the key words of the candidate lanes only
+//   kFull, kNoDma  the count (count_query): the bucket's fingerprint word,
+//                  then the key words of the candidate lanes only
 //                  (kNoDma's query is the tile's key at slot i mod n_slots)
 //   kNoMm2         the same candidates and compare; a hit of lane l adds
 //                  to row 0, lane l
 //   kNoMm1         all 8 slots of the query's own bucket, every round
-//   kNoMm1Rolled   all 8 slots of bucket local + p (add_rounds)
+//   kNoMm1Rolled   all 8 slots of bucket local + p
 //   kNoHot         bucket p's fingerprint word and keys
 //   kEmpty         staging only: the tile is built, nothing is counted
 #pragma once
 
+#include "async_copy.cuh"
 #include "count_tile.cuh"
 
 namespace kmt_range {
 
 using namespace kmt_count;
-using kmt_tile::kRow;
+using kmt_copy::aligned16;
+using kmt_copy::cp_async16;
 using kmt_tile::PaddedTile;
 
 constexpr int kCountThreads = 256;
@@ -38,11 +41,6 @@ struct RangeSmem {
   PaddedTile tile;
   alignas(16) uint32_t stage[2 * kTileSlots];
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
 
 template <int V>
 __device__ __forceinline__ void load_keys(unsigned long long (&key)[kItems],
@@ -56,39 +54,14 @@ __device__ __forceinline__ void load_keys(unsigned long long (&key)[kItems],
   }
 }
 
-// One query's rounds under variant V; live queries as in count_query.
+// One query's rounds under variant V (count_tile.cuh's query_rounds).
 template <int V>
 __device__ __forceinline__ void dissect_query(PaddedTile& tile, uint32_t m_lo, uint32_t m_hi,
                                               int shift, int64_t bucket0, int bpb, int rounds) {
-  if constexpr (V == kFull || V == kNoDma) {
-    kmt_tile::count_query(tile, m_lo, m_hi, shift, bucket0, bpb, rounds);
-  } else if constexpr (V == kNoMm1Rolled) {
-    kmt_tile::add_rounds(tile, m_lo, m_hi, shift, bucket0, bpb, rounds);
-  } else {
-    if (m_lo == kInvalid && m_hi == kInvalid) return;
-    // shifting a 32-bit word by 32 is undefined: one bucket holds every query
-    const int64_t bucket = shift >= 32 ? 0 : static_cast<int64_t>(m_lo >> shift);
-    const int64_t local = bucket - bucket0;
-    if (local < 0 || local >= bpb) return;
-    const uint32_t mine = kmt_tile::fingerprint(m_hi) * kmt_tile::kNibbles;
-    for (int p = 0; p < rounds; ++p) {
-      const int64_t at = V == kNoHot ? p : V == kNoMm1 ? local : local + p;
-      const int r = static_cast<int>(at & (bpb - 1));
-      const int row = r * kRow;
-      if constexpr (V == kNoMm1) {
-#pragma unroll
-        for (int l = 0; l < kBucketKeys; ++l) atomicAdd(&tile.cnt[row + l], 1u);
-      } else {
-        const int dst = V == kNoMm2 ? 0 : row;
-        for (uint32_t m = kmt_tile::zero_nibbles(tile.fp[r] ^ mine); m; m &= m - 1) {
-          const int l = (__ffs(m) - 1) >> 2;
-          if (tile.lo[row + l] == m_lo && tile.hi[row + l] == m_hi) {
-            atomicAdd(&tile.cnt[dst + l], 1u);
-          }
-        }
-      }
-    }
-  }
+  using namespace kmt_tile;
+  constexpr int kBucket = V == kNoHot ? kRoundP : V == kNoMm1 ? kOwnBucket : kChained;
+  constexpr bool kCompare = V != kNoMm1 && V != kNoMm1Rolled;
+  query_rounds<kBucket, kCompare, V == kNoMm2>(tile, m_lo, m_hi, shift, bucket0, bpb, rounds);
 }
 
 // counts += variant V's contribution of the sorted queries [first, hi) of
@@ -140,9 +113,7 @@ __device__ __forceinline__ void count_range(RangeSmem& sm, const uint32_t* __res
       if (i >= hi) break;
       uint32_t m_lo, m_hi;
       if (V == kNoDma) {  // the key of slot i mod n_slots stands in
-        const int w = kmt_tile::slot_word(static_cast<int>(i & (n_slots - 1)));
-        m_lo = sm.tile.lo[w];
-        m_hi = sm.tile.hi[w];
+        kmt_tile::slot_key(sm.tile, static_cast<int>(i & (n_slots - 1)), m_lo, m_hi);
       } else {
         const unsigned long long u = key[j] ^ kSignBit;
         m_lo = static_cast<uint32_t>(u >> 32);
@@ -157,7 +128,5 @@ __device__ __forceinline__ void count_range(RangeSmem& sm, const uint32_t* __res
   __syncthreads();
   kmt_tile::flush_tile(sm.tile, counts, slot0, n_slots, kCountThreads);
 }
-
-inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace kmt_range

@@ -88,12 +88,19 @@ __device__ __forceinline__ uint32_t zero_nibbles(uint32_t x) {
   return ~(((x & 0x77777777u) + 0x77777777u) | x) & 0x88888888u;
 }
 
-// Adds one to each slot of the query's buckets whose key equals (m_lo,
-// m_hi): a round reads the bucket's fingerprint word and the key words of
-// the lanes whose fingerprint is the query's only. A query is live when it
-// is not the all-ones pair and its bucket lies in the block.
-__device__ __forceinline__ void count_query(PaddedTile& tile, uint32_t m_lo, uint32_t m_hi,
-                                            int shift, int64_t bucket0, int bpb, int rounds) {
+// Which bucket a query's round p reads: its own bucket's chain (local + p,
+// the count), its own bucket every round, or bucket p of the block.
+enum RoundBucket : int { kChained = 0, kOwnBucket = 1, kRoundP = 2 };
+
+// A query's rounds on the tile. A query is live when it is not the
+// all-ones pair and its bucket lies in the block. With kCompare a round
+// reads its bucket's fingerprint word, compares the key words of the lanes
+// whose fingerprint is the query's only, and adds one to each lane whose
+// key equals (m_lo, m_hi), in the bucket's row or, kRowZero, in row 0;
+// without it a round adds one to all 8 slots of its bucket.
+template <int kBucket, bool kCompare, bool kRowZero>
+__device__ __forceinline__ void query_rounds(PaddedTile& tile, uint32_t m_lo, uint32_t m_hi,
+                                             int shift, int64_t bucket0, int bpb, int rounds) {
   if (m_lo == kInvalid && m_hi == kInvalid) return;
   // shifting a 32-bit word by 32 is undefined: one bucket holds every query
   const int64_t bucket = shift >= 32 ? 0 : static_cast<int64_t>(m_lo >> shift);
@@ -101,30 +108,37 @@ __device__ __forceinline__ void count_query(PaddedTile& tile, uint32_t m_lo, uin
   if (local < 0 || local >= bpb) return;
   const uint32_t mine = fingerprint(m_hi) * kNibbles;
   for (int p = 0; p < rounds; ++p) {
-    const int r = static_cast<int>((local + p) & (bpb - 1));
+    const int64_t at = kBucket == kChained ? local + p : kBucket == kOwnBucket ? local : p;
+    const int r = static_cast<int>(at & (bpb - 1));
     const int row = r * kRow;
-    for (uint32_t m = zero_nibbles(tile.fp[r] ^ mine); m; m &= m - 1) {
-      const int l = (__ffs(m) - 1) >> 2;
-      if (tile.lo[row + l] == m_lo && tile.hi[row + l] == m_hi) {
-        atomicAdd(&tile.cnt[row + l], 1u);
+    if constexpr (!kCompare) {
+#pragma unroll
+      for (int l = 0; l < kBucketKeys; ++l) atomicAdd(&tile.cnt[row + l], 1u);
+    } else {
+      const int dst = kRowZero ? 0 : row;
+      for (uint32_t m = zero_nibbles(tile.fp[r] ^ mine); m; m &= m - 1) {
+        const int l = (__ffs(m) - 1) >> 2;
+        if (tile.lo[row + l] == m_lo && tile.hi[row + l] == m_hi) {
+          atomicAdd(&tile.cnt[dst + l], 1u);
+        }
       }
     }
   }
 }
 
-// Round p adds one to all 8 slots of the query's bucket local + p, with no
-// compare (the dissection's nomm1); live queries as in count_query.
-__device__ __forceinline__ void add_rounds(PaddedTile& tile, uint32_t m_lo, uint32_t m_hi,
-                                           int shift, int64_t bucket0, int bpb, int rounds) {
-  if (m_lo == kInvalid && m_hi == kInvalid) return;
-  const int64_t bucket = shift >= 32 ? 0 : static_cast<int64_t>(m_lo >> shift);
-  const int64_t local = bucket - bucket0;
-  if (local < 0 || local >= bpb) return;
-  for (int p = 0; p < rounds; ++p) {
-    const int r = static_cast<int>((local + p) & (bpb - 1));
-#pragma unroll
-    for (int l = 0; l < kBucketKeys; ++l) atomicAdd(&tile.cnt[slot_word(r * kBucketKeys + l)], 1u);
-  }
+// The count: adds one to each slot of the query's chain of buckets whose
+// key equals (m_lo, m_hi).
+__device__ __forceinline__ void count_query(PaddedTile& tile, uint32_t m_lo, uint32_t m_hi,
+                                            int shift, int64_t bucket0, int bpb, int rounds) {
+  query_rounds<kChained, true, false>(tile, m_lo, m_hi, shift, bucket0, bpb, rounds);
+}
+
+// The key stored at slot s.
+__device__ __forceinline__ void slot_key(const PaddedTile& tile, int s, uint32_t& lo,
+                                         uint32_t& hi) {
+  const int w = slot_word(s);
+  lo = tile.lo[w];
+  hi = tile.hi[w];
 }
 
 // Adds each nonzero count-tile entry into the global counts of the block's

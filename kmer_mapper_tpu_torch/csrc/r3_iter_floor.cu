@@ -57,7 +57,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
+
 namespace {
+
+using kmt_copy::aligned16;
+using kmt_copy::cp_async16;
 
 constexpr int kSlots = 4;      // vmem's and mm's stand-in tiles
 constexpr int kRows = 4;       // rows of a query tile: bucket, lo, hi, hi
@@ -81,11 +86,6 @@ constexpr int kCarry = kBpb * kK;
 constexpr int kTicket = kCarry + 1;
 
 enum Variant : int { kLoop = 0, kSmem = 1, kVmem = 2, kDma = 3, kMm = 4, kFull = 5, kGrid = 6 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -377,7 +377,7 @@ extern "C" int r3_iter_floor_launch(const void* off, const void* tb, const void*
                                     int n_grid, int cap, int variant, int device,
                                     void* stream) {
   if (cap < kWarp || cap > kMaxCap || cap % kWarp || n_iter < 0 || n_grid < 1 ||
-      variant < kLoop || variant > kGrid || reinterpret_cast<uintptr_t>(q) % 16) {
+      variant < kLoop || variant > kGrid || !aligned16(q)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t set = cudaSetDevice(device);

@@ -49,7 +49,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
+
 namespace kmt_r9 {
+
+using kmt_copy::aligned16;
+using kmt_copy::cp_async16;
 
 constexpr int kGpb = 128;                      // buckets of a key tile
 constexpr int kK = 8;                          // key lanes of a bucket
@@ -199,15 +204,6 @@ struct CountTile {
     atomicAdd(c + (kBucketMajorTile ? b * kK + k : k * kGpb + b), 1u);
   }
 };
-
-// A 16-byte asynchronous copy from device to shared memory (cp.async; both
-// addresses on 16 bytes).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // Checks the step kernels' launch arguments and selects the tensors' device.
 inline cudaError_t check_steps(int n_steps, int n_tiles, int lanes, int n_ctas, int device) {

@@ -160,7 +160,7 @@ def library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     )
     lib.r9_block_pipeline_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     )
     lib.gather_probe_dissect_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 3

@@ -27,9 +27,10 @@ and the query loads:
 A query is live when it is not the all-ones pair and its bucket lies in its
 block; it walks ``max(1, min(max_probe, block_probe[b]))`` rounds, as the
 Pallas kernel does. ``hazard_cases`` are the inputs that the variants are
-held to their twin on besides the script's. ``main`` builds the script's inputs (4,000,000 uniform
-keys, 16 Mi queries of which half are drawn from the keys) and prints one
-line per variant: the median of 5 CUDA-event times and ns per query.
+held to their twin on besides the script's. ``main`` builds the script's
+inputs (4,000,000 uniform keys, 16 Mi queries of which half are drawn from
+the keys) and prints one line per variant: the median of 5 CUDA-event times
+and ns per query.
 """
 from __future__ import annotations
 

@@ -15,9 +15,9 @@ count block back. The result is counts_in plus every step's tiles.
 
 A tile reads one group, so the kernel runs group by group: persistent CTAs
 stream the groups through a ring of stages filled with 16-byte
-``cp.async`` copies a phase of ``PHASE_UNITS`` groups ahead of the phase
-they count, and write each count group back after its tiles. Each thread
-keeps its lanes' queries in registers: at most ``MAX_LANES`` lanes.
+``cp.async`` copies a phase of 7 groups ahead of the phase they count, and
+write each count group back after its tiles. Each thread keeps its lanes'
+queries in registers, 8,192 lanes a pass; more lanes take more passes.
 ``candidate_loop`` counts, in torch, the candidates a live lane meets and
 the trips a warp's candidate loop makes. ``main`` prints the grid, then ms
 and ns per tile for each variant.
@@ -39,23 +39,16 @@ FLAGS = {"new": OWN_BLOCKS, "old": OWN_BLOCKS | BUCKET_MAJOR}
 LANES = 7168
 GRID = 512
 TILES = 18
-#: groups a phase of the kernel's ring counts while the next phase lands
-PHASE_UNITS = 7
-MAX_PHASE_UNITS = 8
-#: query lanes the kernel keeps in registers: 8 a thread of 1024
-MAX_LANES = 8192
 
 launch_counts = {"r9_block_pipeline": 0, "r9_block_pipeline_reference": 0}
 
 
 def block_pipeline(key_lo, key_hi, counts_in, q, variant: str, grid: int | None = None,
-                   tiles: int | None = None, phase_units: int = PHASE_UNITS) -> torch.Tensor:
+                   tiles: int | None = None) -> torch.Tensor:
     """counts_in plus ``grid`` steps of ``tiles`` tiles (the module's
     ``GRID`` and ``TILES`` by default), each on its own block of 16 groups,
     as a new tensor. Keys and counts are int32 bit patterns of uint32 of
     ``grid * 16`` groups in the variant's layout, ``q`` (2, lanes).
-    ``phase_units`` (1 .. ``MAX_PHASE_UNITS``) changes the kernel's ring,
-    not the result.
 
     CUDA tensors launch ``csrc/r9_block_pipeline.cu`` (a failed build or
     launch raises); CPU tensors run :func:`block_pipeline_reference`."""
@@ -66,8 +59,6 @@ def block_pipeline(key_lo, key_hi, counts_in, q, variant: str, grid: int | None 
         raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
     if grid < 1 or tiles < 0:
         raise ValueError(f"{name}: grid={grid} must be >= 1, tiles={tiles} >= 0")
-    if not 1 <= phase_units <= MAX_PHASE_UNITS:
-        raise ValueError(f"{name}: phase_units={phase_units} is not in 1..{MAX_PHASE_UNITS}")
     check_steps(name, key_lo, key_hi, counts_in, q, FLAGS[variant], grid * COARSE)
     if key_lo.device.type == "cpu":
         return block_pipeline_reference(key_lo, key_hi, counts_in, q, variant, grid, tiles)
@@ -75,15 +66,12 @@ def block_pipeline(key_lo, key_hi, counts_in, q, variant: str, grid: int | None 
         raise ValueError(f"{name}: no kernel for device {key_lo.device}")
     if any(t.data_ptr() % 16 for t in (key_lo, key_hi, counts_in)):
         raise ValueError(f"{name}: keys and counts must start on 16 bytes (16-byte copies)")
-    if q.shape[1] > MAX_LANES:
-        raise ValueError(f"{name}: {q.shape[1]} query lanes, the kernel keeps at most "
-                         f"{MAX_LANES}")
     dev = key_lo.device
     out = torch.empty_like(counts_in)
     with torch.cuda.device(dev):
         rc = native.library().r9_block_pipeline_launch(
             key_lo.data_ptr(), key_hi.data_ptr(), counts_in.data_ptr(), q.data_ptr(),
-            out.data_ptr(), grid, tiles, q.shape[1], n_ctas(dev, grid), phase_units,
+            out.data_ptr(), grid, tiles, q.shape[1], n_ctas(dev, grid),
             VARIANTS.index(variant), dev.index, torch.cuda.current_stream().cuda_stream,
         )
     if rc:

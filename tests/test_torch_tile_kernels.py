@@ -295,9 +295,6 @@ def test_wrappers_check_their_arguments():
         P.block_pipeline(*args[:3], args[3].T.contiguous().T, "new", 2, 2)
     with pytest.raises(ValueError, match="no kernel"):
         P.block_pipeline(*(a.to("meta") for a in args), "new", 2, 2)
-    for phase_units in (0, P.MAX_PHASE_UNITS + 1):
-        with pytest.raises(ValueError, match="phase_units"):
-            P.block_pipeline(*args, "new", 2, 2, phase_units=phase_units)
 
 
 @pytest.mark.parametrize("module,fn,inputs", [
@@ -379,8 +376,7 @@ def test_step_kernels_match_their_twins(module, variant, flags, n_groups, lanes,
 @pytest.mark.parametrize("arg", [0, 1, 2])
 def test_block_pipeline_refuses_misaligned_keys_and_counts(arg, cuda_device):
     """The kernel stages with 16-byte copies: a key or count array that does
-    not start on 16 bytes raises before any launch; more lanes than the
-    kernel keeps in registers raise too."""
+    not start on 16 bytes raises before any launch."""
     args = list(S.make_step_inputs(cuda_device, P.FLAGS["new"], 2 * S.COARSE, 64))
     shifted = torch.empty(args[arg].numel() + 1, dtype=torch.int32, device=cuda_device)
     args[arg] = shifted[1:].view(args[arg].shape).copy_(args[arg])
@@ -388,21 +384,18 @@ def test_block_pipeline_refuses_misaligned_keys_and_counts(arg, cuda_device):
     before = P.launch_counts["r9_block_pipeline"]
     with pytest.raises(ValueError, match="16 bytes"):
         P.block_pipeline(*args, "new", 2, 2)
-    q = torch.zeros(2, P.MAX_LANES + 1, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="lanes"):
-        P.block_pipeline(*S.make_step_inputs(cuda_device, P.FLAGS["new"], 2 * S.COARSE, 64)[:3],
-                         q, "new", 2, 2)
     assert P.launch_counts["r9_block_pipeline"] == before
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("phase_units", [1, 3, P.MAX_PHASE_UNITS])
+@pytest.mark.parametrize("lanes", [5000, 8192, 9000, 20000])
 @pytest.mark.parametrize("variant", P.VARIANTS)
-def test_block_pipeline_ring_depths_match_the_twin(variant, phase_units, cuda_device):
-    """Every phase size of the kernel's ring gives the twin's bits: 37 steps
-    (592 groups) over the persistent CTAs, 20 tiles (t = 16 .. 19 revisit
-    groups), 5,000 lanes."""
-    args = S.make_step_inputs(cuda_device, P.FLAGS[variant], 37 * S.COARSE, 5000)
-    got = P.block_pipeline(*args, variant, 37, 20, phase_units=phase_units)
+def test_block_pipeline_ring_depths_match_the_twin(variant, lanes, cuda_device):
+    """The kernel's ring gives the twin's bits: 37 steps (592 groups) over
+    the persistent CTAs leave each a partial last phase, 20 tiles (t = 16 ..
+    19 revisit groups); past the 8,192 lanes a pass keeps in registers, the
+    later passes add to the counts the earlier ones wrote back."""
+    args = S.make_step_inputs(cuda_device, P.FLAGS[variant], 37 * S.COARSE, lanes)
+    got = P.block_pipeline(*args, variant, 37, 20)
     twin = P.block_pipeline_reference(*args, variant, 37, 20)
     np.testing.assert_array_equal(_u32(got), _u32(twin))
