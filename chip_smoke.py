@@ -89,6 +89,19 @@ result line):
      seconds, bases and k-mers per second, the seconds the mapping loop
      waited on the host feed and the gzip decoder; from (c)'s trace, the
      device's busy share of the mapping window.
+ 10. sharded: the node-count finalize kernel against its twin, numpy and
+     the host finalize on the hazard cases of ops/finalize_cases.py; the
+     finalize of phase 8's 2^26-hash call timed beside the twin, the host
+     and an int64 index_add_; phase 5's chunks through ShardedKmerMapper on
+     (data, index) grids (1,1), (2,1), (1,2), (2,2) of the card, node counts
+     == KmerMapper's, M k-mers/s a grid; sharded map_hashes on phase 8's
+     2^23-bucket table over 4 index shards and on a 512-bucket table over 8
+     sub-block shards == KmerMapper's; map_file_sharded over 4 cells (2
+     index shards) on phase 9's FASTQ == map_file's counts; with two cards
+     or more, the grids and the file path over distinct cards and the
+     two-card tests of tests/test_torch_kernels.py. Each run's launch counts
+     are zeroed before it and read after (stream_count, gather_probe and
+     node_counts must run, no twin).
 The line before the last is a JSON object describing each kernel, with its
 bound: the larger of its bytes over 3.35 TB/s (the H100 SXM's memory rate)
 and its 32-bit integer operations over the card's INT32 rate (SMs x 64
@@ -540,7 +553,7 @@ def phase_end_to_end(torch, np, chunk0, rng, workdir) -> dict:
     from kmer_mapper_tpu_torch import cli, oracle
     from kmer_mapper_tpu_torch.index import kmer_index
     from kmer_mapper_tpu_torch.io import readers
-    from kmer_mapper_tpu_torch.ops import block_partition, hashing, stream_probe
+    from kmer_mapper_tpu_torch.ops import block_partition, finalize, hashing, stream_probe
     from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
 
     t = time.perf_counter()
@@ -562,7 +575,7 @@ def phase_end_to_end(torch, np, chunk0, rng, workdir) -> dict:
         f"written in {time.perf_counter() - t:.1f} s")
 
     out = os.path.join(workdir, "counts.npy")
-    modules = (stream_probe, hashing, block_partition)
+    modules = (stream_probe, hashing, block_partition, finalize)
     zero_launch_counts(*modules)
     t = time.perf_counter()
     cli.main(["map", "-i", index_path, "-f", fq, "-k", str(K), "-o", out])
@@ -573,7 +586,8 @@ def phase_end_to_end(torch, np, chunk0, rng, workdir) -> dict:
     n_chunks = -(-E2E_READS // readers.strided_rows(CUDA_BUF, READ_LEN))
     twins = [name for name, n in launches.items() if "reference" in name and n]
     if (min(launches[name] for name in MAIN_PATH_KERNELS) < n_chunks
-            or launches["plane_hash_keys"] < n_chunks or launches["ragged_hash_keys"] or twins):
+            or launches["plane_hash_keys"] < n_chunks or launches["ragged_hash_keys"] or twins
+            or launches["node_counts"] != 1):
         raise AssertionError(f"main path did not run the kernels alone: {launches}")
     expect = oracle.map_kmers_to_index(arrays, fixed_read_kmers(np, reads.reshape(-1)))
     if not np.array_equal(got, expect):
@@ -1599,6 +1613,8 @@ def phase_library(torch, np, arrays, rng, device) -> dict:
     if not np.array_equal(mapper.node_counts(), got_big):
         raise AssertionError("library: the split stages of the timed call count otherwise")
     finalize_s = time.perf_counter() - t
+    split = dict(call_s=big_s, upload_s=upload_s, kernel_s=kernel_s, finalize_s=finalize_s,
+                 counts=mapper.counts.clone(), node_counts=got_big)
     log(f"library: second call on {LIB_TIMED} hashes, same mapper and table: "
         f"{big_s:.3f} s host clock, {LIB_TIMED / big_s / 1e6:.1f} M hashes/s; its stages "
         f"alone (host clock): upload {upload_s:.4f} s, kernel {kernel_s:.4f} s, node counts "
@@ -1744,7 +1760,8 @@ def phase_library(torch, np, arrays, rng, device) -> dict:
     del key_lo, key_hi, block_probe, batch
     torch.cuda.empty_cache()
     log(f"library: phase took {time.perf_counter() - t_phase:.1f} s")
-    return {
+    split.update(large=(keys, large), index=index)
+    return split, {
         "name": "gather_probe", "route": "cuda",
         "source": "kmer_mapper_tpu_torch/csrc/gather_probe.cu",
         "replaces": "kmer_mapper_tpu/ops/probe.py:31 (XLA)",
@@ -1844,12 +1861,13 @@ def ragged_fastq_bytes(np, chunk) -> bytes:
                     for i, (s, e) in enumerate(zip(chunk.read_starts, ends)))
 
 
-def phase_file_feed(torch, np, chunks, dev_chunks, ragged, index, device) -> dict:
+def phase_file_feed(torch, np, chunks, dev_chunks, ragged, index, device, workdir) -> dict:
     """The file path as a user runs it: the CLI on FASTQ, .fq.gz and BGZF
     files of phase 5's reads and on a FASTQ of the first ragged chunk's
     reads (``ragged``: its SequenceChunk and device chunk), each held to a
     fresh map_chunk pass over the same chunks, with the launch and frame
-    counts zeroed before each run and read after it."""
+    counts zeroed before each run and read after it. The files, the index
+    and each run's counts stay in ``workdir`` for phase 10."""
     import gzip
 
     from kmer_mapper_tpu_torch import cli, pipeline
@@ -1859,122 +1877,404 @@ def phase_file_feed(torch, np, chunks, dev_chunks, ragged, index, device) -> dic
     from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
 
     t_phase = time.perf_counter()
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_feed_")
-    try:
-        index_path = os.path.join(workdir, "index.tpuidx.npz")
-        index.to_file(index_path)
-        paths = {name: os.path.join(workdir, name) for name in
-                 ("reads8.fq", "reads1.fq", "reads1.fq.gz", "reads1.bgzf.fq.gz",
-                  "ragged1.fq")}
-        first_id = 0
-        with open(paths["reads8.fq"], "wb") as f:
-            for i, chunk in enumerate(chunks):
-                payload = fastq_bytes(np, chunk, first_id)
-                first_id += chunk.n_reads
-                f.write(payload)
-                if i == 0:
-                    first = payload
-        with open(paths["reads1.fq"], "wb") as f:
-            f.write(first)
-        with open(paths["reads1.fq.gz"], "wb") as f:
-            f.write(gzip.compress(first, compresslevel=1))
-        write_bgzf(paths["reads1.bgzf.fq.gz"], first, level=1)
-        del first
-        ragged_chunk, ragged_dev = ragged
-        with open(paths["ragged1.fq"], "wb") as f:
-            f.write(ragged_fastq_bytes(np, ragged_chunk))
-        sizes = {name: os.path.getsize(p) for name, p in paths.items()}
-        log(f"file feed: {os.cpu_count()} host cores; wrote {sizes} bytes in "
-            f"{time.perf_counter() - t_phase:.1f} s; "
-            f"gzip decoders: .fq.gz {gzio.decoder_name(paths['reads1.fq.gz'])}, "
-            f"BGZF {gzio.decoder_name(paths['reads1.bgzf.fq.gz'])}")
+    index_path = os.path.join(workdir, "index.tpuidx.npz")
+    index.to_file(index_path)
+    paths = {name: os.path.join(workdir, name) for name in
+             ("reads8.fq", "reads1.fq", "reads1.fq.gz", "reads1.bgzf.fq.gz",
+              "ragged1.fq")}
+    first_id = 0
+    with open(paths["reads8.fq"], "wb") as f:
+        for i, chunk in enumerate(chunks):
+            payload = fastq_bytes(np, chunk, first_id)
+            first_id += chunk.n_reads
+            f.write(payload)
+            if i == 0:
+                first = payload
+    with open(paths["reads1.fq"], "wb") as f:
+        f.write(first)
+    with open(paths["reads1.fq.gz"], "wb") as f:
+        f.write(gzip.compress(first, compresslevel=1))
+    write_bgzf(paths["reads1.bgzf.fq.gz"], first, level=1)
+    del first
+    ragged_chunk, ragged_dev = ragged
+    with open(paths["ragged1.fq"], "wb") as f:
+        f.write(ragged_fastq_bytes(np, ragged_chunk))
+    sizes = {name: os.path.getsize(p) for name, p in paths.items()}
+    log(f"file feed: {os.cpu_count()} host cores; wrote {sizes} bytes in "
+        f"{time.perf_counter() - t_phase:.1f} s; "
+        f"gzip decoders: .fq.gz {gzio.decoder_name(paths['reads1.fq.gz'])}, "
+        f"BGZF {gzio.decoder_name(paths['reads1.bgzf.fq.gz'])}")
 
-        config = MapperConfig(k=K, buf=CUDA_BUF, max_reads=max(1024, CUDA_BUF // 32),
-                              read_len=READ_LEN)
+    config = MapperConfig(k=K, buf=CUDA_BUF, max_reads=max(1024, CUDA_BUF // 32),
+                          read_len=READ_LEN)
 
-        def reference(n_chunks):
-            mapper = KmerMapper(index, config, device)
-            for words, nb, _ in dev_chunks[:n_chunks]:
-                mapper.map_chunk(words, None, nb, strided=True)
-            return mapper.node_counts()
+    def reference(n_chunks):
+        mapper = KmerMapper(index, config, device)
+        for words, nb, _ in dev_chunks[:n_chunks]:
+            mapper.map_chunk(words, None, nb, strided=True)
+        return mapper.node_counts()
 
-        ragged_mapper = KmerMapper(index, MapperConfig(k=K, buf=CUDA_BUF,
-                                                       max_reads=config.max_reads), device)
-        ragged_mapper.map_chunk(*ragged_dev)
-        expect = {"one": reference(1), "all": reference(len(dev_chunks)),
-                  "ragged": ragged_mapper.node_counts()}
-        profile_dir = os.path.join(workdir, "trace")
-        # tag, what, file, expected counts, flags, numpy framer, the step's kernel
-        runs = [
-            ("a", "numpy framer, -t 1", "reads1.fq", "one", ["-t", "1"], True, "plane"),
-            ("b", "native, -t 1", "reads8.fq", "all", ["-t", "1"], False, "plane"),
-            ("c", "native, -t 8, --profile-dir", "reads8.fq", "all",
-             ["-t", "8", "--profile-dir", profile_dir], False, "plane"),
-            ("f", "native, -t 8, no profiler", "reads8.fq", "all", ["-t", "8"], False,
-             "plane"),
-            ("d", ".fq.gz, -t 8", "reads1.fq.gz", "one", ["-t", "8"], False, "plane"),
-            ("e", "BGZF, -t 8", "reads1.bgzf.fq.gz", "one", ["-t", "8"], False, "plane"),
-            ("g", "ragged FASTQ, -t 8", "ragged1.fq", "ragged", ["-t", "8"], False, "ragged"),
-        ]
-        out = {}
-        catch = RunFigures()
-        pipeline_log = logging.getLogger(pipeline.__name__)
-        pipeline_log.addHandler(catch)
-        pipeline_log.setLevel(logging.INFO)
-        for tag, what, name, expect_key, flags, no_native, step in runs:
-            catch.figures = None
-            counts_path = os.path.join(workdir, f"counts_{tag}.npy")
-            zero_launch_counts(stream_probe, hashing, block_partition)
-            native.frame_counts["buffers"] = 0
-            if no_native:
-                os.environ["KMT_NO_NATIVE"] = "1"
-            try:
-                t = time.perf_counter()
-                cli.main(["map", "-i", index_path, "-f", paths[name], "-k", str(K),
-                          "-o", counts_path, "--device", str(device), *flags])
-                wall = time.perf_counter() - t
-            finally:
-                os.environ.pop("KMT_NO_NATIVE", None)
-            run = dict(catch.figures)
-            launches = all_launches(stream_probe, hashing, block_partition)
-            framed = native.frame_counts["buffers"]
-            if not np.array_equal(np.load(counts_path), expect[expect_key]):
-                raise AssertionError(f"file feed ({tag}) {what}: node counts differ from "
-                                     "the map_chunk reference")
-            other = "ragged" if step == "plane" else "plane"
-            if (min(launches[name] for name in MAIN_PATH_KERNELS) < run["chunks"]
-                    or launches[f"{step}_hash_keys"] < run["chunks"]
-                    or launches[f"{other}_hash_keys"]
-                    or any(n for key, n in launches.items() if "reference" in key)):
-                raise AssertionError(f"file feed ({tag}): the kernels did not run alone: "
-                                     f"{launches} for {run['chunks']} chunks")
-            if (framed > 0) == no_native:
-                raise AssertionError(f"file feed ({tag}): the native loader framed {framed} "
-                                     "buffers")
-            decoder = gzio.decoder_name(paths[name]) if name.endswith(".gz") else "none"
-            run.update(wall_s=wall, framed=framed, launches=launches["stream_count"],
-                       hash_launches=launches[f"{step}_hash_keys"], decoder=decoder)
-            out[tag] = run
-            log(f"file feed ({tag}) {what}: {sizes[name]} bytes, {run['chunks']} chunks, "
-                f"wall {wall:.3f} s ({run['bases'] / wall / 1e6:.1f} M bases/s, "
-                f"{run['kmers'] / wall / 1e6:.1f} M k-mers/s); mapping loop "
-                f"{run['map_s']:.3f} s ({run['bases'] / run['map_s'] / 1e6:.1f} M bases/s, "
-                f"{run['kmers'] / run['map_s'] / 1e6:.1f} M k-mers/s), waited "
-                f"{run['queue_wait_s']:.3f} s on the host feed; decoder {decoder}; native "
-                f"buffers {framed}; stream_count {launches['stream_count']}, {step}_hash_keys "
-                f"{launches[f'{step}_hash_keys']}; counts == reference")
-        pipeline_log.removeHandler(catch)
-        share, window_ms, traced = trace_busy_share(profile_dir)
-        if traced < out["c"]["chunks"]:
-            raise AssertionError(f"file feed (c): the trace holds {traced} stream_count "
-                                 f"launches for {out['c']['chunks']} chunks")
-        out["c"].update(busy_share=share, window_ms=window_ms)
-        log(f"file feed (c) trace: device busy {100 * share:.1f}% of a {window_ms:.1f} ms "
-            f"mapping window; {traced} stream_count launches traced")
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    ragged_mapper = KmerMapper(index, MapperConfig(k=K, buf=CUDA_BUF,
+                                                   max_reads=config.max_reads), device)
+    ragged_mapper.map_chunk(*ragged_dev)
+    expect = {"one": reference(1), "all": reference(len(dev_chunks)),
+              "ragged": ragged_mapper.node_counts()}
+    profile_dir = os.path.join(workdir, "trace")
+    # tag, what, file, expected counts, flags, numpy framer, the step's kernel
+    runs = [
+        ("a", "numpy framer, -t 1", "reads1.fq", "one", ["-t", "1"], True, "plane"),
+        ("b", "native, -t 1", "reads8.fq", "all", ["-t", "1"], False, "plane"),
+        ("c", "native, -t 8, --profile-dir", "reads8.fq", "all",
+         ["-t", "8", "--profile-dir", profile_dir], False, "plane"),
+        ("f", "native, -t 8, no profiler", "reads8.fq", "all", ["-t", "8"], False,
+         "plane"),
+        ("d", ".fq.gz, -t 8", "reads1.fq.gz", "one", ["-t", "8"], False, "plane"),
+        ("e", "BGZF, -t 8", "reads1.bgzf.fq.gz", "one", ["-t", "8"], False, "plane"),
+        ("g", "ragged FASTQ, -t 8", "ragged1.fq", "ragged", ["-t", "8"], False, "ragged"),
+    ]
+    out = {}
+    catch = RunFigures()
+    pipeline_log = logging.getLogger(pipeline.__name__)
+    pipeline_log.addHandler(catch)
+    pipeline_log.setLevel(logging.INFO)
+    for tag, what, name, expect_key, flags, no_native, step in runs:
+        catch.figures = None
+        counts_path = os.path.join(workdir, f"counts_{tag}.npy")
+        zero_launch_counts(stream_probe, hashing, block_partition)
+        native.frame_counts["buffers"] = 0
+        if no_native:
+            os.environ["KMT_NO_NATIVE"] = "1"
+        try:
+            t = time.perf_counter()
+            cli.main(["map", "-i", index_path, "-f", paths[name], "-k", str(K),
+                      "-o", counts_path, "--device", str(device), *flags])
+            wall = time.perf_counter() - t
+        finally:
+            os.environ.pop("KMT_NO_NATIVE", None)
+        run = dict(catch.figures)
+        launches = all_launches(stream_probe, hashing, block_partition)
+        framed = native.frame_counts["buffers"]
+        if not np.array_equal(np.load(counts_path), expect[expect_key]):
+            raise AssertionError(f"file feed ({tag}) {what}: node counts differ from "
+                                 "the map_chunk reference")
+        other = "ragged" if step == "plane" else "plane"
+        if (min(launches[name] for name in MAIN_PATH_KERNELS) < run["chunks"]
+                or launches[f"{step}_hash_keys"] < run["chunks"]
+                or launches[f"{other}_hash_keys"]
+                or any(n for key, n in launches.items() if "reference" in key)):
+            raise AssertionError(f"file feed ({tag}): the kernels did not run alone: "
+                                 f"{launches} for {run['chunks']} chunks")
+        if (framed > 0) == no_native:
+            raise AssertionError(f"file feed ({tag}): the native loader framed {framed} "
+                                 "buffers")
+        decoder = gzio.decoder_name(paths[name]) if name.endswith(".gz") else "none"
+        run.update(wall_s=wall, framed=framed, launches=launches["stream_count"],
+                   hash_launches=launches[f"{step}_hash_keys"], decoder=decoder)
+        out[tag] = run
+        log(f"file feed ({tag}) {what}: {sizes[name]} bytes, {run['chunks']} chunks, "
+            f"wall {wall:.3f} s ({run['bases'] / wall / 1e6:.1f} M bases/s, "
+            f"{run['kmers'] / wall / 1e6:.1f} M k-mers/s); mapping loop "
+            f"{run['map_s']:.3f} s ({run['bases'] / run['map_s'] / 1e6:.1f} M bases/s, "
+            f"{run['kmers'] / run['map_s'] / 1e6:.1f} M k-mers/s), waited "
+            f"{run['queue_wait_s']:.3f} s on the host feed; decoder {decoder}; native "
+            f"buffers {framed}; stream_count {launches['stream_count']}, {step}_hash_keys "
+            f"{launches[f'{step}_hash_keys']}; counts == reference")
+    pipeline_log.removeHandler(catch)
+    share, window_ms, traced = trace_busy_share(profile_dir)
+    if traced < out["c"]["chunks"]:
+        raise AssertionError(f"file feed (c): the trace holds {traced} stream_count "
+                             f"launches for {out['c']['chunks']} chunks")
+    out["c"].update(busy_share=share, window_ms=window_ms)
+    log(f"file feed (c) trace: device busy {100 * share:.1f}% of a {window_ms:.1f} ms "
+        f"mapping window; {traced} stream_count launches traced")
     log(f"file feed: phase took {time.perf_counter() - t_phase:.1f} s")
     return out
+
+#: bytes of one index entry the finalize must read: its int32 slot and node
+#: and its uint16 frequency (the index's own type)
+ENTRY_BYTES = 10
+SECTOR_BYTES = 32  # the gathers read the slot counts in 32-byte sectors
+SHARDED_GRIDS = ((1, 1), (2, 1), (1, 2), (2, 2))
+SUB_BLOCK_BUCKETS = 512  # the sub-block map_hashes table: 8 shards of 64 buckets
+
+
+def finalize_bound(n_entries: int, n_sectors: int, n_nodes: int) -> tuple[float, str]:
+    """The finalize's bound: each entry read once, each distinct sector of
+    the slot counts that holds a weighted entry's count read once, 4 bytes
+    a node zeroed and 4 read back."""
+    return bound(ENTRY_BYTES * n_entries + SECTOR_BYTES * n_sectors + 8 * n_nodes, 0)
+
+
+def shard_count_check(torch, mapper, words, n_bases: int) -> int:
+    """Index shard 1's stream count on one strided chunk, as the sharded
+    step runs it (the whole table's block partition, the shard's slice of
+    the offsets and of the block bounds, its ``bucket_base``): the kernel
+    == ``stream_count_reference`` on the same inputs, each from zero
+    counts. Returns the shard's count of hit slots."""
+    from kmer_mapper_tpu_torch.models.mapper import plane_chunk_keys
+    from kmer_mapper_tpu_torch.ops import block_partition, stream_probe
+    from kmer_mapper_tpu_torch.ops.u32hash import bucket_shift
+
+    cell, config = mapper.cells[0][1], mapper.config
+    n, bpb, base = mapper.n_buckets, mapper.bpb, mapper.nb_local
+    keys, _ = plane_chunk_keys(words.to(cell.device), n_bases // config.read_len,
+                               config=config, seed=mapper.index.table.seed)
+    grouped, off = block_partition.block_partition(keys, n, bpb)
+    first, n_blocks = base // bpb, mapper.nb_local // bpb
+    window = (grouped, off[first : first + n_blocks + 1],
+              cell.block_probe[first : first + n_blocks], bucket_shift(n), bpb, base)
+    got = stream_probe.stream_count(cell.key_lo, cell.key_hi, torch.zeros_like(cell.counts),
+                                    *window, n)
+    twin = stream_probe.stream_count_reference(cell.key_lo, cell.key_hi,
+                                               torch.zeros_like(cell.counts), *window)
+    hit = int(twin.ne(0).sum())
+    if not torch.equal(got, twin) or not hit:
+        raise AssertionError(f"sharded: shard 1's stream_count (bucket_base {base}) != "
+                             f"stream_count_reference, or no hits ({hit} slots)")
+    return hit
+
+
+def sharded_grid(torch, index, config, grid, devices):
+    """A ShardedKmerMapper on the (data, index) grid ``grid`` over ``devices``
+    (repeated where the grid has more cells)."""
+    from kmer_mapper_tpu_torch.parallel import ShardedKmerMapper, make_mesh
+
+    d, x = grid
+    cells = [devices[i % len(devices)] for i in range(d * x)]
+    return ShardedKmerMapper(index, config, make_mesh(index_parallel=x, devices=cells))
+
+
+def map_sharded_chunks(mapper, dev_chunks) -> None:
+    """Phase 5's device-resident strided chunks, D at a time."""
+    for i in range(0, len(dev_chunks), mapper.n_data):
+        mapper.map_chunks([(words, None, nb, 0, True)
+                           for words, nb, _ in dev_chunks[i : i + mapper.n_data]])
+
+
+def phase_sharded(torch, np, dev_chunks, index, library, feed_dir, device) -> dict:
+    """Multi-device mapping and the node-count finalize on the card: (a) the
+    finalize kernel against its twin and the host on the hazard cases;
+    (b) the finalize of phase 8's 2^26-hash call, timed beside its twin,
+    the host and an int64 index_add_; (c) phase 5's chunks through
+    ShardedKmerMapper on grids (1,1), (2,1), (1,2), (2,2) of one card ==
+    KmerMapper; (d) sharded map_hashes on phase 8's 2^23-bucket table over
+    4 index shards and on a 512-bucket table over 8 == KmerMapper; (e)
+    map_file_sharded on phase 9's FASTQ over 4 cells == map_file's counts;
+    (f) with two cards or more, (c) and (e) over distinct cards and the
+    two-card tests of tests/test_torch_kernels.py. Each run's launch counts
+    are zeroed before it and read after it."""
+    from kmer_mapper_tpu_torch import pipeline
+    from kmer_mapper_tpu_torch.index import kmer_index, layout
+    from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
+    from kmer_mapper_tpu_torch.ops import (
+        block_partition, finalize, finalize_cases, hashing, probe, stream_probe,
+    )
+    from kmer_mapper_tpu_torch.ops.u32hash import MASK32
+    from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
+
+    t_phase = time.perf_counter()
+    modules = (stream_probe, hashing, block_partition, probe, finalize)
+    path_launches = dict.fromkeys(("stream_count", "gather_probe", "node_counts"), 0)
+
+    def require(what: str, kernels) -> dict:
+        """This run's launches: each of ``kernels`` at least once, no twin."""
+        launches = all_launches(*modules)
+        twins = {k: n for k, n in launches.items() if "reference" in k and n}
+        if twins or any(launches[k] < 1 for k in kernels):
+            raise AssertionError(f"sharded ({what}): {kernels} did not run alone: {launches}")
+        for k in path_launches:
+            path_launches[k] += launches[k]
+        return launches
+
+    # (a) the finalize kernel == twin == host on the hazard cases
+    max_err = 0
+    for name, case in finalize_cases.cases().items():
+        args = case.inputs(device)
+        got = _u32(finalize.finalize(*args))
+        twin = _u32(finalize.finalize_reference(*args))
+        host = kmer_index.KmerIndex(
+            table=None, entry_slot=case.slot, entry_node=case.node,
+            entry_frequency=case.frequency, max_node_id=case.n_nodes - 1,
+            n_unique=len(case.counts)).node_counts(case.counts, case.max_frequency)
+        max_err = max(max_err, int(np.abs(got - twin).max(initial=0)))
+        if (max_err or not np.array_equal(got, case.expected())
+                or not np.array_equal(got, host.astype(np.int64))):
+            raise AssertionError(f"sharded (a): finalize case {name}: kernel, twin, numpy "
+                                 "and host differ")
+    log(f"sharded (a): node_counts kernel == twin == numpy == host KmerIndex.node_counts on "
+        f"{len(finalize_cases.cases())} hazard cases (frequency bound, 10^5 entries on one "
+        "node, 0xFFFFFFFF + 1 and a sum past 2^32, 10^3 nodes an entry, no entries)")
+
+    # (b) the finalize of the 2^26-hash library call, beside the host's
+    counts, lib_index = library["counts"], library["index"]
+    entries = lib_index.device_entries(counts.device)
+    n_nodes = lib_index.max_node_id + 1
+    got = finalize.finalize(counts, *entries, 1000, n_nodes)
+    if not np.array_equal(_u32(got), library["node_counts"].astype(np.int64)):
+        raise AssertionError("sharded (b): the finalize kernel != the 2^26 call's node counts")
+    twin = finalize.finalize_reference(counts, *entries, 1000, n_nodes)
+    err = int(np.abs(_u32(got) - _u32(twin)).max(initial=0))
+    if err:
+        raise AssertionError(f"sharded (b): the finalize kernel != its twin on the 2^26 "
+                             f"call's counts (max |difference| {err})")
+    ms = median_ms(lambda: finalize.finalize(counts, *entries, 1000, n_nodes))
+    plain_ms = median_ms(lambda: finalize.finalize_reference(counts, *entries, 1000, n_nodes),
+                         reps=3)
+    slot, node, freq = entries
+    weights = torch.where(freq <= 1000, counts[slot.long()].long() & MASK32, 0)
+    node64 = node.long()
+    library_ms = median_ms(lambda: torch.zeros(n_nodes, dtype=torch.int64,
+                                               device=device).index_add_(0, node64, weights))
+    weighted = weights.ne(0)
+    n_nonzero = int(weighted.sum())
+    n_sectors = int(torch.unique(slot[weighted] // (SECTOR_BYTES // 4)).numel())
+    bound_ms, bound_by = finalize_bound(slot.numel(), n_sectors, n_nodes)
+    t = time.perf_counter()  # the CPU path's finalize on this call's counts
+    host = lib_index.node_counts(counts.cpu().numpy().view(np.uint32))
+    host_s = time.perf_counter() - t
+    if not np.array_equal(host, library["node_counts"]):
+        raise AssertionError("sharded (b): the host finalize != the kernel's")
+    log(f"sharded (b): the 2^26-hash library call: {library['call_s']:.4f} s host clock, "
+        f"upload {library['upload_s']:.4f} s, kernel {library['kernel_s']:.4f} s, node counts "
+        f"{library['finalize_s']:.4f} s (the finalize kernel and a read-back of {n_nodes} "
+        f"words; the host finalize, read-back of every slot and bincount, took "
+        f"{host_s:.4f} s on these counts, 0.1034 s in PERF.md's run); node_counts kernel "
+        f"{ms:.4f} ms on {slot.numel()} entries ({n_nonzero} with a weight, gathering "
+        f"{n_sectors} distinct sectors of {counts.numel()} slot counts), twin "
+        f"{plain_ms:.3f} ms, int64 index_add_ of the gathered weights {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by}")
+    del weights, weighted, node64, twin
+    finalize_entry = {
+        "name": "node_counts", "route": "cuda",
+        "source": "kmer_mapper_tpu_torch/csrc/node_counts.cu",
+        "replaces": "kmer_mapper_tpu/parallel/sharded.py:403 (make_finalize's finalize, XLA)",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+    # (c) the main path sharded at full width, on grids of this card
+    config = MapperConfig(k=K, buf=CUDA_BUF, max_reads=max(1024, CUDA_BUF // 32),
+                          read_len=READ_LEN)
+    single = KmerMapper(index, config, device)
+    for words, nb, _ in dev_chunks:
+        single.map_chunk(words, None, nb, strided=True)
+    expect = single.node_counts()
+    del single
+    kmers_per_window = len(dev_chunks) * dev_chunks[0][2] * (READ_LEN - K + 1)
+    rates = {}
+
+    def run_grids(devices, grids, tag):
+        for grid in grids:
+            mapper = sharded_grid(torch, index, config, grid, devices)
+            zero_launch_counts(*modules)
+            map_sharded_chunks(mapper, dev_chunks)
+            got = mapper.node_counts()
+            launches = require(f"{tag} grid {grid}", ("stream_count", "node_counts"))
+            if launches["stream_count"] != len(dev_chunks) * grid[1]:
+                raise AssertionError(f"sharded ({tag}): grid {grid} launched stream_count "
+                                     f"{launches['stream_count']} times")
+            if not np.array_equal(got, expect):
+                raise AssertionError(f"sharded ({tag}): grid {grid} != KmerMapper")
+            if grid == (1, 2):
+                hit = shard_count_check(torch, mapper, *dev_chunks[0][:2])
+                log(f"sharded ({tag}): grid {grid}: shard 1's stream_count (bucket_base "
+                    f"{mapper.nb_local}) on chunk 0 == stream_count_reference ({hit} slots hit)")
+            window = timed_rates(torch, lambda: map_sharded_chunks(mapper, dev_chunks),
+                                 kmers_per_window)
+            rates[tag, grid] = window
+            log(f"sharded ({tag}): grid {grid} on {sorted({str(c.device) for r in mapper.cells for c in r})}: "
+                f"node counts == KmerMapper's ({int(got.sum())} node hits); "
+                f"{[f'{r / 1e6:.1f}' for r in window]} Mk/s over {len(dev_chunks)} chunks "
+                f"({grid[0] * grid[1]} cells: each chunk hashed and partitioned {grid[1]} "
+                f"times, once a cell of its row); launches {launches}")
+            del mapper
+            torch.cuda.empty_cache()
+
+    run_grids([device], SHARDED_GRIDS, "c")
+
+    # (d) sharded map_hashes == KmerMapper.map_hashes
+    rng = np.random.default_rng(13)
+    keys, large = library["large"]
+    large_index = kmer_index.KmerIndex(
+        table=large, entry_slot=large.build_slots.astype(np.int32),
+        entry_node=rng.integers(0, 1 << 20, len(keys)).astype(np.int32),
+        entry_frequency=np.ones(len(keys), np.uint16), max_node_id=(1 << 20) - 1,
+        n_unique=len(keys))
+    small_keys = np.unique(rng.integers(0, 1 << 62, 3000, dtype=np.uint64))
+    small_table = layout.build_table(small_keys, n_buckets=SUB_BLOCK_BUCKETS)
+    small = kmer_index.KmerIndex(
+        table=small_table, entry_slot=small_table.build_slots.astype(np.int32),
+        entry_node=np.arange(len(small_keys), dtype=np.int32),
+        entry_frequency=np.ones(len(small_keys), np.uint16),
+        max_node_id=len(small_keys) - 1, n_unique=len(small_keys))
+    for what, idx, pool, n, grid in (
+            ("2^23-bucket table, 4 index shards", large_index, keys, LIB_HASHES, (1, 4)),
+            ("512-bucket table, 8 sub-block index shards", small, small_keys, 1 << 20, (1, 8))):
+        q = np.concatenate([rng.choice(pool, n // 2),
+                            rng.integers(0, 1 << 62, n - n // 2, dtype=np.uint64)])
+        ref = KmerMapper(idx, config, device)
+        ref.map_hashes(q)
+        want = ref.node_counts()
+        del ref
+        mapper = sharded_grid(torch, idx, config, grid, [device])
+        zero_launch_counts(*modules)
+        t = time.perf_counter()
+        mapper.map_hashes(q)
+        got = mapper.node_counts()
+        seconds = time.perf_counter() - t
+        launches = require(f"d, {what}", ("gather_probe", "node_counts"))
+        if not np.array_equal(got, want) or mapper.n_kmers_mapped != n:
+            raise AssertionError(f"sharded (d): map_hashes on the {what} != KmerMapper")
+        log(f"sharded (d): map_hashes of {n} hashes on the {what} (grid {grid}, "
+            f"{mapper.nb_local} buckets a shard) == KmerMapper's ({int(got.sum())} node hits) in {seconds:.3f} s; "
+            f"launches {launches}")
+        del mapper
+    del large_index, library["large"]
+    torch.cuda.empty_cache()
+
+    # (e) the sharded file path == map_file's counts
+    index_path = os.path.join(feed_dir, "index.tpuidx.npz")
+    reads = os.path.join(feed_dir, "reads8.fq")
+    want = np.load(os.path.join(feed_dir, "counts_b.npy"))
+
+    def run_file(devices, tag):
+        zero_launch_counts(*modules)
+        t = time.perf_counter()
+        got = pipeline.map_file_sharded(index_path, reads, k=K, devices=devices,
+                                        index_parallel=2)
+        wall = time.perf_counter() - t
+        launches = require(f"{tag}, map_file_sharded", ("stream_count", "node_counts",
+                                                         "plane_hash_keys"))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"sharded ({tag}): map_file_sharded != map_file")
+        log(f"sharded ({tag}): map_file_sharded(devices={[str(d) for d in devices]}, "
+            f"index_parallel=2) on the {os.path.getsize(reads)}-byte FASTQ == map_file's "
+            f".npy, wall {wall:.3f} s; launches {launches}")
+
+    run_file([device] * 4, "e")
+
+    # (f) distinct cards
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        run_grids(cards, SHARDED_GRIDS[1:], "f")
+        run_file([cards[i % n_cards] for i in range(4)], "f")
+        tests = ("test_pinned_ring_event_waits_on_the_mappers_device or "
+                 "test_map_file_on_a_device_that_is_not_current")
+        proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-p",
+                               "no:cacheprovider", "-q", "-rA", "tests/test_torch_kernels.py",
+                               "-k", tests], capture_output=True, text=True)
+        log("sharded (f): the two-card tests of tests/test_torch_kernels.py:\n"
+            + proc.stdout[-3000:])
+        if proc.returncode or " passed" not in proc.stdout or "skipped" in proc.stdout:
+            raise AssertionError("sharded (f): the two-card tests did not pass")
+    else:
+        log(f"sharded (f): {n_cards} card(s): the grids over distinct cards and the two-card "
+            "tests did not run")
+    log(f"sharded: phase took {time.perf_counter() - t_phase:.1f} s")
+    finalize_entry.update(launches=path_launches["node_counts"], max_abs_err=max_err)
+    return {"launches": path_launches, "node_counts": finalize_entry, "rates": rates}
+
 
 
 def main() -> int:
@@ -2012,9 +2312,18 @@ def main() -> int:
                                        device)
     dissect = phase_dissect(torch, np, device)
     tiles = phase_tiles(torch, np, device)
-    library = phase_library(torch, np, e2e["arrays"], rng, device)
-    feed = phase_file_feed(torch, np, chunks, steady["dev_chunks"],
-                           (ragged_reads[0], ragged["dev_chunks"][0]), e2e["index"], device)
+    library_run, library = phase_library(torch, np, e2e["arrays"], rng, device)
+    feed_dir = tempfile.mkdtemp(prefix="chip_smoke_feed_")
+    try:
+        feed = phase_file_feed(torch, np, chunks, steady["dev_chunks"],
+                               (ragged_reads[0], ragged["dev_chunks"][0]), e2e["index"],
+                               device, feed_dir)
+        sharded = phase_sharded(torch, np, steady["dev_chunks"], e2e["index"], library_run,
+                                feed_dir, device)
+    finally:
+        shutil.rmtree(feed_dir, ignore_errors=True)
+    # the sharded paths' launches beside the single-device main path's
+    library["launches"] += sharded["launches"]["gather_probe"]
     hash_keys = [
         dict(name="plane_hash_keys", replaces="kmer_mapper_tpu/ops/hashing.py:82 (XLA)",
              launches=e2e["hash_launches"], **steady["hash"]),
@@ -2027,6 +2336,7 @@ def main() -> int:
                      library_ms=None)  # no single PyTorch call hashes, mixes and keys
     source = "kmer_mapper_tpu_torch/csrc/block_partition.cu"
     launches = e2e["launches"]
+    sharded["node_counts"]["launches"] += launches["node_counts"]
     partition = [{
         # the whole stage: its launches are its kernels' in the main path's run
         "name": "block_partition", "route": "cuda", "source": source,
@@ -2056,12 +2366,12 @@ def main() -> int:
         "route": "cuda",
         "source": "kmer_mapper_tpu_torch/csrc/stream_count.cu",
         "replaces": "kmer_mapper_tpu/ops/stream_probe.py:551",
-        "launches": launches["stream_count"],
+        "launches": launches["stream_count"] + sharded["launches"]["stream_count"],
         "max_abs_err": max(max_err, steady["count"]["max_abs_err"],
                            ragged["count"]["max_abs_err"]),
         **{key: steady["count"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,  # no single PyTorch call counts slot hits
-    }, *partition, *hash_keys, *dissect, *tiles, library]
+    }, *partition, *hash_keys, *dissect, *tiles, library, sharded["node_counts"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count(),

@@ -14,19 +14,35 @@ built with nvcc at their first launch.
 
     from kmer_mapper_tpu_torch import map_kmers_to_graph_index
     counts = map_kmers_to_graph_index("index.npz", kmers=hashes)  # device="cuda"
+
+    from kmer_mapper_tpu_torch import map_file_sharded
+    counts = map_file_sharded("index.npz", "reads.fq", index_parallel=2)  # every card
 """
 from . import oracle
 from .compat import TpuCounter, in_graph_index, map_kmers_to_graph_index
-from .index.kmer_index import KmerIndex, load_index
-from .models.mapper import KmerMapper, MapperConfig
+from .index.kmer_index import KmerIndex, load_index, load_reference_npz, save_reference_npz
+from .models.mapper import KmerMapper, MapperConfig, default_config
+from .oracle import KmerIndexArrays, build_kmer_index
+from .pipeline import map_file, map_file_sharded, map_sequences
+
+__version__ = "0.1.0"
 
 __all__ = [
     "oracle",
-    "load_index",
     "KmerIndex",
+    "load_index",
+    "load_reference_npz",
+    "save_reference_npz",
+    "KmerIndexArrays",
+    "build_kmer_index",
     "KmerMapper",
     "MapperConfig",
+    "default_config",
+    "map_file",
+    "map_file_sharded",
+    "map_sequences",
     "map_kmers_to_graph_index",
     "in_graph_index",
     "TpuCounter",
+    "__version__",
 ]

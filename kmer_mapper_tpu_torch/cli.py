@@ -10,7 +10,11 @@ wins over ``-b`` where both are given; ``-t`` sets the host framing workers
 ``-s`` are accepted and ignored, as the JAX package does. ``--device``
 picks the torch device and defaults to ``cuda``. Where PyTorch sees no GPU,
 ``map`` exits with an error unless the caller passes ``--device cpu``: it
-never falls back to the CPU on its own. ``convert-index`` writes the
+never falls back to the CPU on its own. ``--n-devices N`` and
+``--index-parallel X`` map over a (N / X, X) grid of devices
+(``pipeline.map_file_sharded``): CUDA devices 0 ... N-1, or with ``--device
+cpu`` the CPU N times; asking for more cards than exist exits with an
+error that names the count. ``convert-index`` writes the
 prebuilt table (``.tpuidx.npz``, the file the JAX package reads too) and
 needs no device.
 """
@@ -78,6 +82,10 @@ def run_argument_parser(args):
     sub.add_argument("--device", default="cuda",
                      help="torch device (default: cuda; pass --device cpu to map "
                           "on the CPU)")
+    sub.add_argument("--n-devices", default=None, type=int,
+                     help="Map over this many devices (default: 1)")
+    sub.add_argument("--index-parallel", default=1, type=int,
+                     help="Shard the index table over this many devices (multi-GB indexes)")
     sub.set_defaults(func=_cmd_map)
 
     conv = subparsers.add_parser(
@@ -112,15 +120,17 @@ def _cmd_map(args):
         logging.getLogger().setLevel(logging.DEBUG)
         logger.info("Will print debug log")
     device = torch.device(args.device)
+    n_devices = args.n_devices or args.index_parallel
+    if device.type == "cuda" and n_devices > max(1, torch.cuda.device_count()):
+        logger.error("--n-devices %d: torch.cuda.device_count() is %d%s", n_devices,
+                     torch.cuda.device_count(), "" if torch.cuda.is_available() else
+                     "; PyTorch sees no CUDA device, pass --device cpu to map on the CPU")
+        sys.exit(1)
     if device.type == "cuda" and not torch.cuda.is_available():
         logger.error("--device %s: PyTorch sees no CUDA device; pass --device cpu "
                      "to map on the CPU", args.device)
         sys.exit(1)
-    logger.info("Mapping on device %s", device)
-    node_counts = pipeline.map_file(
-        args.kmer_index if args.kmer_index is not None else args.index_bundle,
-        args.reads,
-        device=device,
+    kwargs = dict(
         k=args.kmer_size,
         chunk_size=args.chunk_size,
         max_frequency=args.max_hits_per_kmer,
@@ -131,6 +141,18 @@ def _cmd_map(args):
         # -t never over-threads a small host
         reader_workers=max(1, min(args.n_threads, os.cpu_count() or 1)),
     )
+    index = args.kmer_index if args.kmer_index is not None else args.index_bundle
+    if n_devices > 1:
+        devices = [device] * n_devices if device.type == "cpu" else None
+        logger.info("Mapping over %d %s devices, index sharded %d ways", n_devices,
+                    device.type, args.index_parallel)
+        node_counts = pipeline.map_file_sharded(
+            index, args.reads, index_parallel=args.index_parallel, n_devices=n_devices,
+            devices=devices, **kwargs,
+        )
+    else:
+        logger.info("Mapping on device %s", device)
+        node_counts = pipeline.map_file(index, args.reads, device=device, **kwargs)
     np.save(args.output_file, node_counts)
     # np.save appends .npy only when the path does not already end with it
     saved = args.output_file if str(args.output_file).endswith(".npy") else f"{args.output_file}.npy"

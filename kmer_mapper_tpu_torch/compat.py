@@ -171,3 +171,8 @@ class TpuCounter:
         if len(out) < min_nodes:
             out = np.pad(out, (0, min_nodes - len(out)))
         return out
+
+
+# numpy-only equivalents (no device required)
+map_kmers_to_graph_index_numpy = oracle.map_kmers_to_index
+in_graph_index_numpy = oracle.in_index

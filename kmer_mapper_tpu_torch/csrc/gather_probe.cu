@@ -14,7 +14,12 @@
 // m_lo >> shift (0 for a one-bucket table); for rounds p < min(max_probe,
 // block_probe[b0 / bpb]) (chain.cuh; max_probe alone without block_probe)
 // the query compares its pair with the 8 keys of bucket (b0 & ~mask) |
-// ((b0 + p) & mask), mask = bpb - 1, bpb = min(128, n_buckets). The first
+// ((b0 + p) & mask), mask = bpb - 1, bpb = min(128, n_buckets). An index
+// shard (parallel/sharded.py) passes its rows [row_offset, row_offset +
+// n_local) of a table of n_buckets: buckets, chains and block bounds are the
+// whole table's, a round in another shard's rows compares nothing, and the
+// slots are the shard's (row - row_offset)*8 + lane, as in probe_hits with
+// row_offset and n_buckets_global (:60-70). The first
 // hit adds one to counts[b*8 + lane] (kCount, valid queries only; the int32
 // add wraps as the reference's uint32) or is written as the slot, -1 for a
 // miss (kSlots). Keys are unique in the table, so stopping at the first hit
@@ -75,11 +80,15 @@ gather_probe_kernel(Table t, const long long* __restrict__ queries,
   int64_t slot = -1;
   if (live) {
     // round 0, the home bucket: its row is requested before the bound
-    const uint4* row = t.lo + 2 * static_cast<int64_t>(b0);
-    const uint4 w0 = load_lo(row, policy.rows), w1 = load_lo(row + 1, policy.rows);
+    const int64_t r0 = local_row(t, b0);
+    uint4 w0 = {0u, 0u, 0u, 0u}, w1 = w0;
+    if (r0 >= 0) {
+      w0 = load_lo(t.lo + 2 * r0, policy.rows);
+      w1 = load_lo(t.lo + 2 * r0 + 1, policy.rows);
+    }
     const int rounds = query_rounds(t, b0);
-    const uint32_t lanes = lo_lanes(w0, w1, L);
-    if (lanes) slot = check_hi(t, b0, lanes, R, policy.hits);
+    const uint32_t lanes = r0 >= 0 ? lo_lanes(w0, w1, L) : 0u;
+    if (lanes) slot = check_hi(t, r0, lanes, R, policy.hits);
     // the chain beyond the home bucket, where the block has one
     if (slot < 0 && rounds > 1) slot = walk(t, L, R, b0, 1, rounds, policy);
   }
@@ -100,12 +109,13 @@ gather_probe_kernel(Table t, const long long* __restrict__ queries,
 }  // namespace
 
 // Probes n raw queries; returns cudaGetLastError() after the launch (0 on
-// success). Device pointers: key_lo and key_hi uint32[n_buckets*8] in slot
+// success). Device pointers: key_lo and key_hi uint32[n_local*8], the rows
+// [row_offset, row_offset + n_local) of a table of n_buckets, in slot
 // order (key_lo 16-byte aligned); block_probe int32[n_blocks], n_blocks =
 // n_buckets / min(128, n_buckets), or null with n_blocks 0 (every query
 // walks max_probe rounds); queries int64[n], the hashes' uint64 bits; mode
 // kCount reads valid bool[n] unless it is null (every query valid) and adds
-// into counts uint32[n_buckets*8]; mode kSlots writes out int32[n] (the
+// into counts uint32[n_local*8]; mode kSlots writes out int32[n] (the
 // wrapper refuses tables of 2**31 slots or more). Launches on `stream` of
 // CUDA device `device` and does not synchronise.
 extern "C" int gather_probe_launch(const void* key_lo, const void* key_hi,
@@ -113,8 +123,9 @@ extern "C" int gather_probe_launch(const void* key_lo, const void* key_hi,
                                    const void* valid, void* counts, void* out,
                                    long long n, int n_buckets, int n_blocks,
                                    int max_probe, unsigned int seed, int mode,
-                                   int device, void* stream) {
-  if (!valid_launch(n, n_buckets, n_blocks, max_probe, mode, key_lo, block_probe)) {
+                                   int row_offset, int n_local, int device, void* stream) {
+  if (!valid_launch(n, n_buckets, n_blocks, max_probe, mode, key_lo, block_probe) ||
+      !valid_shard(n_buckets, row_offset, n_local)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // this library links its own CUDA runtime, whose current device is not
@@ -122,7 +133,8 @@ extern "C" int gather_probe_launch(const void* key_lo, const void* key_hi,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  const Table t = make_table(key_lo, key_hi, block_probe, n_buckets, max_probe, seed);
+  const Table t =
+      make_table(key_lo, key_hi, block_probe, n_buckets, max_probe, seed, row_offset, n_local);
   const auto* q = static_cast<const long long*>(queries);
   const unsigned int grid = static_cast<unsigned int>((n + kThreads - 1) / kThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

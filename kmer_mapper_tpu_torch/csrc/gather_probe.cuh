@@ -22,8 +22,13 @@ enum Mode : int { kCount = 0, kSlots = 1 };
 
 enum Priority : int { kEvictLast, kEvictNormal, kEvictFirst };
 
+// The table's buckets [row_offset, row_offset + n_local) of n_buckets: a
+// whole table (row_offset 0, n_local n_buckets) or an index shard's bucket
+// range (parallel/sharded.py). Buckets, chains and block bounds are the
+// whole table's; a round whose bucket lies in another shard compares
+// nothing, and slots are the shard's own.
 struct Table {
-  const uint4* lo;  // (n_buckets, 8) uint32: two uint4 a bucket
+  const uint4* lo;  // (n_local, 8) uint32: two uint4 a bucket
   const uint32_t* hi;
   const int32_t* block_probe;  // per chain block; null: max_probe everywhere
   int shift;  // bucket = m_lo >> shift; 32: one bucket
@@ -31,6 +36,8 @@ struct Table {
   uint32_t mask;  // bpb - 1
   int max_probe;
   uint32_t seed;
+  uint32_t row_offset;
+  uint32_t n_local;
 };
 
 // The L2 eviction policies of one launch: for the lo rows, and for the hi
@@ -50,8 +57,15 @@ inline bool valid_launch(long long n, int n_buckets, int n_blocks, int max_probe
          n_blocks == (block_probe == nullptr ? 0 : n_buckets / bpb);
 }
 
+// True where [row_offset, row_offset + n_local) is a range of the table.
+inline bool valid_shard(int n_buckets, int row_offset, int n_local) {
+  return row_offset >= 0 && n_local >= 1 &&
+         static_cast<int64_t>(row_offset) + n_local <= n_buckets;
+}
+
 inline Table make_table(const void* key_lo, const void* key_hi, const void* block_probe,
-                        int n_buckets, int max_probe, unsigned int seed) {
+                        int n_buckets, int max_probe, unsigned int seed, int row_offset = 0,
+                        int n_local = -1) {
   const int bpb = n_buckets < kChainBlock ? n_buckets : kChainBlock;
   Table t;
   t.lo = static_cast<const uint4*>(key_lo);
@@ -64,6 +78,8 @@ inline Table make_table(const void* key_lo, const void* key_hi, const void* bloc
   t.mask = static_cast<uint32_t>(bpb - 1);
   t.max_probe = max_probe;
   t.seed = seed;
+  t.row_offset = static_cast<uint32_t>(row_offset);
+  t.n_local = static_cast<uint32_t>(n_local < 0 ? n_buckets : n_local);
   return t;
 }
 
@@ -107,31 +123,39 @@ __device__ __forceinline__ uint32_t lo_lanes(uint4 w0, uint4 w1, uint32_t x) {
          (w1.x == x) << 4 | (w1.y == x) << 5 | (w1.z == x) << 6 | (w1.w == x) << 7;
 }
 
-// The slot among the lanes of bucket b whose lo word matched (bits of
-// `lanes`) that also holds hi word r, or -1.
-__device__ __forceinline__ int64_t check_hi(const Table& t, uint32_t b,
+// Bucket b's row in the table's arrays, or -1 where another shard holds it.
+__device__ __forceinline__ int64_t local_row(const Table& t, uint32_t b) {
+  const uint32_t r = b - t.row_offset;
+  return r < t.n_local ? static_cast<int64_t>(r) : -1;
+}
+
+// The slot among the lanes of the table's row `row` whose lo word matched
+// (bits of `lanes`) that also holds hi word r, or -1.
+__device__ __forceinline__ int64_t check_hi(const Table& t, int64_t row,
                                             uint32_t lanes, uint32_t r,
                                             uint64_t policy) {
-  const int64_t row = static_cast<int64_t>(b) * kBucketKeys;
+  const int64_t slot0 = row * kBucketKeys;
   for (; lanes; lanes &= lanes - 1) {
     const int l = __ffs(lanes) - 1;
-    if (load_hi(t.hi + row + l, policy) == r) return row + l;
+    if (load_hi(t.hi + slot0 + l, policy) == r) return slot0 + l;
   }
   return -1;
 }
 
-// Rounds p in [first, rounds) of the chain of home bucket b0, one at a time.
+// Rounds p in [first, rounds) of the chain of home bucket b0, one at a time;
+// a round whose bucket lies in another shard compares nothing.
 __device__ __forceinline__ int64_t walk(const Table& t, uint32_t L, uint32_t R,
                                         uint32_t b0, int first, int rounds,
                                         const Policies& policy) {
   const uint32_t base = b0 & ~t.mask;
   for (int p = first; p < rounds; ++p) {
-    const uint32_t b = base | ((b0 + p) & t.mask);
-    const uint4* row = t.lo + 2 * static_cast<int64_t>(b);
+    const int64_t r = local_row(t, base | ((b0 + p) & t.mask));
+    if (r < 0) continue;
+    const uint4* row = t.lo + 2 * r;
     const uint32_t lanes =
         lo_lanes(load_lo(row, policy.rows), load_lo(row + 1, policy.rows), L);
     if (lanes) {
-      const int64_t slot = check_hi(t, b, lanes, R, policy.hits);
+      const int64_t slot = check_hi(t, r, lanes, R, policy.hits);
       if (slot >= 0) return slot;
     }
   }

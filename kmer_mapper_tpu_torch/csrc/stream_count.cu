@@ -11,6 +11,13 @@
 // invalid pair is skipped. The TPU kernel's plane layout, bf16 one-hot
 // matmuls, schedule and multi-stream tiles have no counterpart here.
 //
+// An index shard (parallel/sharded.py) holds the table's buckets
+// [bucket_base, bucket_base + n_blocks*bpb): a query's bucket is the global
+// m_lo >> shift (shift of the whole table), its chain block that bucket's
+// global block less bucket_base / bpb, and off and block_probe are the
+// shard's slices; queries homed in other shards lie in no window. One table
+// is the shard with bucket_base 0.
+//
 // What bounds it: each query streams its 8-byte sort key once (coalesced,
 // a window is contiguous), then reads a bucket's 8 lanes per probe round
 // and adds one per hit. Because the queries are grouped, every query in
@@ -52,7 +59,7 @@ stream_count_kernel(const uint32_t* __restrict__ key_lo, const uint32_t* __restr
                     unsigned int* __restrict__ counts,
                     const unsigned long long* __restrict__ keys,
                     const int32_t* __restrict__ off, const int32_t* __restrict__ block_probe,
-                    int shift, int bpb) {
+                    int shift, int bpb, int64_t bucket_base) {
   __shared__ PaddedTile tile;
   const int64_t b = blockIdx.x;
   const int64_t start = off[b];
@@ -71,7 +78,9 @@ stream_count_kernel(const uint32_t* __restrict__ key_lo, const uint32_t* __restr
   __syncthreads();
 
   const int rounds = kmt_chain::probe_rounds(block_probe, b, 0, bpb);
-  const int64_t bucket0 = b * static_cast<int64_t>(bpb);
+  // the block's first bucket in the whole table, which the queries' buckets
+  // are counted in
+  const int64_t bucket0 = bucket_base + b * static_cast<int64_t>(bpb);
   for (int64_t i0 = start + threadIdx.x; i0 < end; i0 += kCountThreads * kItems) {
     unsigned long long key[kItems];
 #pragma unroll
@@ -95,23 +104,26 @@ stream_count_kernel(const uint32_t* __restrict__ key_lo, const uint32_t* __restr
 
 // counts += hits of the grouped queries; returns cudaGetLastError() after
 // the launch (0 on success). All pointers are device pointers: key_lo and
-// key_hi uint32[n_blocks*bpb*8], counts uint32[n_blocks*bpb*8], keys
-// int64[off[n_blocks]] (the keys grouped by block, in any order inside a
-// window; sorted keys are grouped too), off int32[n_blocks+1], block_probe
-// int32[n_blocks], all on CUDA device `device`. Launches on `stream` (a
-// stream of that device) and does not synchronise.
+// key_hi uint32[n_blocks*bpb*8], counts uint32[n_blocks*bpb*8] (the shard's
+// buckets from bucket_base, a multiple of bpb), keys int64[off[n_blocks]]
+// (the keys grouped by block, in any order inside a window; sorted keys are
+// grouped too), off int32[n_blocks+1], block_probe int32[n_blocks], all on
+// CUDA device `device`. Launches on `stream` (a stream of that device) and
+// does not synchronise.
 extern "C" int stream_count_launch(const void* key_lo, const void* key_hi,
                                    void* counts, const void* keys,
                                    const void* off, const void* block_probe,
-                                   int n_blocks, int shift, int bpb,
+                                   int n_blocks, int shift, int bpb, int bucket_base,
                                    int device, void* stream) {
   const cudaError_t set = check_and_select(bpb, n_blocks, bpb, kFull, device);
   if (set != cudaSuccess) return static_cast<int>(set);
+  if (bucket_base < 0 || bucket_base % bpb) return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
   stream_count_kernel<<<n_blocks, kCountThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(key_lo), static_cast<const uint32_t*>(key_hi),
       static_cast<unsigned int*>(counts), static_cast<const unsigned long long*>(keys),
-      static_cast<const int32_t*>(off), static_cast<const int32_t*>(block_probe), shift, bpb);
+      static_cast<const int32_t*>(off), static_cast<const int32_t*>(block_probe), shift, bpb,
+      bucket_base);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,6 +26,7 @@ import os
 import zipfile
 
 import numpy as np
+import torch
 
 from ..ops.u32hash import feistel_unmix, join_u64
 from ..oracle import KmerIndexArrays, build_kmer_index
@@ -172,6 +173,31 @@ class KmerIndex:
             minlength=self.max_node_id + 1,
         )
         return out.astype(np.uint32)
+
+    def shard_entries(self, x: int, n_shards: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The entries of index shard ``x`` of ``n_shards`` equal bucket
+        ranges (shard x holds buckets ``[x * nb_local, (x + 1) * nb_local)``),
+        those with ``entry_slot // (nb_local * 8) == x``, in entry order:
+        (slot in the shard's own counts, node, frequency), all int32."""
+        n_slots = self.table.n_slots
+        if n_shards < 1 or n_slots % n_shards or not 0 <= x < n_shards:
+            raise ValueError(f"no shard {x} of {n_slots} slots in {n_shards} equal shards")
+        per = n_slots // n_shards
+        slot = self.entry_slot.astype(np.int64)
+        pick = np.flatnonzero(slot // per == x) if n_shards > 1 else slice(None)
+        return ((slot[pick] - x * per).astype(np.int32), self.entry_node[pick].astype(np.int32),
+                self.entry_frequency[pick].astype(np.int32))
+
+    def device_entries(self, device, shard: tuple[int, int] = (0, 1)):
+        """(slot, node, frequency) int32 tensors of the entries of index shard
+        ``shard = (x, n_shards)`` (:meth:`shard_entries`; by default the whole
+        table), uploaded to ``device`` for ``ops/finalize.finalize``. The
+        caller keeps them (the mappers hold them from their first
+        ``node_counts`` on); the frequency is int32 because torch's uint16
+        lacks comparisons on the CPU."""
+        x, n_shards = shard
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in self.shard_entries(x, n_shards))
 
     def get(self, kmer: int) -> np.ndarray:
         """Graph nodes of a kmer hash (the reference's ``KmerIndex.get``)."""

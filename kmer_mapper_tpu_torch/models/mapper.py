@@ -15,7 +15,9 @@ a piece at a time, and the gather-probe kernel (``ops/probe.py``) mixes,
 probes and counts each piece, or returns its slots.
 
 Counts stay on the device in slot order as int32 whose bits are the
-reference's wrapping uint32; they leave it only in :meth:`slot_counts`.
+reference's wrapping uint32; they leave it only in :meth:`slot_counts`. On
+CUDA, :meth:`KmerMapper.node_counts` turns them into node counts on the card
+(the finalize kernel, ``ops/finalize.py``) and reads back one word a node.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 
 from ..index.kmer_index import KmerIndex
 from ..index.layout import CHAIN_BLOCK
-from ..ops import encode, hashing, probe, stream_probe
+from ..ops import encode, finalize, hashing, probe, stream_probe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,32 +49,68 @@ class MapperConfig:
         if self.read_len and not self.k <= self.read_len <= self.buf:
             raise ValueError(f"read_len {self.read_len} outside [k, buf]")
 
+    @property
+    def packed_words(self) -> int:
+        """Words of a continuously packed buffer: buf bases and a window's
+        tail."""
+        return self.buf // encode.BASES_PER_WORD + 2
 
-def chunk_step(key_lo, key_hi, counts, packed, lengths, n_bases: int, *,
-               config: MapperConfig, seed: int, block_probe) -> int:
-    """Ragged step over a continuously packed chunk: folds the chunk's hits
-    into ``counts`` in place and returns its valid-window count. ``packed``
-    is int32 words[buf // 16 + 2], ``lengths`` the int32 lengths of the
-    chunk's reads (zero padding after them is allowed, and scanned), both on
-    the table's device."""
+
+def chunk_is_fixed(lengths, n_bases, read_len: int) -> bool:
+    """True iff the chunk is exactly n whole reads of ``read_len``."""
+    nb = int(n_bases)
+    if nb % read_len:
+        return False
+    n = nb // read_len
+    lengths = np.asarray(lengths)
+    return bool(np.all(lengths[:n] == read_len)) and not np.any(lengths[n:])
+
+
+def default_config(**kwargs) -> MapperConfig:
+    """A :class:`MapperConfig` (``kmer_mapper_tpu.models.mapper.default_config``;
+    the port has one route a step, so there is no backend to pick for)."""
+    return MapperConfig(**kwargs)
+
+
+def chunk_keys(packed, lengths, n_bases: int, *, config: MapperConfig, seed: int):
+    """The ragged step's hashing over a continuously packed chunk: (the int64
+    sort keys of its valid windows, their count). ``packed`` is int32
+    words[buf // 16 + 2], ``lengths`` the int32 lengths of the chunk's reads
+    (zero padding after them is allowed, and scanned), both on one device."""
     keys = hashing.ragged_hash_keys(
         packed, lengths, n_bases, config.k, seed, revcomp=config.revcomp
     )
+    return keys, keys.shape[0] // (2 if config.revcomp else 1)
+
+
+def plane_chunk_keys(packed, n_reads: int, *, config: MapperConfig, seed: int):
+    """The plane step's hashing over stride-padded packing
+    (``pack_for_device(read_len=L)``, int32 words): (the sort keys of the
+    first ``n_reads`` rows' valid windows, their count)."""
+    keys = hashing.plane_hash_keys(
+        packed, config.k, config.read_len, n_reads, seed, revcomp=config.revcomp
+    )
+    return keys, n_reads * (config.read_len - config.k + 1)
+
+
+def chunk_step(key_lo, key_hi, counts, packed, lengths, n_bases: int, *,
+               config: MapperConfig, seed: int, block_probe) -> int:
+    """Ragged step (:func:`chunk_keys`, then the stream count): folds the
+    chunk's hits into ``counts`` in place and returns its valid-window
+    count."""
+    keys, n_valid = chunk_keys(packed, lengths, n_bases, config=config, seed=seed)
     stream_probe.stream_probe_count_keys(key_lo, key_hi, counts, keys, block_probe)
-    return keys.shape[0] // (2 if config.revcomp else 1)
+    return n_valid
 
 
 def plane_chunk_step(key_lo, key_hi, counts, packed, n_reads: int, *,
                      config: MapperConfig, seed: int, block_probe) -> int:
-    """Fixed-read-length step over stride-padded packing
-    (``pack_for_device(read_len=L)``, int32 words on the table's device):
-    folds the hits of the first ``n_reads`` rows into ``counts`` in place
-    and returns the valid-window count."""
-    keys = hashing.plane_hash_keys(
-        packed, config.k, config.read_len, n_reads, seed, revcomp=config.revcomp
-    )
+    """Fixed-read-length step (:func:`plane_chunk_keys`, then the stream
+    count): folds the hits of the first ``n_reads`` rows into ``counts`` in
+    place and returns the valid-window count."""
+    keys, n_valid = plane_chunk_keys(packed, n_reads, config=config, seed=seed)
     stream_probe.stream_probe_count_keys(key_lo, key_hi, counts, keys, block_probe)
-    return n_reads * (config.read_len - config.k + 1)
+    return n_valid
 
 
 def state_from_jax(counts_plane: np.ndarray, n_buckets: int,
@@ -104,6 +142,7 @@ class KmerMapper:
         self.key_lo = self._to_device(table.key_lo)
         self.key_hi = self._to_device(table.key_hi)
         self.block_probe = torch.from_numpy(table.block_max_probe()).to(self.device)
+        self._entries = None  # the finalize's entry arrays, from the first node_counts on
         self._stats: list = []  # per-chunk valid windows: ints or device scalars
         self._total_kmers = 0
         self.n_invalid_bases = 0
@@ -241,8 +280,17 @@ class KmerMapper:
         return self.counts.cpu().numpy().view(np.uint32)
 
     def node_counts(self, max_frequency: int = 1000) -> np.ndarray:
-        """Final per-node hit counts, uint32[max_node_id + 1]."""
-        return self.index.node_counts(self.slot_counts(), max_frequency=max_frequency)
+        """Final per-node hit counts, uint32[max_node_id + 1]: on CUDA the
+        finalize kernel on the device counts, then one word a node read
+        back (the entry arrays are uploaded on the first call and kept with
+        the mapper); on the CPU the host ``KmerIndex.node_counts``."""
+        if self.device.type == "cpu":
+            return self.index.node_counts(self.slot_counts(), max_frequency=max_frequency)
+        if self._entries is None:
+            self._entries = self.index.device_entries(self.device)
+        out = finalize.finalize(self.counts, *self._entries, max_frequency,
+                                self.index.max_node_id + 1)
+        return out.cpu().numpy().view(np.uint32)
 
     def kmer_counts(self) -> tuple[np.ndarray, np.ndarray]:
         """Counter view: (unique kmers, their counts)."""

@@ -102,14 +102,19 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     lib = ctypes.CDLL(str(build()))
     lib.stream_count_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
     lib.stream_count_launch.restype = ctypes.c_int
     lib.gather_probe_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-        + [ctypes.c_uint] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_uint] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     lib.gather_probe_launch.restype = ctypes.c_int
+    lib.node_counts_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_void_p]
+    )
+    lib.node_counts_launch.restype = ctypes.c_int
     lib.plane_hash_keys_launch.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
         + [ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]

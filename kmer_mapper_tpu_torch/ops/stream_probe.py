@@ -31,7 +31,7 @@ from .. import native
 from ..index.layout import BUCKET_KEYS, CHAIN_BLOCK
 from .block_partition import INVALID_KEY, block_partition
 from .u32hash import (
-    MASK32, bucket_from_mlo_torch, bucket_shift, feistel_mix_torch, to_int32_bits,
+    MASK32, bucket_shift, feistel_mix_torch, to_int32_bits,
 )
 
 #: invalid queries get BOTH mixed words set to this; the pair equals the
@@ -109,18 +109,24 @@ def count_offsets(sorted_keys: torch.Tensor, n_buckets: int, block: int) -> torc
 
 
 def check_count_args(key_lo, key_hi, counts, keys, off, block_probe, shift, bpb,
-                     name: str = "stream_count"):
+                     name: str = "stream_count", *, bucket_base: int = 0,
+                     n_buckets_global: int | None = None):
     """Raises ValueError unless the arguments fit the count kernels'
     contract (dtypes, shapes, contiguity, one device, a power-of-two table
-    and its shift and chain-block size)."""
-    n_buckets = key_lo.shape[0] if key_lo.dim() == 2 else -1
+    and its shift and chain-block size). The key words may be an index
+    shard's: the buckets ``[bucket_base, bucket_base + n_local)`` of a table
+    of ``n_buckets_global`` (default: the key words are the whole table),
+    in whole chain blocks."""
+    n_local = key_lo.shape[0] if key_lo.dim() == 2 else -1
+    n_buckets = n_local if n_buckets_global is None else n_buckets_global
+    n_blocks = n_local // max(1, bpb)
     expect = (
-        (key_lo, torch.int32, (n_buckets, BUCKET_KEYS)),
-        (key_hi, torch.int32, (n_buckets, BUCKET_KEYS)),
-        (counts, torch.int32, (n_buckets * BUCKET_KEYS,)),
+        (key_lo, torch.int32, (n_local, BUCKET_KEYS)),
+        (key_hi, torch.int32, (n_local, BUCKET_KEYS)),
+        (counts, torch.int32, (n_local * BUCKET_KEYS,)),
         (keys, torch.int64, (keys.shape[0],)),
-        (off, torch.int32, (n_buckets // max(1, bpb) + 1,)),
-        (block_probe, torch.int32, (n_buckets // max(1, bpb),)),
+        (off, torch.int32, (n_blocks + 1,)),
+        (block_probe, torch.int32, (n_blocks,)),
     )
     dev = key_lo.device
     for arg, (t, dtype, shape) in zip(
@@ -139,12 +145,17 @@ def check_count_args(key_lo, key_hi, counts, keys, off, block_probe, shift, bpb,
         raise ValueError(f"{name}: n_buckets={n_buckets} is not a power of two")
     if shift != bucket_shift(n_buckets) or bpb != min(CHAIN_BLOCK, n_buckets):
         raise ValueError(f"{name}: shift={shift}, bpb={bpb} do not fit {n_buckets} buckets")
+    if (n_local < 1 or n_local % bpb or bucket_base < 0 or bucket_base % bpb
+            or bucket_base + n_local > n_buckets):
+        raise ValueError(f"{name}: buckets [{bucket_base}, {bucket_base + n_local}) are not "
+                         f"whole chain blocks of a table of {n_buckets}")
     if keys.shape[0] >= 1 << 31:
         raise ValueError(f"{name}: more than 2**31 - 1 queries in one call")
 
 
 def stream_count(key_lo, key_hi, counts, keys, off, block_probe,
-                 shift: int, bpb: int) -> torch.Tensor:
+                 shift: int, bpb: int, bucket_base: int = 0,
+                 n_buckets_global: int | None = None) -> torch.Tensor:
     """counts[slot] += the number of valid queries whose (m_lo, m_hi)
     equals the key stored in that slot; updates ``counts`` in place and
     returns it. ``keys`` holds chain block b's queries in ``[off[b],
@@ -154,12 +165,18 @@ def stream_count(key_lo, key_hi, counts, keys, off, block_probe,
     in bucket ``b*bpb + ((local_b + p) & (bpb-1))`` for rounds ``p <
     block_probe[b]``, across all 8 lanes.
 
+    An index shard passes its first bucket ``bucket_base`` and the whole
+    table's ``n_buckets_global`` (``shift`` and ``bpb`` are the whole
+    table's); its blocks, ``off`` and ``block_probe`` are local, and a
+    query's block is its global block less ``bucket_base / bpb``.
+
     CUDA tensors launch ``csrc/stream_count.cu`` (a failed build or launch
     raises); CPU tensors run :func:`stream_count_reference`."""
-    check_count_args(key_lo, key_hi, counts, keys, off, block_probe, shift, bpb)
+    check_count_args(key_lo, key_hi, counts, keys, off, block_probe, shift, bpb,
+                     bucket_base=bucket_base, n_buckets_global=n_buckets_global)
     if counts.device.type == "cpu":
         return stream_count_reference(
-            key_lo, key_hi, counts, keys, off, block_probe, shift, bpb
+            key_lo, key_hi, counts, keys, off, block_probe, shift, bpb, bucket_base
         )
     if counts.device.type != "cuda":
         raise ValueError(f"stream_count: no kernel for device {counts.device}")
@@ -170,7 +187,7 @@ def stream_count(key_lo, key_hi, counts, keys, off, block_probe,
         rc = fn(
             key_lo.data_ptr(), key_hi.data_ptr(), counts.data_ptr(),
             keys.data_ptr(), off.data_ptr(), block_probe.data_ptr(),
-            n_blocks, shift, bpb, counts.device.index, stream,
+            n_blocks, shift, bpb, bucket_base, counts.device.index, stream,
         )
     if rc:
         raise RuntimeError(f"stream_count kernel launch failed: {native.error_string(rc)}")
@@ -206,7 +223,7 @@ def fingerprint_lanes(words: torch.Tensor, m_hi: torch.Tensor) -> torch.Tensor:
 
 
 def stream_count_reference(key_lo, key_hi, counts, keys, off, block_probe,
-                           shift: int, bpb: int) -> torch.Tensor:
+                           shift: int, bpb: int, bucket_base: int = 0) -> torch.Tensor:
     """Plain-torch twin of the kernel (same contract, same result): for each
     valid query, walk its rounds with a row gather and an 8-lane compare,
     then add the hits into ``counts`` with wrapping 32-bit arithmetic."""
@@ -218,8 +235,9 @@ def stream_count_reference(key_lo, key_hi, counts, keys, off, block_probe,
     in_windows = keys[int(off64[0]) : int(off64[-1])]
     block = torch.repeat_interleave(torch.arange(n_blocks, device=dev), lengths)
     m_lo, m_hi = split_key(in_windows)
-    bucket = bucket_from_mlo_torch(m_lo, key_lo.shape[0])
-    local = bucket - block * bpb
+    # the global bucket (shift of the whole table) against the shard's blocks
+    bucket = m_lo >> shift if shift < 32 else torch.zeros_like(m_lo)
+    local = bucket - bucket_base - block * bpb
     live = ~((m_lo == INVALID_WORD) & (m_hi == INVALID_WORD))
     live &= (local >= 0) & (local < bpb)
     # a chain never leaves its block: more than bpb rounds would revisit
@@ -262,22 +280,28 @@ def plane_to_slot(counts: np.ndarray, n_buckets: int, gpb: int = CHAIN_BLOCK) ->
     ).reshape(-1)
 
 
-def _count_grouped(key_lo, key_hi, counts, keys, block_probe):
-    n_buckets = key_lo.shape[0]
-    bpb = min(CHAIN_BLOCK, n_buckets)
-    grouped, off = block_partition(keys, n_buckets, bpb, consume=True)
-    return stream_count(
-        key_lo, key_hi, counts, grouped, off, block_probe, bucket_shift(n_buckets), bpb,
-    )
-
-
-def stream_probe_count_keys(key_lo, key_hi, counts, keys, block_probe):
+def stream_probe_count_keys(key_lo, key_hi, counts, keys, block_probe, *,
+                            bucket_base: int = 0, n_buckets_global: int | None = None):
     """Stream path for the sort keys of valid queries, in any order (the
     hash kernels' output, ``hashing.plane_hash_keys`` / ``ragged_hash_keys``):
     block partition -> stream count. Updates ``counts`` in place. On the
     card the partition uses ``keys``' memory, whose contents are then
-    undefined."""
-    return _count_grouped(key_lo, key_hi, counts, keys, block_probe)
+    undefined.
+
+    An index shard (buckets ``[bucket_base, bucket_base + n_local)`` of
+    ``n_buckets_global``, whole chain blocks; ``block_probe`` its slice)
+    partitions the keys over the whole table's blocks and counts its own
+    blocks' windows, ``off[bucket_base / bpb : ... + n_local / bpb + 1]``;
+    keys homed elsewhere lie outside them."""
+    n_local = key_lo.shape[0]
+    n_buckets = n_local if n_buckets_global is None else n_buckets_global
+    bpb = min(CHAIN_BLOCK, n_buckets)
+    grouped, off = block_partition(keys, n_buckets, bpb, consume=True)
+    first = bucket_base // bpb
+    return stream_count(
+        key_lo, key_hi, counts, grouped, off[first : first + n_local // bpb + 1], block_probe,
+        bucket_shift(n_buckets), bpb, bucket_base, n_buckets,
+    )
 
 
 def stream_probe_count(key_lo, key_hi, counts, q_lo, q_hi, valid, seed: int,
@@ -285,6 +309,6 @@ def stream_probe_count(key_lo, key_hi, counts, q_lo, q_hi, valid, seed: int,
     """Stream path for raw query words and their validity mask: the mixed
     keys (invalid queries land in no window) -> block partition -> stream
     count."""
-    return _count_grouped(
+    return stream_probe_count_keys(
         key_lo, key_hi, counts, mixed_keys(q_lo, q_hi, valid, seed), block_probe
     )

@@ -133,6 +133,14 @@ def feistel_mix_torch(lo: torch.Tensor, hi: torch.Tensor, seed: int = 0):
     return L, R
 
 
+def feistel_unmix_torch(m_lo: torch.Tensor, m_hi: torch.Tensor, seed: int = 0):
+    """:func:`feistel_unmix` on int64-held words."""
+    L, R = m_lo, m_hi
+    for c in reversed(_FEISTEL_ROUNDS):
+        L, R = R ^ fmix32_torch(L ^ ((c + seed) & MASK32)), L
+    return L, R
+
+
 def mix64_torch(lo: torch.Tensor, hi: torch.Tensor, seed: int = 0) -> torch.Tensor:
     """:func:`mix64` on int64-held words."""
     return fmix32_torch(lo ^ fmix32_torch(hi ^ ((_GOLDEN + seed) & MASK32)))

@@ -47,6 +47,14 @@ def encode_bytes(ascii_bytes: np.ndarray, strict: bool = True) -> np.ndarray:
     return codes
 
 
+def encode_string(seq: str) -> np.ndarray:
+    return encode_bytes(np.frombuffer(seq.encode(), dtype=np.uint8))
+
+
+def decode_to_string(codes: np.ndarray) -> str:
+    return "".join(ALPHABET[c] for c in np.asarray(codes))
+
+
 def kmer_hashes(codes: np.ndarray, k: int) -> np.ndarray:
     """All k-mer hashes of one contiguous code sequence:
     ``hash[i] = sum_m codes[i+m] << 2m``."""
@@ -58,6 +66,21 @@ def kmer_hashes(codes: np.ndarray, k: int) -> np.ndarray:
     for m in range(k):
         out |= codes[m : m + n - k + 1] << np.uint64(2 * m)
     return out
+
+
+def kmer_hashes_convolve(codes: np.ndarray, k: int) -> np.ndarray:
+    """The same hash by another route, a convolution of the reversed
+    complement (the reference's test oracle, ``tests/test_hashing.py:11-27``).
+    Used only in tests."""
+    codes = np.asarray(codes, dtype=np.uint64)
+    if len(codes) < k:
+        return np.zeros(0, dtype=np.uint64)
+    comp = (np.uint64(3) - codes)[::-1]  # reverse complement in ACGT code
+    conv = np.convolve(comp, np.uint64(4) ** np.arange(k, dtype=np.uint64), mode="valid")
+    rc_of_windows = conv[::-1]
+    # complement each 2-bit field back to get the forward hash
+    mask = np.uint64(4**k - 1)
+    return (~rc_of_windows & mask) ^ np.uint64(0)
 
 
 def kmer_hashes_ragged(flat_codes: np.ndarray, lengths: np.ndarray, k: int) -> np.ndarray:

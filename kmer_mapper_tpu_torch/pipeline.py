@@ -23,7 +23,7 @@ import torch
 
 from .index.kmer_index import KmerIndex, load_index
 from .io import readers
-from .models.mapper import KmerMapper, MapperConfig
+from .models.mapper import KmerMapper, MapperConfig, chunk_is_fixed
 from .ops.hashing import read_stride
 from .utils import profiling
 from .utils.timing import log_memory_usage_now, span
@@ -206,15 +206,20 @@ def map_file(
             "%d invalid (non-ACGTN) bases were encoded as A", mapper.n_invalid_bases
         )
     with span("node count finalization", logging.INFO):
-        slot_counts = mapper.slot_counts()
-        node_counts = index.node_counts(slot_counts, max_frequency=max_frequency)
+        node_counts = mapper.node_counts(max_frequency=max_frequency)
     log_memory_usage_now("after mapping")
-    n_hits = int(slot_counts.sum(dtype=np.uint64))
+    n_hits = _index_hits(mapper.counts)
     logger.info(
         "Mapped %d kmers (%d index hits) from %d chunks on %s in %.3f sec total",
         n_kmers, n_hits, n_chunks, mapper.device, time.perf_counter() - t_start,
     )
     return node_counts
+
+
+def _index_hits(counts: torch.Tensor) -> int:
+    """The sum of uint32 slot counts held as int32 bits, taken on their
+    device: the int32 sum plus 2**32 for each count at or past 2**31."""
+    return int(counts.sum(dtype=torch.int64)) + (int(counts.lt(0).sum()) << 32)
 
 
 def _max_words(config: MapperConfig) -> int:
@@ -235,14 +240,24 @@ def make_mapper_and_chunks(
     device,
     reader_workers: int = 1,
 ) -> tuple[KmerMapper, Iterable]:
-    """The device mapper plus the packed host chunk iterator.
+    """The device mapper plus the packed host chunk iterator
+    (:func:`config_and_chunks`)."""
+    config, chunks = config_and_chunks(reads_path, k, chunk_size, map_reverse_complements,
+                                       torch.device(device), reader_workers)
+    return KmerMapper(index, config, device), chunks
+
+
+def config_and_chunks(reads_path: str, k: int, chunk_size: int, map_reverse_complements: bool,
+                      device: torch.device, reader_workers: int = 1
+                      ) -> tuple[MapperConfig, Iterable]:
+    """The mapper's config and the file's packed host chunks (6-tuples,
+    :func:`_strided_chunks`).
 
     The buffer is ``CUDA_BUF`` bases on CUDA whatever ``chunk_size`` says;
     on the CPU it follows ``chunk_size``. If the file's first records are
     uniform-length reads (the Illumina case), buffers arrive in the strided
     layout of the plane step; any buffer that is not uniform takes the
     ragged step with identical results."""
-    device = torch.device(device)
     if device.type == "cuda":
         buf = CUDA_BUF
     else:
@@ -259,12 +274,10 @@ def make_mapper_and_chunks(
         reads_path, make_config(rl_hint), chunk_size, reader_workers
     ))
     first = next(chunks, None)
-    mapper = KmerMapper(
-        index, make_config(rl_hint or _detect_read_len(first, k)), device
-    )
+    config = make_config(rl_hint or _detect_read_len(first, k))
     if first is None:
-        return mapper, iter(())
-    return mapper, _strided_chunks(itertools.chain([first], chunks), mapper.config)
+        return config, iter(())
+    return config, _strided_chunks(itertools.chain([first], chunks), config)
 
 
 def _strided_chunks(packed_iter, config: MapperConfig):
@@ -277,7 +290,7 @@ def _strided_chunks(packed_iter, config: MapperConfig):
             yield tup
             continue
         packed, lengths, n_bases, n_reads, n_invalid = tup
-        strided = bool(config.read_len) and _chunk_is_fixed(
+        strided = bool(config.read_len) and chunk_is_fixed(
             lengths, n_bases, config.read_len
         )
         if strided:
@@ -285,16 +298,6 @@ def _strided_chunks(packed_iter, config: MapperConfig):
                 packed, n_bases // config.read_len, config.read_len, rows
             )
         yield packed, lengths, n_bases, n_reads, n_invalid, strided
-
-
-def _chunk_is_fixed(lengths, n_bases, read_len: int) -> bool:
-    """True iff the chunk is exactly n whole reads of ``read_len``."""
-    nb = int(n_bases)
-    if nb % read_len:
-        return False
-    n = nb // read_len
-    lengths = np.asarray(lengths)
-    return bool(np.all(lengths[:n] == read_len)) and not np.any(lengths[n:])
 
 
 def packed_chunk_iterator(
@@ -342,6 +345,82 @@ def packed_chunk_iterator(
             min_region=2 * config.buf,
         )
     return stream_iter(readers.open_bytes(reads_path))
+
+
+def map_file_sharded(
+    index: KmerIndex | str,
+    reads_path: str,
+    *,
+    k: int = 31,
+    chunk_size: int = 2_500_000,
+    max_frequency: int = 1000,
+    map_reverse_complements: bool = False,
+    index_parallel: int = 1,
+    n_devices: int | None = None,
+    devices=None,
+    queue_depth: int = 4,
+    strict_bases: bool = False,
+    profile_dir: str | None = None,
+    reader_workers: int = 1,
+) -> np.ndarray:
+    """Map a reads file over a (data, index) grid of devices
+    (``parallel.make_mesh(n_devices, index_parallel, devices)``; by default
+    every CUDA device): chunks fan out over the data rows, the table is
+    sharded over the index columns, and the counts are combined on the
+    devices at the node-count finalize (in a ``torch.distributed`` process
+    group, across the processes too). Returns uint32[max_node_id + 1].
+    ``strict_bases``, ``profile_dir`` and ``reader_workers`` as in
+    :func:`map_file`. The buffers are uploaded from pageable host memory,
+    one chunk a data row at a time."""
+    from .parallel import ShardedKmerMapper, make_mesh
+
+    t_start = time.perf_counter()
+    index = load_index(index)
+    mesh = make_mesh(n_devices=n_devices, index_parallel=index_parallel, devices=devices)
+    devices = {dev for row in mesh.devices for dev in row}
+    config, chunks = config_and_chunks(
+        reads_path, k, chunk_size, map_reverse_complements, mesh.devices[0][0], reader_workers
+    )
+    mapper = ShardedKmerMapper(index, config, mesh)
+    n_chunks = 0
+    batches = prefetch(_groups(chunks, mapper.n_data), depth=queue_depth)
+    try:
+        with profiling.trace(profile_dir) if profile_dir else contextlib.nullcontext():
+            t_map = time.perf_counter()
+            for batch in batches:
+                rows = []
+                for packed, lengths, n_bases, n_reads, n_invalid, strided in batch:
+                    if strict_bases and n_invalid:
+                        raise ValueError(
+                            f"{n_invalid} invalid (non-ACGTN) bases in input "
+                            "(--strict-bases; the reference's DNAEncoding would raise too)"
+                        )
+                    rows.append((packed, None if strided else lengths[:n_reads], n_bases,
+                                 n_invalid, strided))
+                mapper.map_chunks(rows)
+                n_chunks += len(rows)
+            n_kmers = mapper.n_kmers_mapped
+            for dev in devices:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            map_s = time.perf_counter() - t_map
+    finally:
+        batches.close()
+    logger.info("Mapped %d kmers in %d chunks over the grid %s in %.3f sec (loop %.4f s)",
+                n_kmers, n_chunks, mesh.shape, time.perf_counter() - t_start, map_s)
+    if mapper.n_invalid_bases:
+        logger.warning(
+            "%d invalid (non-ACGTN) bases were encoded as A", mapper.n_invalid_bases
+        )
+    with span("node count finalization", logging.INFO):
+        return mapper.node_counts(max_frequency=max_frequency)
+
+
+def _groups(items: Iterable, n: int) -> Iterator[list]:
+    """Lists of ``n`` consecutive items, the last one shorter."""
+    items = iter(items)
+    while group := list(itertools.islice(items, n)):
+        yield group
 
 
 def map_sequences(

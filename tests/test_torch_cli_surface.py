@@ -270,3 +270,38 @@ def test_timing(caplog):
             pass
         assert timing.log_memory_usage_now("here") > 0
     assert "a step took" in caplog.text and "Memory usage (here)" in caplog.text
+
+
+@pytest.mark.parametrize("grid,flags", [(["--n-devices", "4", "--index-parallel", "2"], []),
+                                        (["--n-devices", "2"], []),
+                                        (["--index-parallel", "2"], ["-r", "true"])])
+def test_sharded_map_equals_single_device(tmp_path, grid, flags):
+    """--n-devices / --index-parallel with --device cpu map over a grid of
+    the CPU (pipeline.map_file_sharded) and write the single-device .npy;
+    the JAX CLI's sharded map writes the same."""
+    rng = np.random.default_rng(13)
+    reads = _reads(rng, 2300, 61) + _reads(rng, 50, 33)  # three 64 Ki-base buffers
+    fq, index, _, _ = _fixture(tmp_path, rng, reads, 15)
+    args = ["map", "-i", index, "-f", fq, "-k", "15", "-c", "3000", *flags]
+    cli.main(args + ["-o", str(tmp_path / "one"), "--device", "cpu"])
+    cli.main(args + grid + ["-o", str(tmp_path / "grid"), "--device", "cpu"])
+    ref_cli.main(args + grid + ["-o", str(tmp_path / "ref")])
+    got = np.load(tmp_path / "grid.npy")
+    assert got.sum() > 0
+    np.testing.assert_array_equal(got, np.load(tmp_path / "one.npy"))
+    np.testing.assert_array_equal(got, np.load(tmp_path / "ref.npy"))
+
+
+def test_more_devices_than_cards_exits(tmp_path, caplog):
+    """--n-devices past torch.cuda.device_count() exits non-zero and names
+    the count; nothing is written."""
+    rng = np.random.default_rng(2)
+    fq, index, _, _ = _fixture(tmp_path, rng, _reads(rng, 10, 40), 15)
+    n = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(SystemExit) as exit_info:
+        cli.main(["map", "-i", index, "-f", fq, "-k", "15", "-o", str(tmp_path / "out"),
+                  "--n-devices", str(n)])
+    assert exit_info.value.code != 0
+    assert f"--n-devices {n}: torch.cuda.device_count() is {torch.cuda.device_count()}" in (
+        caplog.text)
+    assert not (tmp_path / "out.npy").exists()

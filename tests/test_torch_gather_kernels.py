@@ -249,8 +249,9 @@ def test_failed_launch_raises(monkeypatch):
         probe._launch(0, key_lo, key_hi, block_probe, queries, valid, counts, None, 2, 7)
     assert probe.launch_counts == before
     (args,) = calls
-    # n, n_buckets, n_blocks, max_probe, seed, mode, then the device and stream
-    assert args[7:13] == (5, 8, 1, 2, 7, 0) and len(args) == 15
+    # n, n_buckets, n_blocks, max_probe, seed, mode, the rows (row_offset,
+    # n_local: the whole table), then the device and stream
+    assert args[7:15] == (5, 8, 1, 2, 7, 0, 0, 8) and len(args) == 17
 
 
 def test_launch_passes_null_valid_and_block_probe(monkeypatch):

@@ -29,7 +29,9 @@ SCRIPT = textwrap.dedent(
                    "index.pickled", "io.native", "io.gzio", "io.parallel_reader",
                    "command_line_interface", "util", "encodings", "tools",
                    "utils.timing", "utils.profiling", "ops.hashing", "ops.hash_keys_cases",
-                   "ops.block_partition", "ops.block_partition_cases"):
+                   "ops.block_partition", "ops.block_partition_cases", "ops.finalize",
+                   "ops.finalize_cases", "parallel", "parallel.mesh", "parallel.sharded",
+                   "parallel.multihost"):
         assert f"kmer_mapper_tpu_torch.{module}" in names, names
     spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -37,7 +39,7 @@ SCRIPT = textwrap.dedent(
     assert callable(smoke.phase_tiles) and callable(smoke.phase_library)
     assert callable(smoke.phase_file_feed)
     assert callable(smoke.phase_hash_hazards) and callable(smoke.phase_ragged_steady_state)
-    assert callable(smoke.phase_partition_hazards)
+    assert callable(smoke.phase_partition_hazards) and callable(smoke.phase_sharded)
     from kmer_mapper_tpu_torch import oracle, pipeline
     from kmer_mapper_tpu_torch.index import kmer_index
 
@@ -94,6 +96,11 @@ SCRIPT = textwrap.dedent(
                                                           device="cpu")
     counter.count(kmers, count_revcomps=True)
     assert counter.get_node_counts().sum() >= got.sum()
+    # the sharded file path over a (2, 2) grid of the CPU
+    import torch
+    got4 = pipeline.map_file_sharded(os.path.join(d, "i.npz"), big, k=21, chunk_size=1 << 12,
+                                     devices=[torch.device("cpu")] * 4, index_parallel=2)
+    assert (got4 == got2).all()
     blocked = ("jax", "jaxlib", "kmer_mapper_tpu")
     assert not [m for m in sys.modules if m.split(".")[0] in blocked and sys.modules[m]]
     print("OK", len(names))
