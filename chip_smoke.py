@@ -10,8 +10,9 @@ result line):
   3. the stream-count kernel against its plain-torch twin and the host
      oracle on every hazard case of its contract, on sorted and on
      shuffled, partitioned windows; the two hash-key kernels (plane and
-     ragged) against theirs on every case of ops/hash_keys_cases.py (exact
-     equality, the keys in the same order); and the block partition
+     ragged, with the ragged step's offsets kernel and its count) against
+     theirs on every case of ops/hash_keys_cases.py (exact equality, the
+     keys in the same order); and the block partition
      against its twin on every case of ops/block_partition_cases.py (the
      main path's kernels: the twin's keys in the twin's order; the cursor
      route of scripts/partition_dissect.py with its histogram in shared
@@ -39,7 +40,12 @@ result line):
      nothing removed) and the split-window one (r2_window_dissect's full)
      on the grouped and on the sorted keys;
      then the ragged step the same way on the same bases cut into reads of
-     100-151 bp (8 chunks, each one continuous buffer);
+     100-151 bp (8 chunks, each one continuous buffer; stages offsets, hash
+     keys, partition with the device count, count); its 8 buffers mapped
+     once more under torch.cuda.set_sync_debug_mode("error"), so any host
+     sync in the step raises; the offsets' kernel, the hash kernel and the
+     function whole against the twins; the device-count partition of the
+     capacity key buffer == the twin on the count's keys;
   6. dissect: the three dissection scripts of kmer_mapper_tpu_torch.scripts
      run as a user runs them, at their full sizes (their kernels must have
      launched); then every variant of each kernel against its twin, bit for
@@ -90,10 +96,14 @@ result line):
      waited on the host feed and the gzip decoder; from (c)'s trace, the
      device's busy share of the mapping window.
  10. sharded: the node-count finalize kernel against its twin, numpy and
-     the host finalize on the hazard cases of ops/finalize_cases.py; the
-     finalize of phase 8's 2^26-hash call timed beside the twin, the host
-     and an int64 index_add_; phase 5's chunks through ShardedKmerMapper on
-     (data, index) grids (1,1), (2,1), (1,2), (2,2) of the card, node counts
+     the host finalize on the hazard cases of ops/finalize_cases.py, each
+     in its own entry order, shuffled and sorted by slot; the finalize of
+     phase 8's 2^26-hash call (entries in slot order, as the mappers upload
+     them) timed beside the twin, the host, an int64 index_add_ of the
+     gathered weights and the gather, where and index_add_ in torch (the
+     finalize's other designs are timed on demand by
+     kmer_mapper_tpu_torch.scripts.finalize_dissect); phase 5's chunks
+     through ShardedKmerMapper on (data, index) grids (1,1), (2,1), (1,2), (2,2) of the card, node counts
      == KmerMapper's, M k-mers/s a grid; sharded map_hashes on phase 8's
      2^23-bucket table over 4 index shards and on a 512-bucket table over 8
      sub-block shards == KmerMapper's; map_file_sharded over 4 cells (2
@@ -304,14 +314,26 @@ def phase_hash_hazards(torch, np, device) -> dict:
     kernel and twin keys per kernel (must be 0)."""
     from kmer_mapper_tpu_torch.ops import hash_keys_cases, hashing
 
-    max_err = {"plane_hash_keys": 0, "ragged_hash_keys": 0}
-    n_cases = dict.fromkeys(max_err, 0)
-    n_keys = dict.fromkeys(max_err, 0)
+    max_err = {"plane_hash_keys": 0, "ragged_hash_keys": 0, "ragged_offsets": 0}
+    n_cases = dict.fromkeys(("plane_hash_keys", "ragged_hash_keys"), 0)
+    n_keys = dict.fromkeys(n_cases, 0)
     t = time.perf_counter()
     for case in hash_keys_cases.cases():
         name = "ragged_hash_keys" if case.ragged else "plane_hash_keys"
         got = getattr(hashing, name)(*case.inputs(device))
         twin = getattr(hashing, f"{name}_reference")(*case.inputs(device))
+        if case.ragged:  # the keys are the first count[0] of a capacity buffer
+            _, lengths, n_bases, k, _, revcomp = case.inputs(device)
+            offsets = hashing.ragged_offsets(lengths, n_bases, k, revcomp)
+            plain = hashing.ragged_offsets_reference(lengths, n_bases, k, revcomp)
+            max_err["ragged_offsets"] = max(
+                max_err["ragged_offsets"],
+                *(int((a.long() - b.long()).abs().amax()) for a, b in zip(offsets, plain)
+                  if a.numel()))
+            got, count = got
+            if count.tolist() != plain[2].tolist() or max_err["ragged_offsets"]:
+                raise AssertionError(f"hash hazard {case.name}: ragged_offsets != its twin")
+            got = got[: int(count[0])]
         err = key_err(got, twin)
         max_err[name] = max(max_err[name], err)
         if err or not np.array_equal(np.sort(got.cpu().numpy()), case.expected_keys()):
@@ -388,7 +410,9 @@ def radix_kernels(torch, keys, n_buckets: int, timed: bool = False) -> dict:
 
     n_blocks = n_buckets // min(128, n_buckets)
     n = keys.numel()
-    n_slabs, slab_len = bp.slab_layout(n, bp.radix_slabs(keys.device))
+    n_slabs = bp.radix_slabs(keys.device)
+    _, slab_len = bp.slab_layout(n, n_slabs)
+    count = torch.full((1,), n, dtype=torch.int32, device=keys.device)
     out = {name: {"max_abs_err": 0, "bytes": 0, "ops": 0, "ms": 0.0, "plain_ms": 0.0,
                   "library_ms": None}
            for name in ("partition_histogram", "partition_scan", "radix_scatter",
@@ -410,11 +434,11 @@ def radix_kernels(torch, keys, n_buckets: int, timed: bool = False) -> dict:
     for shift, bits in bp.radix_passes(n_blocks):
         width = bp.digit_width(n_blocks, shift, bits)
         matrix = 4 * n_slabs * width
-        rows = bp.partition_histogram(cur, n_blocks, slab_len, shift, bits)
+        rows = bp.partition_histogram(cur, n_blocks, shift, bits, count, n_slabs)
         record("partition_histogram", rows,
-               bp.slab_histograms(cur, n_blocks, slab_len, shift, bits),
-               lambda: bp.partition_histogram(cur, n_blocks, slab_len, shift, bits),
-               lambda: bp.slab_histograms(cur, n_blocks, slab_len, shift, bits),
+               bp.slab_histograms(cur, n_blocks, slab_len, shift, bits, n_slabs),
+               lambda: bp.partition_histogram(cur, n_blocks, shift, bits, count, n_slabs),
+               lambda: bp.slab_histograms(cur, n_blocks, slab_len, shift, bits, n_slabs),
                8 * n + matrix, HISTOGRAM_OPS * n)
         bases, doff = bp.slab_bases(rows)
         counts = rows.clone()
@@ -428,10 +452,10 @@ def radix_kernels(torch, keys, n_buckets: int, timed: bool = False) -> dict:
                lambda: bp.slab_bases(counts), 2 * matrix + 4 * width, 2 * n_slabs * width,
                lambda: torch.cumsum(counts, 0))
         out["partition_scan"]["ms"] -= copy_ms
-        nxt = bp.radix_scatter(cur, rows, doff, n_blocks, slab_len, shift, bits)
+        nxt = bp.radix_scatter(cur, rows, doff, n_blocks, shift, bits, count)
         record("radix_scatter", nxt,
                bp.slab_scatter_reference(cur, bases, doff, n_blocks, slab_len, shift, bits),
-               lambda: bp.radix_scatter(cur, rows, doff, n_blocks, slab_len, shift, bits),
+               lambda: bp.radix_scatter(cur, rows, doff, n_blocks, shift, bits, count),
                lambda: bp.slab_scatter_reference(cur, bases, doff, n_blocks, slab_len, shift,
                                                  bits),
                16 * n + matrix + 4 * (width + 1), SCATTER_OPS * n)
@@ -441,8 +465,9 @@ def radix_kernels(torch, keys, n_buckets: int, timed: bool = False) -> dict:
     # 64 times the bins (kSearchKeysABin), else every key once
     search = n_off * 64 <= n
     reads = n_off * max(1, n.bit_length()) if search else n
-    record("radix_offsets", bp.radix_offsets(cur, n_blocks),
-           bp.radix_offsets_reference(cur, n_blocks), lambda: bp.radix_offsets(cur, n_blocks),
+    record("radix_offsets", bp.radix_offsets(cur, n_blocks, count),
+           bp.radix_offsets_reference(cur, n_blocks),
+           lambda: bp.radix_offsets(cur, n_blocks, count),
            lambda: bp.radix_offsets_reference(cur, n_blocks), 8 * reads + 4 * n_off,
            8 * reads)
     for entry in out.values():
@@ -950,9 +975,12 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     n_buckets = index.table.n_buckets
     shift, bpb = bucket_shift(n_buckets), min(128, n_buckets)
 
-    def run_mapper():
+    def run_mapper_on(m):
         for words, lengths, nb in dev_chunks:
-            mapper.map_chunk(words, lengths, nb)
+            m.map_chunk(words, lengths, nb)
+
+    def run_mapper():
+        run_mapper_on(mapper)
 
     twin_counts = torch.zeros_like(mapper.counts)
 
@@ -967,13 +995,15 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
 
     modules = (hashing, stream_probe, block_partition)
     zero_launch_counts(*modules)
+    torch.cuda.reset_peak_memory_stats()
     kernel_rates = timed_rates(torch, run_mapper, n_kmers)
+    peak = torch.cuda.max_memory_allocated()
     launches = all_launches(*modules)
     twin_rates = timed_rates(torch, run_twin, n_kmers)
     if not torch.equal(mapper.counts, twin_counts):
         raise AssertionError("ragged: kernel path and twin path counts differ")
     n_steps = (1 + N_WINDOWS) * len(dev_chunks)
-    if (launches["ragged_hash_keys"] != n_steps
+    if (launches["ragged_hash_keys"] != n_steps or launches["ragged_offsets"] != n_steps
             or any(launches[name] != n_steps * chunk_launches(n_buckets)[name]
                    for name in MAIN_PATH_KERNELS)
             or launches["plane_hash_keys"]
@@ -983,17 +1013,43 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     log(f"ragged: kernel path {[f'{r / 1e6:.1f}' for r in kernel_rates]} Mk/s "
         f"({[f'{m:.3f}' for m in ms_chunk]} ms a chunk), twin path "
         f"{[f'{r / 1e6:.1f}' for r in twin_rates]} Mk/s ({len(dev_chunks)} chunks, "
-        f"{n_kmers} k-mers a window); counts equal; launches {launches}")
+        f"{n_kmers} k-mers a window); counts equal; peak device memory "
+        f"{peak / 2**30:.2f} GiB in the kernel path's windows (the 8 buffers' words and "
+        f"lengths included); launches {launches}")
+    # the ragged step makes no host sync: a fresh mapper (made before, since
+    # its table upload syncs) maps the 8 buffers with torch's sync check set
+    # to raise on any synchronising call
+    sync_free = KmerMapper(index, config, device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run_mapper_on(sync_free)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if (not torch.equal(sync_free.counts * (1 + N_WINDOWS), mapper.counts)
+            or sync_free.n_kmers_mapped != n_kmers):
+        raise AssertionError("ragged: the map_chunk run under the sync check counted "
+                             "otherwise")
+    log(f"ragged: map_chunk over {len(dev_chunks)} buffers under "
+        "torch.cuda.set_sync_debug_mode('error'): no host sync; its counts and "
+        f"n_kmers_mapped ({n_kmers}) == the timed windows'")
+    del sync_free
     words0, lengths0, nb0 = dev_chunks[0]
     oracle_check(np, index, arrays, config, device, dev_chunks[0],
                  ragged_read_kmers(np, chunks[0]), "ragged")
 
     scratch = torch.zeros_like(mapper.counts)
+    keys_buffer = torch.empty(hashing.ragged_capacity(words0.numel()), dtype=torch.int64,
+                              device=device)
 
     def offsets(chunk):
-        words, lengths, _ = chunk
-        starts, offs = hashing.ragged_offsets(lengths, K)
-        return words, starts, offs, int(offs[-1])
+        words, lengths, nb = chunk
+        return (words, *hashing.ragged_offsets(lengths, nb, K))
+
+    def hash_keys(state):
+        words, starts, offs, count = state
+        return hashing._ragged_launch(words, starts, offs, count, K, seed, False,
+                                      keys_buffer), count
 
     def count(state):
         keys, off = state
@@ -1002,41 +1058,66 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
         return state
 
     stage_ms = stage_split(torch, dev_chunks, [
-        ("offsets_and_sync", offsets),
-        ("hash_keys", lambda st: hashing._ragged_launch(*st, K, seed, False)),
-        ("partition", lambda keys: block_partition.block_partition(keys, n_buckets, bpb)),
+        ("offsets", offsets),
+        ("hash_keys", hash_keys),
+        ("partition", lambda st: block_partition.block_partition(st[0], n_buckets, bpb,
+                                                                 count=st[1])),
         ("kernel", count),
     ])
     log("ragged: per-chunk stage ms " + ", ".join(f"{n} {v:.3f}" for n, v in stage_ms.items()))
 
-    # the ragged hash-key kernel alone on one chunk (offsets made once),
-    # against its twin
-    words0, starts, offs, n_valid = offsets(dev_chunks[0])
-    got = hashing.ragged_hash_keys(words0, lengths0, nb0, K, seed)
+    # the ragged stage on one chunk: the offsets' kernel and the hash kernel
+    # alone (offsets made once) and the function whole, against the twins
     twin_args = (words0, lengths0, nb0, K, seed)
-    hash_err = key_err(got, hashing.ragged_hash_keys_reference(*twin_args))
-    if hash_err or got.numel() != n_valid:
-        raise AssertionError("ragged: ragged_hash_keys and its twin disagree on one chunk")
-    hash_ms = median_ms(lambda: hashing._ragged_launch(words0, starts, offs, n_valid, K, seed,
-                                                       False))
-    wrapper_ms = median_ms(lambda: hashing.ragged_hash_keys(*twin_args))
+    got, count0 = hashing.ragged_hash_keys(*twin_args, out=keys_buffer)
+    n_keys = int(count0[0])
+    state0 = offsets(dev_chunks[0])
+    offsets_err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(
+        state0[1:], hashing.ragged_offsets_reference(lengths0, nb0, K)))
+    hash_err = key_err(got[:n_keys], hashing.ragged_hash_keys_reference(*twin_args))
+    if hash_err or offsets_err or count0.tolist() != [n_keys, n_keys] or n_keys != int(
+            np.maximum(chunks[0].read_lengths.astype(np.int64) - K + 1, 0).sum()):
+        raise AssertionError("ragged: ragged_offsets or ragged_hash_keys and its twin disagree "
+                             "on one chunk")
+    offsets_ms = median_ms(lambda: hashing.ragged_offsets(lengths0, nb0, K))
+    offsets_plain_ms = median_ms(lambda: hashing.ragged_offsets_reference(lengths0, nb0, K))
+    hash_ms = median_ms(lambda: hash_keys(state0))
+    wrapper_ms = median_ms(lambda: hashing.ragged_hash_keys(*twin_args, out=keys_buffer))
     plain_ms = median_ms(lambda: hashing.ragged_hash_keys_reference(*twin_args), reps=3)
     # the function's inputs: the words and one int32 length a read
-    bound_ms, bound_by = hash_bound(4 * (words0.numel() + lengths0.numel()), got.numel())
-    log(f"ragged: ragged_hash_keys on {chunks[0].n_reads} reads ({got.numel()} keys): kernel "
-        f"{hash_ms:.4f} ms, with offsets and sync {wrapper_ms:.4f} ms, twin {plain_ms:.3f} ms; "
-        f"bound {bound_ms:.4f} ms by {bound_by}")
-    # the partition kernels and the count kernels on that chunk's keys
-    # against their twins, timed
-    grouped, off, part_err = partition_check(torch, got, n_buckets)
-    partition = partition_report(torch, got, n_buckets, part_err, "ragged")
-    count = count_report(torch, mapper, grouped, off, got, n_buckets, index.table.max_probe,
+    bound_ms, bound_by = hash_bound(4 * (words0.numel() + lengths0.numel()), n_keys)
+    # the offsets: one int32 length read, a start and an offset written a read
+    offsets_bound_ms, offsets_by = bound(12 * lengths0.numel() + 12, 0)
+    log(f"ragged: ragged_hash_keys on {chunks[0].n_reads} reads ({n_keys} keys): the function "
+        f"(offsets and hash kernel, no sync) {wrapper_ms:.4f} ms, the hash kernel alone "
+        f"{hash_ms:.4f} ms, twin {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by}; "
+        f"ragged_offsets {offsets_ms:.4f} ms (twin {offsets_plain_ms:.4f} ms, bound "
+        f"{offsets_bound_ms:.5f} ms by {offsets_by})")
+    # the partition with the device count (the main path's) against the twin
+    # on the count's keys, then the kernels and the count on the exact keys
+    keys = got[:n_keys].clone()
+    counted = block_partition.block_partition(got, n_buckets, bpb, count=count0)
+    twin = block_partition.block_partition_reference(keys, n_buckets, bpb)
+    counted_ms = median_ms(lambda: block_partition.block_partition(got, n_buckets, bpb,
+                                                                   count=count0))
+    if not (torch.equal(counted[0][:n_keys], twin[0]) and torch.equal(counted[1], twin[1])):
+        raise AssertionError("ragged: the device-count partition != the twin on keys[:n]")
+    log(f"ragged: block partition with the device count on a {got.numel()}-key buffer == "
+        f"twin on its {n_keys} keys, in order: {counted_ms:.4f} ms")
+    del counted, twin, got
+    grouped, off, part_err = partition_check(torch, keys, n_buckets)
+    partition = partition_report(torch, keys, n_buckets, part_err, "ragged")
+    partition["stage"]["device_count_ms"] = counted_ms
+    count = count_report(torch, mapper, grouped, off, keys, n_buckets, index.table.max_probe,
                          "ragged")
-    del got, grouped
+    del keys, grouped, keys_buffer
     return {"kernel_rates": kernel_rates, "ms_chunk": ms_chunk, "dev_chunks": dev_chunks,
-            "partition": partition, "count": count,
-            "hash": {"ms": hash_ms, "plain_ms": plain_ms, "max_abs_err": hash_err,
-                     "bound_ms": bound_ms, "bound_by": bound_by}}
+            "partition": partition, "count": count, "stage_ms": stage_ms,
+            "hash": {"ms": hash_ms, "function_ms": wrapper_ms, "plain_ms": plain_ms,
+                     "max_abs_err": hash_err, "bound_ms": bound_ms, "bound_by": bound_by},
+            "offsets": {"ms": offsets_ms, "plain_ms": offsets_plain_ms,
+                        "max_abs_err": offsets_err, "bound_ms": offsets_bound_ms,
+                        "bound_by": offsets_by}}
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -1958,9 +2039,11 @@ def phase_file_feed(torch, np, chunks, dev_chunks, ragged, index, device, workdi
             raise AssertionError(f"file feed ({tag}) {what}: node counts differ from "
                                  "the map_chunk reference")
         other = "ragged" if step == "plane" else "plane"
+        offsets = launches["ragged_offsets"]
         if (min(launches[name] for name in MAIN_PATH_KERNELS) < run["chunks"]
                 or launches[f"{step}_hash_keys"] < run["chunks"]
                 or launches[f"{other}_hash_keys"]
+                or (offsets < run["chunks"] if step == "ragged" else offsets)
                 or any(n for key, n in launches.items() if "reference" in key)):
             raise AssertionError(f"file feed ({tag}): the kernels did not run alone: "
                                  f"{launches} for {run['chunks']} chunks")
@@ -1969,7 +2052,8 @@ def phase_file_feed(torch, np, chunks, dev_chunks, ragged, index, device, workdi
                                  "buffers")
         decoder = gzio.decoder_name(paths[name]) if name.endswith(".gz") else "none"
         run.update(wall_s=wall, framed=framed, launches=launches["stream_count"],
-                   hash_launches=launches[f"{step}_hash_keys"], decoder=decoder)
+                   hash_launches=launches[f"{step}_hash_keys"], offsets_launches=offsets,
+                   decoder=decoder)
         out[tag] = run
         log(f"file feed ({tag}) {what}: {sizes[name]} bytes, {run['chunks']} chunks, "
             f"wall {wall:.3f} s ({run['bases'] / wall / 1e6:.1f} M bases/s, "
@@ -1996,6 +2080,9 @@ ENTRY_BYTES = 10
 SECTOR_BYTES = 32  # the gathers read the slot counts in 32-byte sectors
 SHARDED_GRIDS = ((1, 1), (2, 1), (1, 2), (2, 2))
 SUB_BLOCK_BUCKETS = 512  # the sub-block map_hashes table: 8 shards of 64 buckets
+#: the finalize cases whose node sums pass 2**32 over many nodes, where the
+#: host finalize's float64 sums meet numpy's vectorised uint32 cast
+HOST_UNDEFINED = ("one_slot", "two_hot_nodes")
 
 
 def finalize_bound(n_entries: int, n_sectors: int, n_nodes: int) -> tuple[float, str]:
@@ -2051,17 +2138,22 @@ def map_sharded_chunks(mapper, dev_chunks) -> None:
                            for words, nb, _ in dev_chunks[i : i + mapper.n_data]])
 
 
-def phase_sharded(torch, np, dev_chunks, index, library, feed_dir, device) -> dict:
+def phase_sharded(torch, np, dev_chunks, ragged_chunks, index, library, feed_dir,
+                  device) -> dict:
     """Multi-device mapping and the node-count finalize on the card: (a) the
     finalize kernel against its twin and the host on the hazard cases;
     (b) the finalize of phase 8's 2^26-hash call, timed beside its twin,
     the host and an int64 index_add_; (c) phase 5's chunks through
     ShardedKmerMapper on grids (1,1), (2,1), (1,2), (2,2) of one card ==
     KmerMapper; (d) sharded map_hashes on phase 8's 2^23-bucket table over
-    4 index shards and on a 512-bucket table over 8 == KmerMapper; (e)
+    4 index shards and on a 512-bucket table over 8 == KmerMapper, then
+    the ragged step's device-resident buffers (``ragged_chunks``) on a
+    (1,2) grid of the bench index and on the 512-bucket table's 8 sub-block
+    shards under torch's sync check == KmerMapper; (e)
     map_file_sharded on phase 9's FASTQ over 4 cells == map_file's counts;
-    (f) with two cards or more, (c) and (e) over distinct cards and the
-    two-card tests of tests/test_torch_kernels.py. Each run's launch counts
+    (f) with two cards or more, (c) and (e) over distinct cards, the
+    ragged buffers on grids (2,1) and (2,2) whose data rows lie on distinct
+    cards, and the two-card tests of tests/test_torch_kernels.py. Each run's launch counts
     are zeroed before it and read after it."""
     from kmer_mapper_tpu_torch import pipeline
     from kmer_mapper_tpu_torch.index import kmer_index, layout
@@ -2086,24 +2178,37 @@ def phase_sharded(torch, np, dev_chunks, index, library, feed_dir, device) -> di
             path_launches[k] += launches[k]
         return launches
 
-    # (a) the finalize kernel == twin == host on the hazard cases
+    # (a) the finalize kernel == twin == host on the hazard cases, the
+    # entries in the case's order, shuffled and sorted by slot
     max_err = 0
-    for name, case in finalize_cases.cases().items():
-        args = case.inputs(device)
-        got = _u32(finalize.finalize(*args))
-        twin = _u32(finalize.finalize_reference(*args))
-        host = kmer_index.KmerIndex(
-            table=None, entry_slot=case.slot, entry_node=case.node,
-            entry_frequency=case.frequency, max_node_id=case.n_nodes - 1,
-            n_unique=len(case.counts)).node_counts(case.counts, case.max_frequency)
-        max_err = max(max_err, int(np.abs(got - twin).max(initial=0)))
-        if (max_err or not np.array_equal(got, case.expected())
-                or not np.array_equal(got, host.astype(np.int64))):
-            raise AssertionError(f"sharded (a): finalize case {name}: kernel, twin, numpy "
-                                 "and host differ")
-    log(f"sharded (a): node_counts kernel == twin == numpy == host KmerIndex.node_counts on "
-        f"{len(finalize_cases.cases())} hazard cases (frequency bound, 10^5 entries on one "
-        "node, 0xFFFFFFFF + 1 and a sum past 2^32, 10^3 nodes an entry, no entries)")
+    for name, base in finalize_cases.cases().items():
+        for order in ("case", "shuffled", "slot"):
+            case = base if order == "case" else base.ordered(order, seed=1)
+            args = case.inputs(device)
+            got = _u32(finalize.finalize(*args))
+            twin = _u32(finalize.finalize_reference(*args))
+            host = kmer_index.KmerIndex(
+                table=None, entry_slot=case.slot, entry_node=case.node,
+                entry_frequency=case.frequency, max_node_id=case.n_nodes - 1,
+                n_unique=len(case.counts)).node_counts(case.counts, case.max_frequency)
+            max_err = max(max_err, int(np.abs(got - twin).max(initial=0)))
+            # the host sums in float64 and casts to uint32: past 2**32
+            # numpy's vectorised cast gives 0, not the low word (the wrap
+            # case's 3 nodes take the scalar cast, which keeps it), so the
+            # host is not held to the wrapping sums of the cases with many
+            # nodes
+            host_defined = name not in HOST_UNDEFINED
+            if (max_err or not np.array_equal(got, base.expected())
+                    or host_defined and not np.array_equal(got, host.astype(np.int64))):
+                raise AssertionError(f"sharded (a): finalize case {name} ({order} order): "
+                                     "kernel, twin, numpy and host differ")
+    log(f"sharded (a): node_counts kernel == twin == numpy on {len(finalize_cases.cases())} "
+        "hazard cases (frequency bound, 10^5 entries on one node, 0xFFFFFFFF + 1 and a sum "
+        "past 2^32, 10^3 nodes an entry, no entries, one slot on 10^4 nodes whose sums wrap, "
+        "two hot nodes with 80% of the entries), "
+        "each in its own entry order, shuffled and sorted by slot; == the host "
+        f"KmerIndex.node_counts on all but {HOST_UNDEFINED} (float64 sums past 2^32 that "
+        "numpy's vectorised cast turns to 0)")
 
     # (b) the finalize of the 2^26-hash library call, beside the host's
     counts, lib_index = library["counts"], library["index"]
@@ -2122,9 +2227,14 @@ def phase_sharded(torch, np, dev_chunks, index, library, feed_dir, device) -> di
                          reps=3)
     slot, node, freq = entries
     weights = torch.where(freq <= 1000, counts[slot.long()].long() & MASK32, 0)
-    node64 = node.long()
+    node64, slot64 = node.long(), slot.long()
     library_ms = median_ms(lambda: torch.zeros(n_nodes, dtype=torch.int64,
                                                device=device).index_add_(0, node64, weights))
+    # the whole function in torch: the gather, the frequency filter and the
+    # index_add_, on the same entries
+    composed_ms = median_ms(lambda: torch.zeros(n_nodes, dtype=torch.int64, device=device)
+                            .index_add_(0, node64, torch.where(
+                                freq <= 1000, counts[slot64].long() & MASK32, 0)))
     weighted = weights.ne(0)
     n_nonzero = int(weighted.sum())
     n_sectors = int(torch.unique(slot[weighted] // (SECTOR_BYTES // 4)).numel())
@@ -2140,16 +2250,18 @@ def phase_sharded(torch, np, dev_chunks, index, library, feed_dir, device) -> di
         f"words; the host finalize, read-back of every slot and bincount, took "
         f"{host_s:.4f} s on these counts, 0.1034 s in PERF.md's run); node_counts kernel "
         f"{ms:.4f} ms on {slot.numel()} entries ({n_nonzero} with a weight, gathering "
-        f"{n_sectors} distinct sectors of {counts.numel()} slot counts), twin "
+        f"{n_sectors} distinct sectors of {counts.numel()} slot counts; entries sorted by "
+        f"slot), twin "
         f"{plain_ms:.3f} ms, int64 index_add_ of the gathered weights {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms by {bound_by}")
-    del weights, weighted, node64, twin
+        f"the gather, where and index_add_ in torch {composed_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / ms:.0f}% of it)")
+    del weights, weighted, node64, slot64, twin
     finalize_entry = {
         "name": "node_counts", "route": "cuda",
         "source": "kmer_mapper_tpu_torch/csrc/node_counts.cu",
         "replaces": "kmer_mapper_tpu/parallel/sharded.py:403 (make_finalize's finalize, XLA)",
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
+        "library_ms": library_ms, "composed_ms": composed_ms,
     }
 
     # (c) the main path sharded at full width, on grids of this card
@@ -2229,6 +2341,38 @@ def phase_sharded(torch, np, dev_chunks, index, library, feed_dir, device) -> di
             f"{mapper.nb_local} buckets a shard) == KmerMapper's ({int(got.sum())} node hits) in {seconds:.3f} s; "
             f"launches {launches}")
         del mapper
+    # the ragged step on sharded grids: its device count feeds the
+    # partition (stream route) and masks the key buffer's tail (gather
+    # route, sub-block shards), with no host sync
+    ragged_config = MapperConfig(k=K, buf=CUDA_BUF, max_reads=config.max_reads)
+    ragged_want: dict = {}  # KmerMapper's node counts and windows a table, for (f)
+    for what, idx, grid, chunks in (
+            ("bench index", index, (1, 2), ragged_chunks),
+            ("512-bucket table, 8 sub-block index shards", small, (1, 8), ragged_chunks[:2])):
+        ref = KmerMapper(idx, ragged_config, device)
+        for chunk in chunks:
+            ref.map_chunk(*chunk)
+        want, want_kmers = ref.node_counts(), ref.n_kmers_mapped
+        ragged_want.setdefault(what, (want, want_kmers))
+        del ref
+        mapper = sharded_grid(torch, idx, ragged_config, grid, [device])
+        zero_launch_counts(*modules)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for words, lengths, nb in chunks:
+                mapper.map_chunks([(words, lengths, nb, 0, False)])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = mapper.node_counts()
+        launches = require(f"d, ragged, {what}", ("ragged_offsets", "ragged_hash_keys",
+                                                  "node_counts"))
+        if not np.array_equal(got, want) or mapper.n_kmers_mapped != want_kmers:
+            raise AssertionError(f"sharded (d): ragged chunks on the {what} != KmerMapper")
+        log(f"sharded (d): {len(chunks)} ragged buffers on the {what} (grid {grid}) under "
+            f"torch.cuda.set_sync_debug_mode('error'): no host sync; node counts and "
+            f"n_kmers_mapped ({want_kmers}) == KmerMapper's; launches {launches}")
+        del mapper
     del large_index, library["large"]
     torch.cuda.empty_cache()
 
@@ -2259,8 +2403,32 @@ def phase_sharded(torch, np, dev_chunks, index, library, feed_dir, device) -> di
         cards = [torch.device("cuda", i) for i in range(n_cards)]
         run_grids(cards, SHARDED_GRIDS[1:], "f")
         run_file([cards[i % n_cards] for i in range(4)], "f")
+        # the ragged buffers fanned out over data rows on distinct cards:
+        # each row's device count stays on its card until the read-back
+        want, want_kmers = ragged_want["bench index"]
+        for grid in ((2, 1), (2, 2)):
+            mapper = sharded_grid(torch, index, ragged_config, grid,
+                                  [cards[i // grid[1] % n_cards] for i in range(4)])
+            zero_launch_counts(*modules)
+            for i in range(0, len(ragged_chunks), 2):
+                mapper.map_chunks([(words, lengths, nb, 0, False)
+                                   for words, lengths, nb in ragged_chunks[i : i + 2]])
+            row_devices = {cells[0].device for cells in mapper.cells}
+            if len(row_devices) != 2:
+                raise AssertionError(f"sharded (f): grid {grid}'s data rows share a card")
+            got = mapper.node_counts()
+            launches = require(f"f, ragged, grid {grid}", ("ragged_offsets", "ragged_hash_keys",
+                                                            "node_counts"))
+            if not np.array_equal(got, want) or mapper.n_kmers_mapped != want_kmers:
+                raise AssertionError(f"sharded (f): ragged chunks on grid {grid} over "
+                                     f"{sorted(map(str, row_devices))} != KmerMapper")
+            log(f"sharded (f): {len(ragged_chunks)} ragged buffers on grid {grid}, data rows "
+                f"on {sorted(map(str, row_devices))}: node counts and n_kmers_mapped "
+                f"({want_kmers}) == KmerMapper's; launches {launches}")
+            del mapper
         tests = ("test_pinned_ring_event_waits_on_the_mappers_device or "
-                 "test_map_file_on_a_device_that_is_not_current")
+                 "test_map_file_on_a_device_that_is_not_current or "
+                 "test_sharded_ragged_chunks_over_two_cards")
         proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-p",
                                "no:cacheprovider", "-q", "-rA", "tests/test_torch_kernels.py",
                                "-k", tests], capture_output=True, text=True)
@@ -2318,8 +2486,8 @@ def main() -> int:
         feed = phase_file_feed(torch, np, chunks, steady["dev_chunks"],
                                (ragged_reads[0], ragged["dev_chunks"][0]), e2e["index"],
                                device, feed_dir)
-        sharded = phase_sharded(torch, np, steady["dev_chunks"], e2e["index"], library_run,
-                                feed_dir, device)
+        sharded = phase_sharded(torch, np, steady["dev_chunks"], ragged["dev_chunks"],
+                                e2e["index"], library_run, feed_dir, device)
     finally:
         shutil.rmtree(feed_dir, ignore_errors=True)
     # the sharded paths' launches beside the single-device main path's
@@ -2329,11 +2497,16 @@ def main() -> int:
              launches=e2e["hash_launches"], **steady["hash"]),
         dict(name="ragged_hash_keys", replaces="kmer_mapper_tpu/ops/hashing.py:41 (XLA)",
              launches=feed["g"]["hash_launches"], **ragged["hash"]),
+        dict(name="ragged_offsets",
+             replaces="kmer_mapper_tpu/models/mapper.py:140-142 (chunk_step's cumsum and "
+                      "n_valid, XLA)",
+             launches=feed["g"]["offsets_launches"], **ragged["offsets"]),
     ]
     for entry in hash_keys:
         entry.update(route="cuda", source="kmer_mapper_tpu_torch/csrc/hash_keys.cu",
                      max_abs_err=max(entry["max_abs_err"], hash_err[entry["name"]]),
-                     library_ms=None)  # no single PyTorch call hashes, mixes and keys
+                     library_ms=None)  # no single PyTorch call hashes, mixes and keys,
+    # nor writes both scans and the count
     source = "kmer_mapper_tpu_torch/csrc/block_partition.cu"
     launches = e2e["launches"]
     sharded["node_counts"]["launches"] += launches["node_counts"]

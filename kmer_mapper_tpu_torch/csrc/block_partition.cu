@@ -45,6 +45,17 @@
 // histogram. The slabs are one wave of the scatter kernel: the card's SMs
 // times its resident CTAs (radix_slabs).
 //
+// Every launch takes the number of keys from device memory: the ragged
+// step's keys come with a count that stays on the card (the hash stage
+// writes it; hash_keys.cu) in a buffer sized by capacity, and the plane
+// step, whose count the host knows, writes its count there too. The
+// kernels partition keys [0, *count) (clamped to [0, n], n the buffer's
+// length) and read nothing past them. Each histogram and scatter CTA
+// derives its slab from that count and the grid (pass_keys), as
+// slab_layout cuts n keys on the host: a slab layout fixed by capacity
+// would leave CTAs idle wherever the count falls short of it. The offsets
+// search [0, *count) only.
+//
 // The first design, a histogram and a scatter with returning atomics on a
 // cursor array, is kept for measurement in partition_dissect.cu.
 //
@@ -61,17 +72,37 @@ using namespace kmt_partition;
 
 constexpr int kScanWarps = 8;  // warps of a scan CTA, which scans 32 digits
 
+// The keys a launch partitions: the device count *count clamped to [0, n]
+// (a count of -1 marks a chunk that gave no keys).
+__device__ __forceinline__ long long launch_keys(long long n, const int* count) {
+  return min(max(static_cast<long long>(*count), 0LL), n);
+}
+
+// The keys a pass partitions, and its slab length: the count cut into
+// gridDim.x slabs as the host's slab_layout cuts it (ceil(max(n, 1) /
+// slabs), rounded up to whole warp tiles); the CTAs past the count's last
+// slab get none.
+__device__ __forceinline__ long long pass_keys(long long n, const int* count,
+                                               long long& slab_len) {
+  n = launch_keys(n, count);
+  const long long per = (max(n, 1LL) + gridDim.x - 1) / gridDim.x;
+  slab_len = (per + kWarpTile - 1) / kWarpTile * kWarpTile;
+  return n;
+}
+
 // Row s of the (slab, digit) matrix: the digits (bin >> shift) & mask of
 // slab s's keys, counted in shared memory; every entry of the row is
 // written, zeros too.
 __global__ void __launch_bounds__(kThreads)
-partition_histogram_kernel(const long long* __restrict__ keys, long long n, long long slab_len,
-                           int* __restrict__ rows, int log2_blocks, int shift, int mask,
-                           int width) {
+partition_histogram_kernel(const long long* __restrict__ keys, long long n,
+                           const int* __restrict__ count, int* __restrict__ rows,
+                           int log2_blocks, int shift, int mask, int width) {
   extern __shared__ int bins[];
   for (int b = threadIdx.x; b < width; b += kThreads) bins[b] = 0;
   __syncthreads();
   const int lane = threadIdx.x & 31;
+  long long slab_len;
+  n = pass_keys(n, count, slab_len);
   const long long first = blockIdx.x * slab_len;
   const long long end = min(n, first + slab_len);
   for (long long base = first + (threadIdx.x >> 5) * kWarpTile; base < end;
@@ -152,9 +183,9 @@ struct RadixSmem {
 // the slab's tiles go in order, so equal digits keep the input order, and
 // LSD passes compose into a sort by bin.
 __global__ void __launch_bounds__(kRadixThreads)
-radix_scatter_kernel(const long long* __restrict__ keys, long long n, long long slab_len,
-                     const int* __restrict__ rows, const int* __restrict__ doff,
-                     long long* __restrict__ out, int log2_blocks, int shift, int bits,
+radix_scatter_kernel(const long long* __restrict__ keys, long long n,
+                     const int* __restrict__ count, const int* __restrict__ rows,
+                     const int* __restrict__ doff, long long* __restrict__ out, int log2_blocks, int shift, int bits,
                      int width) {
   extern __shared__ __align__(16) unsigned char radix_smem[];
   RadixSmem& sm = *reinterpret_cast<RadixSmem*>(radix_smem);
@@ -164,6 +195,8 @@ radix_scatter_kernel(const long long* __restrict__ keys, long long n, long long 
   const unsigned int below = (1u << lane) - 1u;
   const int* row = rows + static_cast<long long>(blockIdx.x) * width;
   for (int d = threadIdx.x; d < width; d += kRadixThreads) sm.cursor[d] = doff[d] + row[d];
+  long long slab_len;
+  n = pass_keys(n, count, slab_len);
   const long long first = blockIdx.x * slab_len;
   const long long end = min(n, first + slab_len);
   for (long long tile0 = first; tile0 < end; tile0 += kRadixTile) {
@@ -257,10 +290,11 @@ radix_scatter_kernel(const long long* __restrict__ keys, long long n, long long 
 // (bin of key i - 1, bin of key i], so every entry is written once, for
 // one read of the keys; it takes tables with many bins for their keys.
 __global__ void radix_search_offsets_kernel(const long long* __restrict__ sorted, long long n,
+                                            const int* __restrict__ count,
                                             int* __restrict__ off, int log2_blocks) {
   const long long b = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (b > (1LL << log2_blocks)) return;
-  long long lo = 0, hi = n;
+  long long lo = 0, hi = launch_keys(n, count);
   while (lo < hi) {
     const long long mid = (lo + hi) >> 1;
     if (key_bin(sorted[mid], log2_blocks) < b) {
@@ -273,8 +307,10 @@ __global__ void radix_search_offsets_kernel(const long long* __restrict__ sorted
 }
 
 __global__ void radix_offsets_kernel(const long long* __restrict__ sorted, long long n,
-                                     int* __restrict__ off, int log2_blocks) {
+                                     const int* __restrict__ count, int* __restrict__ off,
+                                     int log2_blocks) {
   const int n_blocks = 1 << log2_blocks;
+  n = launch_keys(n, count);
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i <= n;
        i += static_cast<long long>(gridDim.x) * blockDim.x) {
     const int prev = i > 0 ? key_bin(sorted[i - 1], log2_blocks) : -1;
@@ -307,12 +343,11 @@ extern "C" int radix_slabs(int device) {
 
 namespace {
 
-// The slabs of length slab_len cover the n keys, none of them empty, and
-// a pass's digit (bin >> shift) & (2**bits - 1) is one of the bins' bits.
-bool valid_pass_args(long long n, long long slab_len, int n_slabs, int log2_blocks, int shift,
+// A device count and slabs to cut it into, and a pass's digit (bin >>
+// shift) & (2**bits - 1) one of the bins' bits.
+bool valid_pass_args(long long n, const void* count, int n_slabs, int log2_blocks, int shift,
                      int bits) {
-  return valid_args(n, log2_blocks) && slab_len > 0 && n_slabs > 0 &&
-         slab_len * n_slabs >= n && slab_len * (n_slabs - 1) < (n > 0 ? n : 1) && bits >= 1 &&
+  return valid_args(n, log2_blocks) && count != nullptr && n_slabs > 0 && bits >= 1 &&
          bits <= kRadixMaxBits && shift >= 0 && shift <= log2_blocks;
 }
 
@@ -324,16 +359,17 @@ int digit_width(int log2_blocks, int shift, int bits) {
 }  // namespace
 
 // Writes row s < n_slabs of rows int32[n_slabs, width]: the counts of the
-// radix digit (bin >> shift) & (2**bits - 1) of keys [s*slab_len, min(n,
-// (s+1)*slab_len)), width = min(2**bits, (n_blocks >> shift) + 1), bits in
-// 1..8. The slabs must cover the n keys, none of them empty (n_slabs =
-// ceil(n / slab_len)). Returns the first CUDA error (0 on success). Device
-// pointers. Launches on `stream` of CUDA device `device` and does not
-// synchronise.
-extern "C" int partition_histogram_launch(const void* keys, long long n, void* rows,
-                                          long long slab_len, int n_slabs, int log2_blocks,
-                                          int shift, int bits, int device, void* stream) {
-  if (!valid_pass_args(n, slab_len, n_slabs, log2_blocks, shift, bits)) {
+// radix digit (bin >> shift) & (2**bits - 1) of keys [s*slab_len, min(c,
+// (s+1)*slab_len)), where c is the int32 device count *count clamped to
+// [0, n] (n the keys' length) and slab_len cuts c into the n_slabs slabs
+// on the card (pass_keys; rows past the last slab with keys are zeros),
+// width = min(2**bits, (n_blocks >> shift) + 1), bits in 1..8. Returns the
+// first CUDA error (0 on success). Device pointers. Launches on `stream`
+// of CUDA device `device` and does not synchronise.
+extern "C" int partition_histogram_launch(const void* keys, long long n, const void* count,
+                                          void* rows, int n_slabs, int log2_blocks, int shift,
+                                          int bits, int device, void* stream) {
+  if (!valid_pass_args(n, count, n_slabs, log2_blocks, shift, bits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaSetDevice(device);
@@ -341,8 +377,8 @@ extern "C" int partition_histogram_launch(const void* keys, long long n, void* r
   const int width = digit_width(log2_blocks, shift, bits);
   partition_histogram_kernel<<<n_slabs, kThreads, sizeof(int) * width,
                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(keys), n, slab_len, static_cast<int*>(rows), log2_blocks,
-      shift, (1 << bits) - 1, width);
+      static_cast<const long long*>(keys), n, static_cast<const int*>(count),
+      static_cast<int*>(rows), log2_blocks, shift, (1 << bits) - 1, width);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -363,18 +399,19 @@ extern "C" int partition_scan_launch(void* rows, void* totals, int n_slabs, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// One LSD pass: each of the n keys of slab s (cut as
+// One LSD pass: each of the device count's keys of slab s (cut as
 // partition_histogram_launch cut them) is written into out int64[n] at
 // doff[d] + rows[s, d] + its stable rank among the slab's keys of digit d
-// = (bin >> shift) & (2**bits - 1). rows is the scanned (slab, digit)
-// matrix, doff its digits' first slots. bits in 1..8. Returns the first
-// CUDA error (0 on success). Device pointers. Launches on `stream` of CUDA
-// device `device` and does not synchronise.
-extern "C" int radix_scatter_launch(const void* keys, long long n, const void* rows,
-                                    const void* doff, void* out, long long slab_len,
+// = (bin >> shift) & (2**bits - 1); out past the count is left as it
+// was. rows is the scanned (slab, digit) matrix, doff its digits' first
+// slots. bits in 1..8. Returns the first CUDA error (0 on success). Device
+// pointers. Launches on `stream` of CUDA device `device` and does not
+// synchronise.
+extern "C" int radix_scatter_launch(const void* keys, long long n, const void* count,
+                                    const void* rows, const void* doff, void* out,
                                     int n_slabs, int log2_blocks, int shift, int bits,
                                     int device, void* stream) {
-  if (!valid_pass_args(n, slab_len, n_slabs, log2_blocks, shift, bits)) {
+  if (!valid_pass_args(n, count, n_slabs, log2_blocks, shift, bits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -384,33 +421,38 @@ extern "C" int radix_scatter_launch(const void* keys, long long n, const void* r
   if (err != cudaSuccess) return static_cast<int>(err);
   radix_scatter_kernel<<<n_slabs, kRadixThreads, sizeof(RadixSmem),
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(keys), n, slab_len, static_cast<const int*>(rows),
-      static_cast<const int*>(doff), static_cast<long long*>(out), log2_blocks, shift, bits,
+      static_cast<const long long*>(keys), n, static_cast<const int*>(count),
+      static_cast<const int*>(rows), static_cast<const int*>(doff),
+      static_cast<long long*>(out), log2_blocks, shift, bits,
       digit_width(log2_blocks, shift, bits));
   return static_cast<int>(cudaGetLastError());
 }
 
-// off int32[2**log2_blocks + 1]: off[b] the first position of the n keys,
-// sorted by bin, whose bin is b or more; by binary searches where the keys
-// are at least kSearchKeysABin times the bins, else by one read of them.
-// Returns the first CUDA error (0 on success). Device pointers. Launches on
-// `stream` of CUDA device `device` and does not synchronise.
-extern "C" int radix_offsets_launch(const void* sorted, long long n, void* off,
-                                    int log2_blocks, int device, void* stream) {
-  if (!valid_args(n, log2_blocks)) return static_cast<int>(cudaErrorInvalidValue);
+// off int32[2**log2_blocks + 1]: off[b] the first position of the device
+// count's first keys (clamped to [0, n]), sorted by bin, whose bin is b or
+// more; by binary searches where n is at least kSearchKeysABin times the
+// bins, else by one read of the keys. Returns the first CUDA error (0 on
+// success). Device pointers. Launches on `stream` of CUDA device `device`
+// and does not synchronise.
+extern "C" int radix_offsets_launch(const void* sorted, long long n, const void* count,
+                                    void* off, int log2_blocks, int device, void* stream) {
+  if (!valid_args(n, log2_blocks) || count == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_off = (1LL << log2_blocks) + 1;
   const auto* k = static_cast<const long long*>(sorted);
+  const auto* c = static_cast<const int*>(count);
   auto* o = static_cast<int*>(off);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_off * kSearchKeysABin <= n) {
     radix_search_offsets_kernel<<<static_cast<unsigned int>((n_off + 255) / 256), 256, 0, s>>>(
-        k, n, o, log2_blocks);
+        k, n, c, o, log2_blocks);
   } else {
     const long long blocks = (n + 1 + kThreads - 1) / kThreads;
     radix_offsets_kernel<<<static_cast<unsigned int>(blocks < 4096 ? blocks : 4096), kThreads,
-                           0, s>>>(k, n, o, log2_blocks);
+                           0, s>>>(k, n, c, o, log2_blocks);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -191,13 +191,18 @@ class KmerIndex:
     def device_entries(self, device, shard: tuple[int, int] = (0, 1)):
         """(slot, node, frequency) int32 tensors of the entries of index shard
         ``shard = (x, n_shards)`` (:meth:`shard_entries`; by default the whole
-        table), uploaded to ``device`` for ``ops/finalize.finalize``. The
-        caller keeps them (the mappers hold them from their first
-        ``node_counts`` on); the frequency is int32 because torch's uint16
-        lacks comparisons on the CPU."""
+        table), uploaded to ``device`` for ``ops/finalize.finalize`` and
+        sorted there by slot (stably): any order gives the same node counts,
+        and in slot order a warp's gathers of the slot counts fall in
+        neighbouring sectors. The caller keeps them (the mappers hold them
+        from their first ``node_counts`` on), so the upload and the sort
+        happen once, outside every finalize; the frequency is int32 because
+        torch's uint16 lacks comparisons on the CPU."""
         x, n_shards = shard
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                     for a in self.shard_entries(x, n_shards))
+        slot, node, freq = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                            for a in self.shard_entries(x, n_shards))
+        order = torch.argsort(slot, stable=True)
+        return slot[order], node[order], freq[order]
 
     def get(self, kmer: int) -> np.ndarray:
         """Graph nodes of a kmer hash (the reference's ``KmerIndex.get``)."""

@@ -7,8 +7,12 @@ at a time. The torch counterpart of ``kmer_mapper_tpu/models/mapper.py``.
         window) -> stream-count kernel -> slot counts
 
 Chunks whose reads are not all ``read_len`` long take the ragged step (the
-ragged hash-key kernel: the windows that lie in one read), which gives
-identical counts.
+ragged offsets and hash-key kernels: the windows that lie in one read),
+which gives identical counts. Its count of keys stays on the card, as JAX's
+``chunk_step`` returns ``n_valid`` as a device scalar: the keys go into a
+buffer sized by the chunk's capacity, the partition reads the count from
+device memory, and the mapper sums the counts when its totals are read, so
+the step makes no host sync.
 Pre-hashed uint64 k-mers (the library calls) take :meth:`KmerMapper.map_hashes`
 and :meth:`KmerMapper.in_index`: the hashes' bits go to the device as int64,
 a piece at a time, and the gather-probe kernel (``ops/probe.py``) mixes,
@@ -72,15 +76,31 @@ def default_config(**kwargs) -> MapperConfig:
     return MapperConfig(**kwargs)
 
 
-def chunk_keys(packed, lengths, n_bases: int, *, config: MapperConfig, seed: int):
+def chunk_keys(packed, lengths, n_bases: int, *, config: MapperConfig, seed: int, out=None):
     """The ragged step's hashing over a continuously packed chunk: (the int64
-    sort keys of its valid windows, their count). ``packed`` is int32
-    words[buf // 16 + 2], ``lengths`` the int32 lengths of the chunk's reads
-    (zero padding after them is allowed, and scanned), both on one device."""
-    keys = hashing.ragged_hash_keys(
-        packed, lengths, n_bases, config.k, seed, revcomp=config.revcomp
+    sort keys of its valid windows, int32 ``count`` = (keys, valid windows)
+    on the chunk's device; ``hashing.ragged_hash_keys``). ``packed`` is
+    int32 words[buf // 16 + 2], ``lengths`` the int32 lengths of the chunk's
+    reads (zero padding after them is allowed, and scanned), both on one
+    device; ``out`` the key buffer (:func:`key_buffer`)."""
+    return hashing.ragged_hash_keys(
+        packed, lengths, n_bases, config.k, seed, revcomp=config.revcomp, out=out
     )
-    return keys, keys.shape[0] // (2 if config.revcomp else 1)
+
+
+def key_buffer(buffers: dict, words: torch.Tensor, config: MapperConfig):
+    """The ragged step's key buffer on ``words``' device, kept in ``buffers``
+    (a mapper's, by device) and reused by every chunk: capacity-sized
+    (``hashing.ragged_capacity``), since the host does not learn a chunk's
+    count. None on the CPU, whose twin returns exactly the keys."""
+    if words.device.type == "cpu":
+        return None
+    need = hashing.ragged_capacity(words.shape[0], config.revcomp)
+    keys = buffers.get(words.device)
+    if keys is None or keys.shape[0] < need:
+        keys = buffers[words.device] = torch.empty(need, dtype=torch.int64,
+                                                   device=words.device)
+    return keys
 
 
 def plane_chunk_keys(packed, n_reads: int, *, config: MapperConfig, seed: int):
@@ -94,13 +114,15 @@ def plane_chunk_keys(packed, n_reads: int, *, config: MapperConfig, seed: int):
 
 
 def chunk_step(key_lo, key_hi, counts, packed, lengths, n_bases: int, *,
-               config: MapperConfig, seed: int, block_probe) -> int:
-    """Ragged step (:func:`chunk_keys`, then the stream count): folds the
-    chunk's hits into ``counts`` in place and returns its valid-window
-    count."""
-    keys, n_valid = chunk_keys(packed, lengths, n_bases, config=config, seed=seed)
-    stream_probe.stream_probe_count_keys(key_lo, key_hi, counts, keys, block_probe)
-    return n_valid
+               config: MapperConfig, seed: int, block_probe, out=None) -> torch.Tensor:
+    """Ragged step (:func:`chunk_keys`, then the stream count over the
+    count's keys): folds the chunk's hits into ``counts`` in place and
+    returns its valid-window count, an int32 scalar on the device (-1 where
+    the lengths did not tile the buffer and nothing was counted)."""
+    keys, count = chunk_keys(packed, lengths, n_bases, config=config, seed=seed, out=out)
+    stream_probe.stream_probe_count_keys(key_lo, key_hi, counts, keys, block_probe,
+                                         count=count)
+    return count[1]
 
 
 def plane_chunk_step(key_lo, key_hi, counts, packed, n_reads: int, *,
@@ -113,6 +135,44 @@ def plane_chunk_step(key_lo, key_hi, counts, packed, n_reads: int, *,
     return n_valid
 
 
+class WindowTotals:
+    """The valid windows a mapper has counted: ints, and the ragged step's
+    device scalars, which are summed (one transfer a device) only when the
+    total, the counts or the node counts are read, so the step itself
+    never syncs. A scalar of -1 marks a ragged chunk whose device lengths did not
+    tile its buffer: it was not counted, and every read raises from then
+    on until the totals are reset."""
+
+    def _reset_totals(self, total: int = 0) -> None:
+        self._stats: list = []  # per-chunk valid windows: ints or device scalars
+        self._total_kmers = total
+        self._fault = False
+
+    def _fold_stats(self) -> None:
+        # the scalars of a sharded mapper's data rows lie on their own
+        # devices: each device's are stacked and read back apart
+        by_device: dict = {}
+        for s in self._stats:
+            if isinstance(s, torch.Tensor):
+                by_device.setdefault(s.device, []).append(s)
+            else:
+                self._total_kmers += s
+        self._stats = []
+        for on_device in by_device.values():
+            values = torch.stack(on_device).long().cpu()
+            self._total_kmers += int(values.clamp(min=0).sum())
+            self._fault = self._fault or bool((values < 0).any())
+        if self._fault:
+            raise ValueError("ragged_hash_keys: a chunk's read lengths did not tile its "
+                             "buffer (a length was negative or they did not add up to "
+                             "n_bases); it was not counted")
+
+    @property
+    def n_kmers_mapped(self) -> int:
+        self._fold_stats()
+        return self._total_kmers
+
+
 def state_from_jax(counts_plane: np.ndarray, n_buckets: int,
                    gpb: int = CHAIN_BLOCK) -> np.ndarray:
     """A ``kmer_mapper_tpu`` stream mapper's device counts (plane order,
@@ -122,7 +182,7 @@ def state_from_jax(counts_plane: np.ndarray, n_buckets: int,
     )
 
 
-class KmerMapper:
+class KmerMapper(WindowTotals):
     """Device-resident mapper: the index table and the counts live on
     ``device``; feed packed chunks with :meth:`map_chunk` or uint64 hashes
     with :meth:`map_hashes`, then read :meth:`node_counts`. Nothing is moved
@@ -143,8 +203,8 @@ class KmerMapper:
         self.key_hi = self._to_device(table.key_hi)
         self.block_probe = torch.from_numpy(table.block_max_probe()).to(self.device)
         self._entries = None  # the finalize's entry arrays, from the first node_counts on
-        self._stats: list = []  # per-chunk valid windows: ints or device scalars
-        self._total_kmers = 0
+        self._keys: dict = {}  # the ragged step's key buffer (key_buffer)
+        self._reset_totals()
         self.n_invalid_bases = 0
 
     def _to_device(self, words: np.ndarray) -> torch.Tensor:
@@ -175,9 +235,14 @@ class KmerMapper:
             return self._to_device(packed)
         return self._staged(packed, "packed")
 
-    def _lengths(self, lengths) -> torch.Tensor:
+    def _lengths(self, lengths, n_bases: int) -> torch.Tensor:
         """Read lengths (a numpy integer array, or an int32 tensor, see
-        :meth:`_staged`) -> int32 on the mapper's device."""
+        :meth:`_staged`) -> int32 on the mapper's device. Lengths in host
+        memory are checked here, before the upload
+        (``hashing.check_lengths``); those already on the device are checked
+        by the offsets' kernel, and a failure raises at the next read-back
+        (:class:`WindowTotals`)."""
+        hashing.check_lengths(lengths, n_bases)
         if isinstance(lengths, np.ndarray):
             return torch.from_numpy(np.ascontiguousarray(lengths, np.int32)).to(self.device)
         return self._staged(lengths, "lengths")
@@ -203,8 +268,9 @@ class KmerMapper:
             n_reads = n_bases // self.config.read_len
             self._stats.append(plane_chunk_step(*step_args, n_reads, **step_kw))
             return
-        lengths = self._lengths(lengths)
-        self._stats.append(chunk_step(*step_args, lengths, n_bases, **step_kw))
+        lengths = self._lengths(lengths, n_bases)
+        self._stats.append(chunk_step(*step_args, lengths, n_bases, **step_kw,
+                                      out=key_buffer(self._keys, words, self.config)))
 
     def _hash_pieces(self, kmers):
         """uint64 hashes -> int64 tensors of the same bits on the device, one
@@ -235,21 +301,10 @@ class KmerMapper:
             out.append(slots.ge(0).to(torch.uint8).cpu().numpy())
         return np.concatenate(out)
 
-    @property
-    def n_kmers_mapped(self) -> int:
-        if self._stats:
-            on_device = [s for s in self._stats if isinstance(s, torch.Tensor)]
-            self._total_kmers += sum(s for s in self._stats if isinstance(s, int))
-            if on_device:  # one transfer for all device scalars
-                self._total_kmers += int(torch.stack(on_device).sum())
-            self._stats = []
-        return self._total_kmers
-
     def reset_counts(self) -> None:
         """Zero the accumulated state, keeping the device-resident table."""
         self.counts.zero_()
-        self._stats = []
-        self._total_kmers = 0
+        self._reset_totals()
         self.n_invalid_bases = 0
 
     def save_state(self, path) -> None:
@@ -271,12 +326,12 @@ class KmerMapper:
                     f"table has {self.index.table.n_slots}"
                 )
             self.counts = self._to_device(counts)
-            self._stats = []
-            self._total_kmers = int(data["n_kmers"])
+            self._reset_totals(int(data["n_kmers"]))
             self.n_invalid_bases = int(data["n_invalid"])
 
     def slot_counts(self) -> np.ndarray:
         """uint32[n_slots] counts in slot order, on the host."""
+        self._fold_stats()
         return self.counts.cpu().numpy().view(np.uint32)
 
     def node_counts(self, max_frequency: int = 1000) -> np.ndarray:
@@ -286,6 +341,7 @@ class KmerMapper:
         the mapper); on the CPU the host ``KmerIndex.node_counts``."""
         if self.device.type == "cpu":
             return self.index.node_counts(self.slot_counts(), max_frequency=max_frequency)
+        self._fold_stats()
         if self._entries is None:
             self._entries = self.index.device_entries(self.device)
         out = finalize.finalize(self.counts, *self._entries, max_frequency,

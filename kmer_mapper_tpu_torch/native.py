@@ -119,28 +119,34 @@ def library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
         + [ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
+    lib.ragged_offsets_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 4, ctypes.c_longlong,
+        *[ctypes.c_int] * 3, ctypes.c_void_p,
+    ]
     lib.ragged_hash_keys_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p,
     ]
+    # the partition's launches take the keys' count in device memory
     lib.partition_histogram_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         *[ctypes.c_int] * 5, ctypes.c_void_p,
     ]
     lib.radix_slabs.argtypes = [ctypes.c_int]
     lib.radix_scatter_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, *[ctypes.c_int] * 5, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, *[ctypes.c_void_p] * 4,
+        *[ctypes.c_int] * 5, ctypes.c_void_p,
     ]
     lib.radix_offsets_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     lib.partition_scan_launch.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
-    for fn in (lib.plane_hash_keys_launch, lib.ragged_hash_keys_launch,
+    for fn in (lib.plane_hash_keys_launch, lib.ragged_offsets_launch,
+               lib.ragged_hash_keys_launch,
                lib.partition_histogram_launch, lib.partition_scan_launch, lib.radix_slabs,
                lib.radix_scatter_launch, lib.radix_offsets_launch):
         fn.restype = ctypes.c_int
@@ -167,6 +173,11 @@ def library() -> ctypes.CDLL:
     lib.r9_block_pipeline_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     )
+    lib.finalize_dissect_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 5
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p]
+    )
     lib.gather_probe_dissect_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 3
         + [ctypes.c_uint] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -183,7 +194,8 @@ def library() -> ctypes.CDLL:
     for fn in (lib.r2_kernel_dissect_launch, lib.r2_window_dissect_launch,
                lib.r2_window_ranges_launch, lib.r3_iter_floor_launch, lib.r9_dot_orient_launch,
                lib.r9_step_parts_launch, lib.r9_block_pipeline_launch,
-               lib.gather_probe_dissect_launch, lib.block_histogram_launch,
+               lib.gather_probe_dissect_launch, lib.finalize_dissect_launch,
+               lib.block_histogram_launch,
                lib.block_scatter_launch):
         fn.restype = ctypes.c_int
     lib.kmt_error_string.argtypes = [ctypes.c_int]

@@ -33,6 +33,17 @@ the scatter kernel (:func:`radix_slabs`). Its plain pieces are
 composed in :func:`radix_partition_reference`, which equals the twin bit
 for bit, as the kernels do: the keys of a window keep the input order.
 
+The kernels take the number of keys to partition from device memory: a
+``count``, an int32 tensor on the keys' device whose first element is how
+many of the keys to partition (clamped to the keys' length; -1 counts as
+none), each CTA cutting its own slab from it. The ragged step's keys lie in
+a buffer sized by capacity with their number on the card
+(``hashing.ragged_hash_keys``' count), so the host never learns it; the
+keys past it are neither read nor written. Without a count,
+:func:`block_partition` and :func:`radix_partition` partition every key,
+and write their number into a count on the card for the kernels (one fill,
+no sync).
+
 ``launch_counts`` counts each kernel's launches by those names. The first
 design (a histogram and a scatter with atomics on a cursor array) is timed
 by ``scripts/partition_dissect.py``.
@@ -85,7 +96,8 @@ def block_ids(keys: torch.Tensor, n_blocks: int) -> torch.Tensor:
     return torch.where(keys == INVALID_KEY, n_blocks, block)
 
 
-def block_partition(keys: torch.Tensor, n_buckets: int, bpb: int, *, consume: bool = False):
+def block_partition(keys: torch.Tensor, n_buckets: int, bpb: int, *, consume: bool = False,
+                    count: torch.Tensor | None = None):
     """(grouped keys, off): a permutation of ``keys`` in which chain block
     b's keys fill ``[off[b], off[b+1])``, and int32 ``off[n_blocks + 1]``
     with ``off[0] == 0``; the invalid keys follow ``off[n_blocks]``. The
@@ -94,11 +106,31 @@ def block_partition(keys: torch.Tensor, n_buckets: int, bpb: int, *, consume: bo
     use ``keys``' memory for a pass, for a caller that reads the keys no
     more (its contents are then undefined): the chunk steps consume theirs
     (``stream_probe.stream_probe_count_keys``); a check against the twin on
-    the same keys does not."""
+    the same keys does not. With ``count`` (see the module's note) only the
+    first ``count[0]`` keys are partitioned: the grouped keys are as long as
+    ``keys``, and past the count their entries are unspecified."""
     n_blocks = check_partition_args(keys, n_buckets, bpb)
+    if count is not None:
+        _check_count(count, keys)
     if keys.device.type == "cpu":
-        return block_partition_reference(keys, n_buckets, bpb)
-    return radix_partition(keys, n_blocks, consume=consume)
+        if count is None:
+            return block_partition_reference(keys, n_buckets, bpb)
+        n = _host_count(count, keys)
+        grouped, off = block_partition_reference(keys[:n], n_buckets, bpb)
+        return torch.cat([grouped, keys[n:]]), off
+    return radix_partition(keys, n_blocks, consume=consume, count=count)
+
+
+def _check_count(count: torch.Tensor, keys: torch.Tensor) -> None:
+    if (count.dtype != torch.int32 or count.dim() != 1 or not count.numel()
+            or count.device != keys.device):
+        raise ValueError(f"block_partition: count is {count.dtype}{tuple(count.shape)} on "
+                         f"{count.device}, expected int32[>= 1] on {keys.device}")
+
+
+def _host_count(count: torch.Tensor, keys: torch.Tensor) -> int:
+    """The keys a CPU count names, clamped as the kernels clamp it."""
+    return min(max(int(count[0]), 0), keys.shape[0])
 
 
 def slab_layout(n: int, n_slabs: int) -> tuple[int, int]:
@@ -110,17 +142,18 @@ def slab_layout(n: int, n_slabs: int) -> tuple[int, int]:
     return -(-n // slab_len), slab_len
 
 
-def partition_histogram(keys: torch.Tensor, n_blocks: int, slab_len: int, shift: int,
-                        bits: int) -> torch.Tensor:
-    """int32 (slabs, :func:`digit_width`): row s the counts of the radix
-    digits ``(bin >> shift) & (2**bits - 1)`` of keys ``[s*slab_len,
-    (s+1)*slab_len)`` (:func:`slab_histograms`), from one launch of
-    ``partition_histogram_kernel`` (a CTA a slab)."""
-    n_slabs = -(-keys.shape[0] // slab_len)
+def partition_histogram(keys: torch.Tensor, n_blocks: int, shift: int, bits: int,
+                        count: torch.Tensor, n_slabs: int) -> torch.Tensor:
+    """int32 (n_slabs, :func:`digit_width`): the count's keys cut into
+    ``n_slabs`` slabs as :func:`slab_layout` cuts them, row s the counts of
+    the radix digits ``(bin >> shift) & (2**bits - 1)`` of slab s's keys
+    (:func:`slab_histograms`; rows past the last slab with keys are zeros),
+    from one launch of ``partition_histogram_kernel`` (a CTA a slab, each
+    cutting its slab from the device count)."""
     width = digit_width(n_blocks, shift, bits)
     rows = torch.empty((n_slabs, width), dtype=torch.int32, device=keys.device)
     _launch("partition_histogram", native.library().partition_histogram_launch, keys.device,
-            keys.data_ptr(), keys.shape[0], rows.data_ptr(), slab_len, n_slabs,
+            keys.data_ptr(), keys.shape[0], count.data_ptr(), rows.data_ptr(), n_slabs,
             n_blocks.bit_length() - 1, shift, bits)
     return rows
 
@@ -151,7 +184,8 @@ def digit_width(n_blocks: int, shift: int, bits: int) -> int:
     return min(1 << bits, (n_blocks >> shift) + 1)
 
 
-def radix_partition(keys: torch.Tensor, n_blocks: int, *, consume: bool = False):
+def radix_partition(keys: torch.Tensor, n_blocks: int, *, consume: bool = False,
+                    count: torch.Tensor | None = None):
     """(grouped keys, off), the keys sorted by bin: for each pass of
     :func:`radix_passes`, :func:`partition_histogram` of its digit,
     :func:`partition_scan`, a ``torch.cumsum`` of the digits' totals and
@@ -159,21 +193,25 @@ def radix_partition(keys: torch.Tensor, n_blocks: int, *, consume: bool = False)
     the passes leave sorted by bin (each pass is stable). Any table size;
     raises if the build or a launch fails. The passes alternate between
     two buffers besides ``keys``, or with ``consume`` between ``keys`` and
-    one other (:func:`block_partition`)."""
+    one other (:func:`block_partition`). The kernels take the number of
+    keys from ``count`` (the module's note; every key without one), each
+    pass's :func:`radix_slabs` slabs cut on the card."""
     off = torch.zeros(n_blocks + 1, dtype=torch.int32, device=keys.device)
     if not keys.numel():
         return torch.empty_like(keys), off
-    _, slab_len = slab_layout(keys.shape[0], radix_slabs(keys.device))
+    if count is None:
+        count = torch.full((1,), keys.shape[0], dtype=torch.int32, device=keys.device)
+    n_slabs = radix_slabs(keys.device)
     given, free = keys, None  # free: a buffer that no later pass reads
     for shift, bits in radix_passes(n_blocks):
-        rows = partition_histogram(keys, n_blocks, slab_len, shift, bits)
+        rows = partition_histogram(keys, n_blocks, shift, bits, count, n_slabs)
         doff = torch.zeros(rows.shape[1] + 1, dtype=torch.int32, device=keys.device)
         torch.cumsum(partition_scan(rows), 0, dtype=torch.int32, out=doff[1:])
         out = torch.empty_like(keys) if free is None else free
-        radix_scatter(keys, rows, doff, n_blocks, slab_len, shift, bits, out)
+        radix_scatter(keys, rows, doff, n_blocks, shift, bits, count, out)
         free = keys if keys is not given or consume else None
         keys = out
-    return keys, radix_offsets(keys, n_blocks)
+    return keys, radix_offsets(keys, n_blocks, count)
 
 
 def radix_slabs(device: torch.device) -> int:
@@ -187,29 +225,33 @@ def radix_slabs(device: torch.device) -> int:
 
 
 def radix_scatter(keys: torch.Tensor, rows: torch.Tensor, doff: torch.Tensor, n_blocks: int,
-                  slab_len: int, shift: int, bits: int,
+                  shift: int, bits: int, count: torch.Tensor,
                   out: torch.Tensor | None = None) -> torch.Tensor:
-    """One LSD pass: the keys, each slab's grouped by digit ``(bin >>
-    shift) & (2**bits - 1)``, each key at ``doff[d] + rows[s, d] +`` its
-    stable rank (the scanned (slab, digit) matrix and its digits' first
-    slots), from one launch of ``radix_scatter_kernel``, into ``out`` (a
-    new tensor by default; never ``keys``' own memory)."""
+    """One LSD pass over the count's keys, in the slabs of
+    :func:`partition_histogram` with the same count: each slab's keys
+    grouped by digit ``(bin >> shift) & (2**bits - 1)``, each key at
+    ``doff[d] + rows[s, d] +`` its stable rank (the scanned (slab, digit)
+    matrix and its digits' first slots), from one launch of
+    ``radix_scatter_kernel``, into ``out`` (a new tensor by default; never
+    ``keys``' own memory), which is left as it was past the count."""
     if out is None:
         out = torch.empty_like(keys)
     _launch("radix_scatter", native.library().radix_scatter_launch, keys.device,
-            keys.data_ptr(), keys.shape[0], rows.data_ptr(), doff.data_ptr(), out.data_ptr(),
-            slab_len, rows.shape[0], n_blocks.bit_length() - 1, shift, bits)
+            keys.data_ptr(), keys.shape[0], count.data_ptr(), rows.data_ptr(), doff.data_ptr(),
+            out.data_ptr(), rows.shape[0], n_blocks.bit_length() - 1, shift, bits)
     return out
 
 
-def radix_offsets(ordered: torch.Tensor, n_blocks: int) -> torch.Tensor:
-    """int32[n_blocks + 1]: each chain block's first position in keys sorted
-    by bin, from one launch of ``radix_search_offsets_kernel`` (a binary
-    search a bin, where the keys are at least 64 times the bins) or of
-    ``radix_offsets_kernel`` (one read of the keys)."""
+def radix_offsets(ordered: torch.Tensor, n_blocks: int, count: torch.Tensor) -> torch.Tensor:
+    """int32[n_blocks + 1]: each chain block's first position in the
+    count's first keys, sorted by bin, from one launch of
+    ``radix_search_offsets_kernel`` (a binary search a bin, where the keys
+    are at least 64 times the bins) or of ``radix_offsets_kernel`` (one
+    read of the keys)."""
     off = torch.empty(n_blocks + 1, dtype=torch.int32, device=ordered.device)
     _launch("radix_offsets", native.library().radix_offsets_launch, ordered.device,
-            ordered.data_ptr(), ordered.shape[0], off.data_ptr(), n_blocks.bit_length() - 1)
+            ordered.data_ptr(), ordered.shape[0], count.data_ptr(), off.data_ptr(),
+            n_blocks.bit_length() - 1)
     return off
 
 
@@ -241,12 +283,15 @@ def _digits(keys: torch.Tensor, n_blocks: int, shift: int, bits: int) -> torch.T
 
 
 def slab_histograms(keys: torch.Tensor, n_blocks: int, slab_len: int, shift: int,
-                    bits: int) -> torch.Tensor:
+                    bits: int, n_slabs: int | None = None) -> torch.Tensor:
     """int32 (slabs, :func:`digit_width`) matrix of ``partition_histogram``:
     row s counts the radix digits of keys ``[s*slab_len,
-    (s+1)*slab_len)``."""
+    (s+1)*slab_len)``; ``n_slabs`` rows (as the kernel writes them, the
+    rows past the last slab with keys zeros), by default as many as hold
+    keys."""
     width = digit_width(n_blocks, shift, bits)
-    n_slabs = -(-keys.shape[0] // slab_len)
+    if n_slabs is None:
+        n_slabs = -(-keys.shape[0] // slab_len)
     slab = torch.arange(keys.shape[0], device=keys.device) // slab_len
     cells = torch.bincount(slab * width + _digits(keys, n_blocks, shift, bits),
                            minlength=n_slabs * width)

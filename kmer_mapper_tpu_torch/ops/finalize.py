@@ -11,8 +11,10 @@ wrap modulo 2**32, as JAX's uint32 ``.at[].add`` does.
 CUDA tensors (a failed build or launch raises) and runs its plain twin
 :func:`finalize_reference` on CPU tensors; any other device raises. Counts
 are int32 in slot order whose bits are the wrapping uint32 counts; the
-entry arrays are int32 (``KmerIndex.device_entries``); the result is int32
-``[n_nodes]`` holding the bits of the uint32 node counts.
+entry arrays are int32 (``KmerIndex.device_entries``, sorted by slot: any
+order gives the same sums, and slot order is the one whose gathers the
+kernel reads fastest); the result is int32 ``[n_nodes]`` holding the bits
+of the uint32 node counts.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ the CPU tests and ``chip_smoke.py``.
 Each case is slot counts (uint32) and entries (slot, node, uint16
 frequency) with a frequency bound and a node count; :meth:`Case.expected`
 is the answer in numpy, summed in uint64 and masked to 32 bits (the
-wrapping uint32 sum of JAX's ``.at[].add``).
+wrapping uint32 sum of JAX's ``.at[].add``); :meth:`Case.ordered` gives
+the same case with its entries shuffled or sorted by slot.
 """
 from __future__ import annotations
 
@@ -30,6 +31,19 @@ class Case:
         out = np.zeros(self.n_nodes, dtype=np.uint64)
         np.add.at(out, self.node[keep], self.counts[self.slot[keep]].astype(np.uint64))
         return (out & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+    def ordered(self, order: str, seed: int = 0) -> "Case":
+        """The same case with its entries shuffled (``"shuffled"``) or
+        sorted by slot (``"slot"``, stable: ``KmerIndex.device_entries``'
+        order); the sums do not change."""
+        if order == "slot":
+            pick = np.argsort(self.slot, kind="stable")
+        elif order == "shuffled":
+            pick = np.random.default_rng(seed).permutation(len(self.slot))
+        else:
+            raise ValueError(f"no entry order {order!r}")
+        return dataclasses.replace(self, slot=self.slot[pick], node=self.node[pick],
+                                   frequency=self.frequency[pick])
 
     def inputs(self, device) -> tuple:
         """``finalize``'s arguments on ``device``: int32 counts and entries."""
@@ -76,4 +90,19 @@ def cases(seed: int = 0) -> dict[str, Case]:
     # max_node_id 10**3 times the entry count: almost every node empty
     out["sparse_nodes"] = _case(rng, 1024, 500, 500_000)
     out["no_entries"] = _case(rng, 256, 0, 17)
+    # one k-mer on 10**4 nodes: every entry gathers one count, near 2**32, and
+    # a warp's lanes fall in groups of equal nodes whose sums wrap
+    out["one_slot"] = _case(rng, 64, 30_000, 10_000,
+                            counts=np.full(64, 0xFFFFFFF0, dtype=np.uint32))
+    out["one_slot"].slot[:] = 37
+    # two hot nodes share 80% of the entries, so most warps hold two groups
+    # of equal nodes besides single ones; the counts near 2**32 make their
+    # sums wrap
+    hot = _case(rng, 2048, 20_000, 1000,
+                counts=rng.integers(0xF0000000, 0xFFFFFFFF, 2048, dtype=np.uint64)
+                .astype(np.uint32))
+    pick = rng.random(20_000)
+    hot.node[pick < 0.4] = 3
+    hot.node[pick >= 0.6] = 5
+    out["two_hot_nodes"] = hot
     return out

@@ -15,18 +15,23 @@ Both chunk steps hash through one wrapper each, which turns packed words
 (int32 bit patterns) into the int64 sort keys (``stream_probe.sort_key``)
 of exactly the valid windows:
 
-* :func:`plane_hash_keys`, the strided fixed-read-length buffer;
-* :func:`ragged_hash_keys`, the continuous buffer of reads of any length.
+* :func:`plane_hash_keys`, the strided fixed-read-length buffer, whose
+  key count the host knows;
+* :func:`ragged_hash_keys`, the continuous buffer of reads of any length:
+  its offsets and its count are computed on the card
+  (:func:`ragged_offsets`) and stay there, as JAX's ``chunk_step`` keeps
+  ``n_valid`` on the device, so the step makes no host sync.
 
-On a CUDA tensor each launches its hand-written kernel in
+On a CUDA tensor each launches its hand-written kernels in
 ``csrc/hash_keys.cu`` (a failed build or launch raises); on a CPU tensor it
 runs its plain twin (:func:`plane_hash_keys_reference`,
-:func:`ragged_hash_keys_reference`), the plain code below restricted to the
-valid rows and windows. Any other device raises. Kernel and twin write the
-keys in the same order.
+:func:`ragged_offsets_reference`, :func:`ragged_hash_keys_reference`), the
+plain code below restricted to the valid rows and windows. Any other
+device raises. Kernel and twin write the keys in the same order.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import native
@@ -37,6 +42,7 @@ from .u32hash import MASK32, feistel_mix_torch, from_int32_bits
 #: a run that must show which one ran resets them first
 launch_counts = {
     "plane_hash_keys": 0, "plane_hash_keys_reference": 0,
+    "ragged_offsets": 0, "ragged_offsets_reference": 0,
     "ragged_hash_keys": 0, "ragged_hash_keys_reference": 0,
 }
 
@@ -284,67 +290,144 @@ def _check_ragged(packed, lengths, n_bases: int, k: int) -> None:
                          f"{(packed.shape[0] - 2) * 16}")
 
 
-def _premise(total: int, n_bases: int) -> None:
+def _premise(total: int, n_negative: int, n_bases: int) -> None:
     """The reads tile the buffer's bases, where a read's own windows are
     exactly :func:`window_mask`'s."""
+    if n_negative:
+        raise ValueError(f"ragged_hash_keys: {n_negative} read lengths are negative")
     if total != n_bases:
         raise ValueError(f"ragged_hash_keys: the read lengths add up to {total}, "
                          f"the buffer holds {n_bases} bases")
 
 
-def ragged_hash_keys(packed: torch.Tensor, lengths: torch.Tensor, n_bases: int, k: int,
-                     seed: int, revcomp: bool = False) -> torch.Tensor:
-    """int64 sort keys of the valid windows of a continuously packed buffer
-    (``pack_for_device`` without ``read_len``: int32 words[buf // 16 + 2],
-    the reads back to back from base 0; ``lengths`` the int32 lengths of
-    its reads, adding up to ``n_bases``; zero padding after them is allowed
-    but the offsets and the kernel cover it too). A window is valid when it
-    lies in one read (:func:`window_mask`). The keys of the valid windows in buffer
-    order, then their reverse complements with ``revcomp``; unsorted.
+def check_lengths(lengths, n_bases: int) -> None:
+    """Raises ValueError unless read lengths in host memory (a numpy array,
+    or a CPU tensor, page-locked or not) tile a buffer of ``n_bases``: none
+    negative, their sum ``n_bases``. Reads host memory only, so a mapper
+    checks a chunk's lengths here before their upload, with no device sync;
+    lengths already on the card are left to the offsets' kernel."""
+    if isinstance(lengths, torch.Tensor):
+        if lengths.device.type != "cpu":
+            return
+        lengths = lengths.numpy()
+    lengths = np.asarray(lengths).astype(np.int64, copy=False)
+    _premise(int(lengths.sum()), int(np.count_nonzero(lengths < 0)), n_bases)
 
-    On CUDA, the output offset of each read is an exclusive ``cumsum`` of
-    ``max(0, len - k + 1)`` on the device; its total sizes the output, so the
-    wrapper reads it back (one host sync a call)."""
+
+def ragged_capacity(n_words: int, revcomp: bool = False) -> int:
+    """The keys a continuously packed buffer of ``n_words`` words can give:
+    one a base of its capacity (windows never outnumber bases), twice that
+    with ``revcomp``. The size of :func:`ragged_hash_keys`' key buffer."""
+    return (n_words - 2) * 16 * (2 if revcomp else 1)
+
+
+def ragged_hash_keys(packed: torch.Tensor, lengths: torch.Tensor, n_bases: int, k: int,
+                     seed: int, revcomp: bool = False, *, out: torch.Tensor | None = None):
+    """(keys, count): the int64 sort keys of the valid windows of a
+    continuously packed buffer (``pack_for_device`` without ``read_len``:
+    int32 words[buf // 16 + 2], the reads back to back from base 0;
+    ``lengths`` the int32 lengths of its reads, adding up to ``n_bases``;
+    zero padding after them is allowed but the offsets and the kernel cover
+    it too), and ``count``, int32[2] on the words' device: (keys, valid
+    windows). A window is valid when it lies in one read
+    (:func:`window_mask`). The keys of the valid windows in buffer order,
+    then their reverse complements with ``revcomp``; unsorted.
+
+    On CUDA nothing is read back: :func:`ragged_offsets` computes the
+    offsets and the count on the card, and the kernel writes the keys into
+    the first ``count[0]`` entries of ``out`` (a buffer of at least
+    :func:`ragged_capacity` int64 keys on the words' device, or a new one;
+    past the count its entries are left as they were). Where the lengths do
+    not tile the buffer the count is (-1, -1) and nothing is written: the
+    caller raises on it when it next reads a count back. On the CPU the twin
+    raises at once and returns exactly the keys (``out`` unused)."""
     _check_ragged(packed, lengths, n_bases, k)
     if packed.device.type == "cpu":
-        _premise(int(lengths.sum()), n_bases)
-        return ragged_hash_keys_reference(packed, lengths, n_bases, k, seed, revcomp)
-    starts, offs = ragged_offsets(lengths, k)
-    n_valid = total = 0
-    if lengths.numel():  # the one host sync: the valid windows size the output
-        n_valid, total = torch.stack([offs[-1], starts[-1] + lengths[-1]]).tolist()
-    _premise(total, n_bases)
-    return _ragged_launch(packed, starts, offs, n_valid, k, seed, revcomp)
+        check_lengths(lengths, n_bases)
+        keys = ragged_hash_keys_reference(packed, lengths, n_bases, k, seed, revcomp)
+        n = keys.shape[0]
+        return keys, torch.tensor([n, n // (2 if revcomp else 1)], dtype=torch.int32)
+    starts, offs, count = ragged_offsets(lengths, n_bases, k, revcomp)
+    return _ragged_launch(packed, starts, offs, count, k, seed, revcomp, out), count
 
 
-def ragged_offsets(lengths: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """int32 (starts[n], offs[n + 1]) on the lengths' device: each read's
-    first base and the exclusive prefix sum of its window counts
-    ``max(0, len - k + 1)``, whose last entry is the number of valid
-    windows."""
-    starts = torch.cumsum(lengths, 0, dtype=torch.int32) - lengths
-    offs = torch.cumsum(torch.clamp(lengths - (k - 1), min=0), 0, dtype=torch.int32)
-    return starts, torch.cat([offs.new_zeros(1), offs])
+#: reads a CTA of the offsets' scan (``kScanTile`` of ``csrc/hash_keys.cu``)
+RAGGED_SCAN_TILE = 2048
 
 
-def _ragged_launch(packed, starts, offs, n_valid: int, k: int, seed: int,
-                   revcomp: bool) -> torch.Tensor:
-    """The keys from one launch of ``ragged_hash_keys_kernel`` on the
-    tensors' device and current stream (none for no valid window); raises
-    if the build or the launch fails."""
-    keys = torch.empty(n_valid * (2 if revcomp else 1), dtype=torch.int64,
-                       device=packed.device)
-    if not n_valid:
-        return keys
+def ragged_offsets(lengths: torch.Tensor, n_bases: int, k: int,
+                   revcomp: bool = False) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """int32 (starts[n], offs[n + 1], count[2]) on the lengths' device: each
+    read's first base, the exclusive prefix sum of its window counts
+    ``max(0, len - k + 1)`` (``offs[n]`` the valid windows), and the count
+    (keys, valid windows), the keys twice the windows with ``revcomp``, both
+    -1 where a length is negative or the lengths do not add up to
+    ``n_bases``. On CUDA one launch of ``ragged_offsets_launch`` (a
+    reduce-then-scan, no host sync); on the CPU its twin
+    :func:`ragged_offsets_reference`."""
+    if lengths.device.type == "cpu":
+        return ragged_offsets_reference(lengths, n_bases, k, revcomp)
+    return _offsets_launch(lengths, n_bases, k, revcomp)
+
+
+def _offsets_launch(lengths, n_bases: int, k: int, revcomp: bool):
+    """:func:`ragged_offsets`' outputs from one launch of
+    ``ragged_offsets_launch`` on the lengths' device and current stream;
+    raises if the build or the launch fails."""
+    n = lengths.shape[0]
+    starts, offs, count = (lengths.new_empty(size) for size in (n, n + 1, 2))
+    sums = lengths.new_empty(3 * max(1, -(-n // RAGGED_SCAN_TILE)), dtype=torch.int64)
+    with torch.cuda.device(lengths.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = native.library().ragged_offsets_launch(
+            lengths.data_ptr(), n, starts.data_ptr(), offs.data_ptr(), count.data_ptr(),
+            sums.data_ptr(), n_bases, k, int(revcomp), lengths.device.index, stream)
+    _raise_on("ragged_offsets", rc)
+    launch_counts["ragged_offsets"] += 1
+    return starts, offs, count
+
+
+def ragged_offsets_reference(lengths: torch.Tensor, n_bases: int, k: int,
+                             revcomp: bool = False):
+    """Plain-torch twin of :func:`ragged_offsets` (same contract, same
+    bits): ``cumsum`` of the lengths and of the clamped window counts, and
+    the count."""
+    launch_counts["ragged_offsets_reference"] += 1
+    lengths = lengths.long()
+    windows = torch.clamp(lengths - (k - 1), min=0)
+    offs = torch.cat([windows.new_zeros(1), torch.cumsum(windows, 0)])
+    tiled = (lengths.sum() == n_bases) & ~(lengths < 0).any()
+    count = torch.stack([offs[-1] * (2 if revcomp else 1), offs[-1]])
+    count = torch.where(tiled, count, -1)
+    starts = torch.cumsum(lengths, 0) - lengths
+    return (starts.to(torch.int32), offs.to(torch.int32), count.to(torch.int32))
+
+
+def _ragged_launch(packed, starts, offs, count, k: int, seed: int, revcomp: bool,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """The key buffer (``out``, or a new one of :func:`ragged_capacity`
+    keys) after one launch of ``ragged_hash_keys_kernel`` on the tensors'
+    device and current stream (none for no reads); raises if the build or
+    the launch fails."""
+    capacity = ragged_capacity(packed.shape[0], revcomp)
+    if out is None:
+        out = torch.empty(capacity, dtype=torch.int64, device=packed.device)
+    elif (out.dtype != torch.int64 or out.dim() != 1 or not out.is_contiguous()
+          or out.device != packed.device or out.shape[0] < capacity):
+        raise ValueError(f"ragged_hash_keys: out is {out.dtype}{tuple(out.shape)} on "
+                         f"{out.device}, expected contiguous int64[>= {capacity}] on "
+                         f"{packed.device}")
+    if not starts.numel():
+        return out
     fn = native.library().ragged_hash_keys_launch
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(packed.data_ptr(), packed.shape[0], starts.data_ptr(), offs.data_ptr(),
-                starts.shape[0], keys.data_ptr(), n_valid, k, seed & MASK32, int(revcomp),
-                packed.device.index, stream)
+                starts.shape[0], count.data_ptr(), out.data_ptr(), k, seed & MASK32,
+                int(revcomp), packed.device.index, stream)
     _raise_on("ragged_hash_keys", rc)
     launch_counts["ragged_hash_keys"] += 1
-    return keys
+    return out
 
 
 def ragged_hash_keys_reference(packed: torch.Tensor, lengths: torch.Tensor, n_bases: int,

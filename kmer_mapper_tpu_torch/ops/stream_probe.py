@@ -281,12 +281,15 @@ def plane_to_slot(counts: np.ndarray, n_buckets: int, gpb: int = CHAIN_BLOCK) ->
 
 
 def stream_probe_count_keys(key_lo, key_hi, counts, keys, block_probe, *,
-                            bucket_base: int = 0, n_buckets_global: int | None = None):
+                            bucket_base: int = 0, n_buckets_global: int | None = None,
+                            count: torch.Tensor | None = None):
     """Stream path for the sort keys of valid queries, in any order (the
     hash kernels' output, ``hashing.plane_hash_keys`` / ``ragged_hash_keys``):
     block partition -> stream count. Updates ``counts`` in place. On the
     card the partition uses ``keys``' memory, whose contents are then
-    undefined.
+    undefined. ``count`` (the ragged step's device count, see
+    ``block_partition``) names how many of the keys are queries; the rest
+    are not read.
 
     An index shard (buckets ``[bucket_base, bucket_base + n_local)`` of
     ``n_buckets_global``, whole chain blocks; ``block_probe`` its slice)
@@ -296,7 +299,7 @@ def stream_probe_count_keys(key_lo, key_hi, counts, keys, block_probe, *,
     n_local = key_lo.shape[0]
     n_buckets = n_local if n_buckets_global is None else n_buckets_global
     bpb = min(CHAIN_BLOCK, n_buckets)
-    grouped, off = block_partition(keys, n_buckets, bpb, consume=True)
+    grouped, off = block_partition(keys, n_buckets, bpb, consume=True, count=count)
     first = bucket_base // bpb
     return stream_count(
         key_lo, key_hi, counts, grouped, off[first : first + n_local // bpb + 1], block_probe,

@@ -21,6 +21,11 @@ shard's range:
   gather probe with the shard's rows (``probe.probe_count`` with
   ``row_offset``; other shards' rounds compare nothing), JAX's gather route.
 
+A ragged chunk's key count stays on its device, as on one device: the
+partition reads it from device memory, the gather route masks the key
+buffer's tail with it, and the totals are read back only when they are
+read (``models/mapper.WindowTotals``).
+
 Pre-hashed batches (:meth:`ShardedKmerMapper.map_hashes`) take the gather
 probe, as the single-device port does. The TPU workarounds of the JAX
 mapper's ``__init__`` (group widening, ``min_feasible_group``,
@@ -37,10 +42,11 @@ from ..index.kmer_index import KmerIndex
 from ..index.layout import BUCKET_KEYS, CHAIN_BLOCK
 from ..io import readers
 from ..models.mapper import (
-    KmerMapper, MapperConfig, chunk_is_fixed, chunk_keys, plane_chunk_keys,
+    KmerMapper, MapperConfig, WindowTotals, chunk_is_fixed, chunk_keys, key_buffer,
+    plane_chunk_keys,
 )
 from ..ops import finalize as finalize_op
-from ..ops import probe, stream_probe
+from ..ops import hashing, probe, stream_probe
 from ..ops.u32hash import MASK32, feistel_unmix_torch
 from .mesh import DATA_AXIS, INDEX_AXIS, Mesh
 from .multihost import process_index_and_count
@@ -69,7 +75,17 @@ def _raw_queries(keys: torch.Tensor, seed: int) -> torch.Tensor:
     return torch.where(hi >= 1 << 31, hi - (1 << 32), hi) * (1 << 32) + lo
 
 
-class ShardedKmerMapper:
+def _counted(keys: torch.Tensor, count: torch.Tensor | None) -> torch.Tensor | None:
+    """The gather probe's ``valid`` mask of a key buffer: its first
+    ``count[0]`` entries (the ragged step's device count; the tail of a
+    capacity buffer is not a query), made on the device with no sync. None
+    (every key a query) without a count."""
+    if count is None:
+        return None
+    return torch.arange(keys.shape[0], device=keys.device) < count[0]
+
+
+class ShardedKmerMapper(WindowTotals):
     """Multi-device mapper: the table sharded over the mesh's index axis,
     chunks fanned out over its data axis. Feed batches of D packed chunks
     (:meth:`map_batch`, :meth:`map_chunks`) or uint64 hashes
@@ -109,25 +125,29 @@ class ShardedKmerMapper:
         #: index shard x's entry arrays on row 0's device, from the first
         #: node_counts on
         self._entries: dict = {}
-        self._stats: list = []
-        self._total_kmers = 0
+        self._keys: dict = {}  # the ragged step's key buffer a device (key_buffer)
+        self._reset_totals()
         self.n_invalid_bases = 0
 
-    def _count_keys(self, x: int, cell: _Cell, keys: torch.Tensor) -> None:
-        """Fold one data row's sort keys into cell x's counts."""
+    def _count_keys(self, x: int, cell: _Cell, keys: torch.Tensor,
+                    count: torch.Tensor | None = None) -> None:
+        """Fold one data row's sort keys (the first ``count[0]`` of them,
+        where the ragged step's device count is given) into cell x's
+        counts."""
         base = x * self.nb_local
         if self.route == "stream":
             first = base // self.bpb
             stream_probe.stream_probe_count_keys(
                 cell.key_lo, cell.key_hi, cell.counts, keys,
                 cell.block_probe[first : first + self.nb_local // self.bpb],
-                bucket_base=base, n_buckets_global=self.n_buckets,
+                bucket_base=base, n_buckets_global=self.n_buckets, count=count,
             )
             return
         table = self.index.table
         probe.probe_count(cell.key_lo, cell.key_hi, cell.counts, _raw_queries(keys, table.seed),
                           table.max_probe, table.seed, block_probe=cell.block_probe,
-                          row_offset=base, n_buckets_global=self.n_buckets)
+                          valid=_counted(keys, count), row_offset=base,
+                          n_buckets_global=self.n_buckets)
 
     def map_chunks(self, chunks) -> None:
         """Fold up to D chunks, one a data row, into the count shards (None:
@@ -147,6 +167,8 @@ class ShardedKmerMapper:
             self.n_invalid_bases += n_invalid
             if strided and not config.read_len:
                 raise ValueError("strided chunks need config.read_len")
+            if not strided:
+                hashing.check_lengths(lengths, n_bases)  # host lengths, before the upload
             on_device: dict = {}
             for x, cell in enumerate(self.cells[d]):
                 if cell.device not in on_device:
@@ -155,14 +177,17 @@ class ShardedKmerMapper:
                         None if strided else _int32_on(lengths, cell.device),
                     )
                 words, lens = on_device[cell.device]
+                count = None
                 if strided:
                     keys, n_valid = plane_chunk_keys(words, n_bases // config.read_len,
                                                      config=config, seed=seed)
                 else:
-                    keys, n_valid = chunk_keys(words, lens, n_bases, config=config, seed=seed)
+                    keys, count = chunk_keys(words, lens, n_bases, config=config, seed=seed,
+                                             out=key_buffer(self._keys, words, config))
+                    n_valid = count[1]  # a device scalar: no sync
                 if x == 0:  # each data row's windows count once
                     self._stats.append(n_valid)
-                self._count_keys(x, cell, keys)
+                self._count_keys(x, cell, keys, count)
 
     def map_batch(self, packed_batch: np.ndarray, lengths_batch: np.ndarray,
                   n_bases: np.ndarray, n_invalid: int = 0) -> None:
@@ -211,16 +236,10 @@ class ShardedKmerMapper:
                                       n_buckets_global=self.n_buckets)
         self._stats.append(len(kmers))
 
-    @property
-    def n_kmers_mapped(self) -> int:
-        if self._stats:
-            self._total_kmers += sum(self._stats)
-            self._stats = []
-        return self._total_kmers
-
     def slot_counts(self) -> np.ndarray:
         """uint32[D, n_slots]: each data row's counts in slot order, on the
         host."""
+        self._fold_stats()
         return np.stack([np.concatenate([c.counts.cpu().numpy().view(np.uint32) for c in row])
                          for row in self.cells])
 
@@ -242,8 +261,7 @@ class ShardedKmerMapper:
                     cell.counts = torch.from_numpy(
                         np.ascontiguousarray(saved[x * per : (x + 1) * per]).view(np.int32)
                     ).to(cell.device)
-            self._stats = []
-            self._total_kmers = int(data["n_kmers"])
+            self._reset_totals(int(data["n_kmers"]))
             self.n_invalid_bases = int(data["n_invalid"])
 
     def node_counts(self, max_frequency: int = 1000) -> np.ndarray:
@@ -255,6 +273,7 @@ class ShardedKmerMapper:
         uploaded on the first call and kept with the mapper. Inside a
         ``torch.distributed`` process group the vector is summed over the
         processes too (in int64, then masked to 32 bits: the uint32 wrap)."""
+        self._fold_stats()
         n_nodes = self.index.max_node_id + 1
         out = None
         for x, cell in enumerate(self.cells[0]):

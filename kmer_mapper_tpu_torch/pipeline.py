@@ -74,7 +74,12 @@ class PinnedRing:
     chunk's work (its uploads first) was enqueued there; the producer waits
     on that event before it writes the buffer again. The event goes on the
     mapper's device whatever the thread's current device is: one recorded
-    elsewhere would complete before the upload it guards."""
+    elsewhere would complete before the upload it guards. The event is all
+    that guards a slot: neither step reads anything back, so the host may
+    queue several chunks ahead, and a slot's words and lengths stay
+    unchanged until the stream has passed the chunk's uploads. The mapper
+    reads the staged lengths on the host (their premise check) before it
+    enqueues their upload."""
 
     def __init__(self, n_buffers: int, n_words: int, device: torch.device, *,
                  n_lengths: int):

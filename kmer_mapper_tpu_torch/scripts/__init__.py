@@ -9,6 +9,7 @@ the Pallas measurement scripts under ``scripts/``, and the gather probe's.
     python -m kmer_mapper_tpu_torch.scripts.r9_block_pipeline [variant ...]
     python -m kmer_mapper_tpu_torch.scripts.gather_probe_dissect [variant ...]
     python -m kmer_mapper_tpu_torch.scripts.partition_dissect [--keys N]
+    python -m kmer_mapper_tpu_torch.scripts.finalize_dissect [variant ...]
 
 Each module holds a hand-written CUDA kernel (``csrc/<name>.cu``) with its
 variants, the kernel's plain-torch twin and a ``main`` that times every
@@ -18,7 +19,8 @@ twin only on CPU tensors. The r2 and r3 scripts take the stream count
 apart; the three r9 scripts run its tile body (``csrc/r9_tile.cuh``) under
 the layouts of the TPU kernel's tiles. ``gather_probe_dissect`` switches
 the gather probe's design points one at a time; ``partition_dissect``
-times the block partition's first design beside the main path's.
+times the block partition's first design beside the main path's, and
+``finalize_dissect`` the node-count finalize's other designs beside its.
 """
 from __future__ import annotations
 

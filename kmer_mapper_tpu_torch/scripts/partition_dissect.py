@@ -144,23 +144,24 @@ def radix_pass_ms(keys: torch.Tensor, n_buckets: int, n_slabs: int, device) -> d
     passes leave sorted must equal the twin's, in order."""
     bpb = min(128, n_buckets)
     n_blocks = n_buckets // bpb
-    _, slab_len = bp.slab_layout(keys.numel(), n_slabs)
+    count = torch.full((1,), keys.numel(), dtype=torch.int32, device=keys.device)
     t, cur = {}, keys
     for p, (shift, bits) in enumerate(bp.radix_passes(n_blocks)):
-        rows = bp.partition_histogram(cur, n_blocks, slab_len, shift, bits)
+        rows = bp.partition_histogram(cur, n_blocks, shift, bits, count, n_slabs)
         t[f"pass {p} histogram"] = median_ms(
-            lambda: bp.partition_histogram(cur, n_blocks, slab_len, shift, bits), device)
+            lambda: bp.partition_histogram(cur, n_blocks, shift, bits, count, n_slabs), device)
         copy_ms = median_ms(lambda: rows.clone(), device)
         t[f"pass {p} scan"] = median_ms(lambda: bp.partition_scan(rows.clone()),
                                         device) - copy_ms
         doff = rows.new_zeros(rows.shape[1] + 1)
         torch.cumsum(bp.partition_scan(rows), 0, dtype=torch.int32, out=doff[1:])
         t[f"pass {p} scatter"] = median_ms(
-            lambda: bp.radix_scatter(cur, rows, doff, n_blocks, slab_len, shift, bits), device)
-        cur = bp.radix_scatter(cur, rows, doff, n_blocks, slab_len, shift, bits)
-    t["offsets"] = median_ms(lambda: bp.radix_offsets(cur, n_blocks), device)
+            lambda: bp.radix_scatter(cur, rows, doff, n_blocks, shift, bits, count), device)
+        cur = bp.radix_scatter(cur, rows, doff, n_blocks, shift, bits, count)
+    t["offsets"] = median_ms(lambda: bp.radix_offsets(cur, n_blocks, count), device)
     twin, twin_off = bp.block_partition_reference(keys, n_buckets, bpb)
-    if not torch.equal(cur, twin) or not torch.equal(bp.radix_offsets(cur, n_blocks), twin_off):
+    if not torch.equal(cur, twin) or not torch.equal(bp.radix_offsets(cur, n_blocks, count),
+                                                     twin_off):
         raise AssertionError(f"partition_dissect: the passes at {n_slabs} slabs and the twin "
                              "disagree")
     t["sum"] = sum(t.values())

@@ -109,6 +109,26 @@ def test_radix_pieces_match_jax_sort_and_offsets(name, n_slabs):
         keys, n_buckets, bpb, n_slabs))
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_device_count_partition_of_a_capacity_buffer_matches_jax(name):
+    """The ragged step's form: the keys at the front of a capacity-sized
+    buffer whose tail is garbage (random words and invalid keys), their
+    number an int32 count tensor; the partition of the count's keys ==
+    JAX's sort and offsets of ``keys[:n]`` (:func:`_check_against_jax`),
+    the tail left as it was."""
+    case = CASES[name]
+    keys, n_buckets, bpb = case.inputs("cpu")
+    rng = np.random.default_rng(len(name))
+    tail = rng.integers(-(1 << 63), (1 << 63) - 1, 500, dtype=np.int64)
+    tail[::4] = block_partition.INVALID_KEY
+    buffer = torch.cat([keys, torch.from_numpy(tail)])
+    n = keys.shape[0]
+    grouped, off = block_partition.block_partition(
+        buffer, n_buckets, bpb, count=torch.tensor([n, n], dtype=torch.int32))
+    _check_against_jax(case, grouped[:n], off)
+    assert torch.equal(grouped[n:], buffer[n:])
+
+
 def test_cases_cover_the_hazards():
     edges = TABLE_CASES["block_edges_table"]
     n_buckets = edges.table.n_buckets

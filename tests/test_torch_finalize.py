@@ -32,6 +32,18 @@ def test_twin_matches_jax_make_finalize(name):
     np.testing.assert_array_equal(got, _jax_finalize(case))
 
 
+@pytest.mark.parametrize("order", ["shuffled", "slot"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_twin_matches_jax_make_finalize_in_any_entry_order(name, order):
+    """The entries shuffled, and sorted by slot as ``KmerIndex.device_entries``
+    uploads them: the twin == numpy == JAX's make_finalize on the same
+    (reordered) entries."""
+    case = CASES[name].ordered(order, seed=len(name))
+    got = _u32(finalize.finalize(*case.inputs("cpu")))
+    np.testing.assert_array_equal(got, CASES[name].expected())
+    np.testing.assert_array_equal(got, _jax_finalize(case))
+
+
 def test_the_wrap_case_wraps_modulo_2_32():
     """0xFFFFFFFF + 1 adds to 0, a sum past 2**32 keeps its low word, as the
     uint32 .at[].add of make_finalize does."""

@@ -48,6 +48,55 @@ def test_twin_matches_numpy(name):
                                       before["finalize_reference"] + 1}
 
 
+@pytest.mark.parametrize("order", ["shuffled", "slot"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_twin_in_any_entry_order_matches_numpy(name, order):
+    case = CASES[name].ordered(order, seed=3)
+    got = finalize.finalize(*case.inputs("cpu"))
+    np.testing.assert_array_equal(_u32(got), CASES[name].expected())
+
+
+def test_one_slot_case_wraps_and_groups_nodes():
+    """``one_slot``: every entry gathers one count near 2**32, nodes repeat
+    within a warp's 32 entries, and most node sums wrap."""
+    case = CASES["one_slot"]
+    assert len(np.unique(case.slot)) == 1 and case.n_nodes == 10_000
+    per_node = np.bincount(case.node, minlength=case.n_nodes)
+    assert (per_node >= 2).mean() > 0.5
+    assert any(len(np.unique(case.node[i:i + 32])) < 32 for i in range(0, len(case.node), 32))
+    wraps = per_node.astype(np.uint64) * np.uint64(case.counts[case.slot[0]]) >= 1 << 32
+    assert wraps.mean() > 0.5
+    np.testing.assert_array_equal(case.expected(), (per_node.astype(np.uint64) * np.uint64(
+        case.counts[case.slot[0]]) & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+def test_entries_upload_in_slot_order():
+    """``KmerIndex.device_entries`` uploads each shard's entries
+    (``shard_entries``, in entry order) sorted by slot, stably (equal slots
+    keep the index's order), every entry once over the shards; the
+    finalize over them == the host ``node_counts``."""
+    rng = np.random.default_rng(12)
+    kmers = np.unique(rng.integers(0, 1 << 50, 3000, dtype=np.uint64))
+    entries = np.concatenate([kmers, rng.choice(kmers, 2000)])
+    arrays = oracle.build_kmer_index(entries, rng.integers(0, 500, len(entries)), 1031)
+    index = ki.KmerIndex.from_arrays(arrays)
+    counts = rng.integers(0, 3, index.table.n_slots).astype(np.uint32)
+    for n_shards in (1, 2, 4):
+        total = 0
+        for x in range(n_shards):
+            slot, node, freq = index.shard_entries(x, n_shards)
+            order = np.argsort(slot, kind="stable")
+            dev = index.device_entries("cpu", (x, n_shards))
+            assert all(t.dtype == torch.int32 and t.is_contiguous() for t in dev)
+            for got, want in zip(dev, (slot, node, freq)):
+                np.testing.assert_array_equal(got.numpy(), want[order])
+            total += len(slot)
+        assert total == len(index.entry_slot)
+    out = finalize.finalize(torch.from_numpy(counts.view(np.int32)), *index.device_entries("cpu"),
+                            1000, index.max_node_id + 1)
+    np.testing.assert_array_equal(_u32(out), index.node_counts(counts))
+
+
 def _stand_in(monkeypatch, rc):
     """The launch path without a GPU, up to a stand-in library."""
     calls = []
@@ -214,6 +263,18 @@ def test_finalize_kernel_matches_twin(name, cuda_device):
     got = finalize.finalize(*case.inputs(cuda_device))
     torch.cuda.synchronize()
     assert finalize.launch_counts["node_counts"] == before + (name != "no_entries")
+    np.testing.assert_array_equal(_u32(got), _u32(finalize.finalize(*case.inputs("cpu"))))
+    np.testing.assert_array_equal(_u32(got), case.expected())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["shuffled", "slot"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_finalize_kernel_in_any_entry_order_matches_twin(name, order, cuda_device):
+    """The kernel on the entries shuffled and sorted by slot == its twin ==
+    numpy, bit for bit (the warp's node groups and their wrapping sums)."""
+    case = CASES[name].ordered(order, seed=5)
+    got = finalize.finalize(*case.inputs(cuda_device))
     np.testing.assert_array_equal(_u32(got), _u32(finalize.finalize(*case.inputs("cpu"))))
     np.testing.assert_array_equal(_u32(got), case.expected())
 

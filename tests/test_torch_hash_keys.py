@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from kmer_mapper_tpu import oracle as ref_oracle
+from kmer_mapper_tpu.index import layout as ref_layout
+from kmer_mapper_tpu.models import mapper as ref_mapper
+from kmer_mapper_tpu.models.mapper import MapperConfig as JaxConfig
 from kmer_mapper_tpu.ops import hashing as ref_hashing
 from kmer_mapper_tpu.ops import u32hash as ref_u32
 from kmer_mapper_tpu_torch import oracle
@@ -79,9 +82,39 @@ def test_ragged_twin_matches_jax(name, k, revcomp):
         words = torch.from_numpy(packed.view(np.int32))
         lens = torch.from_numpy(lengths.astype(np.int32))
         for seed in hash_keys_cases.SEEDS:
-            got = hashing.ragged_hash_keys(words, lens, n_bases, k, seed, revcomp)
+            got, _ = hashing.ragged_hash_keys(words, lens, n_bases, k, seed, revcomp)
             np.testing.assert_array_equal(
                 np.sort(got.numpy()), _jax_ragged(packed, lengths, n_bases, k, seed, revcomp))
+
+
+def _jax_n_valid(packed, lengths, n_bases, k, revcomp):
+    """The n_valid that JAX's ``chunk_step`` returns (its gather probe, on a
+    small table of its own) for this buffer."""
+    table = ref_layout.build_table(np.arange(1, 200, dtype=np.uint64) * 7919, n_buckets=64)
+    config = JaxConfig(k=k, buf=(len(packed) - 2) * 16, max_reads=len(lengths),
+                       revcomp=revcomp, probe="gather")
+    counts = jnp.zeros(table.n_slots, dtype=jnp.uint32)
+    _, n_valid = ref_mapper.chunk_step(
+        jnp.asarray(table.key_lo), jnp.asarray(table.key_hi), counts, jnp.asarray(packed),
+        jnp.asarray(lengths), jnp.int32(n_bases), config=config, max_probe=table.max_probe,
+        seed=table.seed)
+    return int(n_valid)
+
+
+@pytest.mark.parametrize("revcomp", [False, True])
+@pytest.mark.parametrize("name,k", hash_keys_cases.ragged_configs())
+def test_ragged_count_matches_jax_chunk_step_n_valid(name, k, revcomp):
+    """The ragged step's count (keys, valid windows): the offsets' twin's,
+    and the wrapper's, == (n_valid, n_valid) x (2 with revcomp, 1) of JAX's
+    ``chunk_step`` on the same buffer."""
+    for packed, lengths, n_bases, _, _ in hash_keys_cases.ragged_buffers(name, k):
+        n_valid = _jax_n_valid(packed, lengths, n_bases, k, revcomp)
+        expect = [n_valid * (2 if revcomp else 1), n_valid]
+        lens = torch.from_numpy(lengths.astype(np.int32))
+        assert hashing.ragged_offsets(lens, n_bases, k, revcomp)[2].tolist() == expect
+        _, count = hashing.ragged_hash_keys(torch.from_numpy(packed.view(np.int32)), lens,
+                                            n_bases, k, 3, revcomp)
+        assert count.tolist() == expect
 
 
 def _reads(rng, lengths, alphabet="ACGTN"):

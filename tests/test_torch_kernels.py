@@ -343,6 +343,60 @@ def test_map_file_on_a_device_that_is_not_current(kind, tmp_path):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("index_parallel", [1, 2])
+def test_sharded_ragged_chunks_over_two_cards(index_parallel):
+    """Ragged chunks on a grid whose data rows lie on two cards: each row's
+    valid-window count stays on its own card, and n_kmers_mapped,
+    node_counts and slot_counts read them back == one card's mapper and
+    the oracle."""
+    from kmer_mapper_tpu_torch import oracle
+    from kmer_mapper_tpu_torch.index import kmer_index
+    from kmer_mapper_tpu_torch.io import readers
+    from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
+    from kmer_mapper_tpu_torch.parallel import (
+        ShardedKmerMapper, batch_packed_chunks, make_mesh,
+    )
+
+    _two_devices()
+    rng = np.random.default_rng(17)
+    k = 15
+    lengths = rng.integers(20, 200, 400)
+    reads = "".join(rng.choice(list("ACGT"), int(lengths.sum())))
+    codes = oracle.encode_bytes(np.frombuffer(reads.encode(), np.uint8))
+    kmers = oracle.kmer_hashes_ragged(codes, lengths, k)
+    entries = np.concatenate([kmers[::20], rng.integers(0, 1 << 30, 500, dtype=np.uint64)])
+    arrays = oracle.build_kmer_index(entries, rng.integers(0, 300, len(entries)), 4099)
+    index = kmer_index.KmerIndex.from_arrays(arrays)
+    config = MapperConfig(k=k, buf=4096, max_reads=64)
+
+    def packed():
+        chunk = readers.SequenceChunk(
+            bases=np.frombuffer(reads.encode(), dtype=np.uint8),
+            read_starts=np.concatenate([[0], np.cumsum(lengths[:-1])]).astype(np.int64))
+        return readers.pack_for_device(iter([chunk]), config.buf, config.max_reads, k)
+
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    mesh = make_mesh(index_parallel=index_parallel,
+                     devices=[card for card in cards for _ in range(index_parallel)])
+    sharded = ShardedKmerMapper(index, config, mesh)
+    single = KmerMapper(index, config, cards[0])
+    n_batches = 0
+    for batch in batch_packed_chunks(packed(), 2, config.packed_words, config.max_reads):
+        sharded.map_batch(*batch)
+        n_batches += 1
+    for words, lens, n_bases, n_reads, _ in packed():
+        single.map_chunk(words, lens[:n_reads], n_bases)
+    assert n_batches > 1
+    assert {s.device for s in sharded._stats} == set(cards)
+    assert sharded.n_kmers_mapped == single.n_kmers_mapped == len(kmers)
+    want = oracle.map_kmers_to_index(arrays, kmers)
+    np.testing.assert_array_equal(single.node_counts(), want)
+    np.testing.assert_array_equal(sharded.node_counts(), want)
+    np.testing.assert_array_equal(sharded.slot_counts().sum(0, dtype=np.uint32),
+                                  single.counts.cpu().numpy().view(np.uint32))
+
+
 def test_pinned_ring_records_on_the_mappers_stream(monkeypatch):
     """The ring records its event on the current stream of the mapper's
     device, not of the thread's current device (no card needed: the CUDA

@@ -179,11 +179,20 @@ def _view(ptr: int, n: int, ctype, dtype):
     return np.frombuffer((ctype * n).from_address(ptr), dtype=dtype) if n else np.zeros(0, dtype)
 
 
+def _counted(n: int, count, n_slabs: int) -> tuple[int, int]:
+    """The keys and the slab length of a launch: the device count (an int32
+    in host memory here) clamped to [0, n] cut into ``n_slabs`` slabs, as
+    the kernels cut it."""
+    assert count is not None, "the partition's launches take a count"
+    c = min(max(int(_view(count, 1, ctypes.c_int32, np.int32)[0]), 0), n)
+    return c, block_partition.slab_layout(c, n_slabs)[1]
+
+
 class StandIn:
     """The partition kernels' contract in numpy, on the host memory behind
     the pointers: what the CUDA library does, so that the wrapper's glue
-    (the slabs, the scans, the digits' offsets, the buffers, the shapes)
-    runs on the CPU."""
+    (the slabs, the scans, the digits' offsets, the buffers, the shapes,
+    the device count) runs on the CPU."""
 
     def __init__(self):
         self.calls = []
@@ -192,16 +201,21 @@ class StandIn:
         self.calls.append(("radix_slabs",))
         return 264
 
-    def partition_histogram_launch(self, keys, n, rows, slab_len, n_slabs, log2, shift, bits,
+    def partition_histogram_launch(self, keys, n, count, rows, n_slabs, log2, shift, bits,
                                    device, stream):
+        n, slab_len = _counted(n, count, n_slabs)
         self.calls.append(("partition_histogram", n, slab_len, n_slabs, log2, shift, bits))
         k = torch.from_numpy(_view(keys, n, ctypes.c_int64, np.int64).copy())
         m = block_partition.slab_histograms(k, 1 << log2, slab_len, shift, bits).numpy()
-        _view(rows, m.size, ctypes.c_int32, np.int32)[:] = m.reshape(-1)
+        width = block_partition.digit_width(1 << log2, shift, bits)
+        matrix = _view(rows, n_slabs * width, ctypes.c_int32, np.int32)
+        matrix[:] = 0  # the slabs past the count's last are empty
+        matrix[:m.size] = m.reshape(-1)
         return 0
 
-    def radix_scatter_launch(self, keys, n, rows, doff, out, slab_len, n_slabs, log2, shift,
-                             bits, device, stream):
+    def radix_scatter_launch(self, keys, n, count, rows, doff, out, n_slabs, log2, shift, bits,
+                             device, stream):
+        n, slab_len = _counted(n, count, n_slabs)
         self.calls.append(("radix_scatter", n, slab_len, n_slabs, log2, shift, bits))
         k = torch.from_numpy(_view(keys, n, ctypes.c_int64, np.int64).copy())
         width = block_partition.digit_width(1 << log2, shift, bits)
@@ -212,7 +226,8 @@ class StandIn:
             k, bases, d, 1 << log2, slab_len, shift, bits).numpy()
         return 0
 
-    def radix_offsets_launch(self, ordered, n, off, log2, device, stream):
+    def radix_offsets_launch(self, ordered, n, count, off, log2, device, stream):
+        n, _ = _counted(n, count, 1)
         self.calls.append(("radix_offsets", n, log2))
         k = torch.from_numpy(_view(ordered, n, ctypes.c_int64, np.int64).copy())
         _view(off, (1 << log2) + 1, ctypes.c_int32, np.int32)[:] = \
@@ -234,7 +249,8 @@ class StandIn:
 def test_kernel_path_glue_on_a_stand_in(name, monkeypatch):
     """The CUDA branch's slabs, scans, offsets and shapes, with the kernels'
     work done by a numpy stand-in: a partition by block, each pass's
-    kernels launched and counted once, then the offsets (none for no
+    kernels launched and counted once over every slab of one wave (the
+    keys' number in a count on the device), then the offsets (none for no
     keys)."""
     _cuda_stubs(monkeypatch)
     lib = StandIn()
@@ -249,7 +265,7 @@ def test_kernel_path_glue_on_a_stand_in(name, monkeypatch):
     n = len(case.keys)
     log2 = n_blocks.bit_length() - 1
     passes = block_partition.radix_passes(n_blocks)
-    n_slabs, slab_len = block_partition.slab_layout(n, 264)
+    n_slabs, (_, slab_len) = 264, block_partition.slab_layout(n, 264)
     expect = [("radix_slabs",)]
     for shift, bits in passes:
         width = block_partition.digit_width(n_blocks, shift, bits)
@@ -281,20 +297,21 @@ def test_pass_wrappers_on_a_stand_in(name, n_slabs, monkeypatch):
     keys = torch.from_numpy(case.keys)
     n_blocks = case.n_buckets // case.bpb
     _, slab_len = block_partition.slab_layout(len(keys), n_slabs)
+    count = torch.tensor([len(keys)], dtype=torch.int32)
     for shift, bits in block_partition.radix_passes(n_blocks):
-        rows = block_partition.partition_histogram(keys, n_blocks, slab_len, shift, bits)
+        rows = block_partition.partition_histogram(keys, n_blocks, shift, bits, count, n_slabs)
         assert torch.equal(rows, block_partition.slab_histograms(keys, n_blocks, slab_len,
-                                                                 shift, bits))
+                                                                 shift, bits, n_slabs))
         bases, doff = block_partition.slab_bases(rows)
         totals = block_partition.partition_scan(rows)
         assert torch.equal(rows, bases) and torch.equal(totals, doff.diff())
         out = torch.empty_like(keys)
-        got = block_partition.radix_scatter(keys, rows, doff, n_blocks, slab_len, shift, bits,
+        got = block_partition.radix_scatter(keys, rows, doff, n_blocks, shift, bits, count,
                                             out)
         assert got is out and torch.equal(out, block_partition.slab_scatter_reference(
             keys, bases, doff, n_blocks, slab_len, shift, bits))
         keys = out
-    assert torch.equal(block_partition.radix_offsets(keys, n_blocks),
+    assert torch.equal(block_partition.radix_offsets(keys, n_blocks, count),
                        block_partition.radix_offsets_reference(keys, n_blocks))
 
 
@@ -325,6 +342,67 @@ def test_consume_alternates_through_the_callers_keys(name, monkeypatch):
             assert torch.equal(given, keys)
 
 
+def _with_tail(keys: torch.Tensor, seed: int = 5, extra: int = 777) -> torch.Tensor:
+    """The keys at the front of a longer buffer whose tail is garbage (random
+    words and invalid keys), as the ragged step's capacity-sized key buffer
+    holds them."""
+    rng = np.random.default_rng(seed)
+    tail = rng.integers(-(1 << 63), (1 << 63) - 1, extra, dtype=np.int64)
+    tail[::3] = block_partition.INVALID_KEY
+    return torch.cat([keys, torch.from_numpy(tail)])
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_twin_partitions_the_device_count_of_a_capacity_buffer(name):
+    """A buffer with a garbage tail and a count: the twin's partition of the
+    count's keys == its partition of ``keys[:n]``, the tail kept; a count
+    of -1 (a chunk whose lengths did not tile its buffer) partitions none,
+    and a count past the buffer all of it."""
+    case = CASES[name]
+    keys, n_buckets, bpb = case.inputs("cpu")
+    buffer = _with_tail(keys)
+    n = keys.shape[0]
+    grouped, off = block_partition.block_partition(
+        buffer, n_buckets, bpb, count=torch.tensor([n, 99], dtype=torch.int32))
+    twin_grouped, twin_off = block_partition.block_partition_reference(keys, n_buckets, bpb)
+    assert grouped.shape == buffer.shape and torch.equal(grouped[n:], buffer[n:])
+    assert torch.equal(grouped[:n], twin_grouped) and torch.equal(off, twin_off)
+    _, none = block_partition.block_partition(buffer, n_buckets, bpb,
+                                              count=torch.tensor([-1], dtype=torch.int32))
+    assert not none.any()
+    whole = block_partition.block_partition(
+        buffer, n_buckets, bpb, count=torch.tensor([1 << 30], dtype=torch.int32))
+    assert all(torch.equal(a, b) for a, b in zip(
+        whole, block_partition.block_partition_reference(buffer, n_buckets, bpb)))
+
+
+@pytest.mark.parametrize("name", ["hits_misses_masking", "poly_a_window", "no_queries",
+                                  "extreme_words_4096", "wide_table_536870912",
+                                  "revcomp_ragged_poly_a_k31_b0_rc1_s0"])
+def test_device_count_glue_on_a_stand_in(name, monkeypatch):
+    """With a device count the CUDA branch passes the count's address,
+    launches every slab of one wave (the stand-in, like the kernels, cuts
+    the count's keys into them) and equals the twin on ``keys[:n]``; the
+    buffer past the count is not read."""
+    _cuda_stubs(monkeypatch)
+    lib = StandIn()
+    monkeypatch.setattr(native, "library", lambda: lib)
+    case = CASES[name]
+    keys, n_buckets, bpb = case.inputs("cpu")
+    n_blocks = n_buckets // bpb
+    n = keys.shape[0]
+    count = torch.tensor([n, 0], dtype=torch.int32)
+    grouped, off = block_partition.radix_partition(_with_tail(keys), n_blocks, count=count)
+    twin_grouped, twin_off = block_partition.block_partition_reference(keys, n_buckets, bpb)
+    assert torch.equal(grouped[:n], twin_grouped) and torch.equal(off, twin_off)
+    _, slab_len = block_partition.slab_layout(n, 264)
+    histograms = [c for c in lib.calls if c[0] == "partition_histogram"]
+    assert histograms and all(c[1:4] == (n, slab_len, 264) for c in histograms)
+    assert lib.calls[-1] == ("radix_offsets", n, n_blocks.bit_length() - 1)
+    with pytest.raises(ValueError, match="count is torch.int64"):
+        block_partition.block_partition(keys, n_buckets, bpb, count=count.long())
+
+
 def test_failed_launch_raises(monkeypatch):
     """A launch that returns an error raises and counts nothing: there is no
     fallback to the twin."""
@@ -342,13 +420,14 @@ def test_failed_launch_raises(monkeypatch):
                            match="partition_histogram kernel launch failed: invalid"):
             block_partition.radix_partition(keys, n_blocks)
     rows = torch.zeros((1, 128), dtype=torch.int32)
+    count = torch.tensor([len(keys)], dtype=torch.int32)
     with pytest.raises(RuntimeError, match="partition_scan kernel launch failed: invalid"):
         block_partition.partition_scan(rows)
     with pytest.raises(RuntimeError, match="radix_scatter kernel launch failed: invalid"):
         block_partition.radix_scatter(keys, rows, torch.zeros(129, dtype=torch.int32), 8192,
-                                      1 << 20, 0, 7)
+                                      0, 7, count)
     with pytest.raises(RuntimeError, match="radix_offsets kernel launch failed: invalid"):
-        block_partition.radix_offsets(keys, 8)
+        block_partition.radix_offsets(keys, 8, count)
     lib.radix_slabs = lambda *a: -1
     with pytest.raises(RuntimeError, match="radix_slabs failed: invalid"):
         block_partition.radix_partition(keys, 8)
@@ -403,18 +482,19 @@ def test_each_kernel_matches_its_plain_piece(name, n_slabs, cuda_device):
         pytest.skip("no keys: the kernels are not launched")
     n_blocks = case.n_buckets // case.bpb
     _, slab_len = block_partition.slab_layout(keys.numel(), n_slabs)
+    count = torch.tensor([keys.numel()], dtype=torch.int32, device=cuda_device)
     for shift, bits in block_partition.radix_passes(n_blocks):
-        rows = block_partition.partition_histogram(keys, n_blocks, slab_len, shift, bits)
+        rows = block_partition.partition_histogram(keys, n_blocks, shift, bits, count, n_slabs)
         assert torch.equal(rows, block_partition.slab_histograms(keys, n_blocks, slab_len,
-                                                                 shift, bits))
+                                                                 shift, bits, n_slabs))
         bases, doff = block_partition.slab_bases(rows)
         totals = block_partition.partition_scan(rows)
         assert torch.equal(rows, bases) and torch.equal(totals, doff.diff())
-        out = block_partition.radix_scatter(keys, rows, doff, n_blocks, slab_len, shift, bits)
+        out = block_partition.radix_scatter(keys, rows, doff, n_blocks, shift, bits, count)
         assert torch.equal(out, block_partition.slab_scatter_reference(
             keys, bases, doff, n_blocks, slab_len, shift, bits))
         keys = out
-    assert torch.equal(block_partition.radix_offsets(keys, n_blocks),
+    assert torch.equal(block_partition.radix_offsets(keys, n_blocks, count),
                        block_partition.radix_offsets_reference(keys, n_blocks))
 
 
@@ -450,3 +530,37 @@ def test_kernel_partition_of_slots_past_2_31(cuda_device):
     hit, values = stream_count_cases.nonzero_counts(counts)
     np.testing.assert_array_equal(hit, slots)
     np.testing.assert_array_equal(values, reps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CASES))
+def test_kernels_partition_the_device_count(name, cuda_device):
+    """A capacity buffer with a garbage tail and a device count: the
+    kernels == the twin on ``keys[:n]`` in order, and each kernel == its
+    plain piece on the count's keys (the histogram's rows past the count's
+    last slab zeros), the slabs cut on the card."""
+    case = CASES[name]
+    keys, n_buckets, bpb = case.inputs("cpu")
+    n, n_blocks = keys.shape[0], n_buckets // bpb
+    buffer = _with_tail(keys).to(cuda_device)
+    count = torch.tensor([n, 0], dtype=torch.int32, device=cuda_device)
+    grouped, off = block_partition.block_partition(buffer, n_buckets, bpb, count=count)
+    twin_grouped, twin_off = block_partition.block_partition_reference(keys, n_buckets, bpb)
+    assert torch.equal(grouped[:n].cpu(), twin_grouped) and torch.equal(off.cpu(), twin_off)
+    n_slabs = block_partition.radix_slabs(buffer.device)
+    _, slab_len = block_partition.slab_layout(n, n_slabs)
+    cur, plain = buffer, keys.to(cuda_device)
+    for shift, bits in block_partition.radix_passes(n_blocks):
+        rows = block_partition.partition_histogram(cur, n_blocks, shift, bits, count, n_slabs)
+        want = block_partition.slab_histograms(plain, n_blocks, slab_len, shift, bits, n_slabs)
+        assert torch.equal(rows, want)
+        bases, doff = block_partition.slab_bases(rows)
+        block_partition.partition_scan(rows)
+        out = block_partition.radix_scatter(cur, rows, doff, n_blocks, shift, bits, count,
+                                            cur.clone())
+        plain = block_partition.slab_scatter_reference(plain, bases, doff, n_blocks, slab_len,
+                                                       shift, bits)
+        assert torch.equal(out[:n], plain) and torch.equal(out[n:], cur[n:])
+        cur = out
+    assert torch.equal(block_partition.radix_offsets(cur, n_blocks, count),
+                       block_partition.radix_offsets_reference(plain, n_blocks))

@@ -262,6 +262,45 @@ def test_sharded_ragged_batches(shape):
     assert mapper.n_kmers_mapped == len(read_kmers)
 
 
+def test_sharded_n_kmers_mapped_sums_device_counts():
+    """The ragged step hands each data row's valid windows on as a count
+    tensor (no read-back): the stats hold tensors, n_kmers_mapped sums them
+    (== JAX's count) and an int from map_hashes; a -1 count (a ragged
+    chunk whose device lengths did not tile its buffer) raises at every
+    read-back until the state is reloaded."""
+    rng = np.random.default_rng(31)
+    reads, arrays, expect = _setup(rng, 9)
+    index = _index_with_buckets(arrays, 2 * layout.CHAIN_BLOCK)
+    config = MapperConfig(k=9, buf=1024, max_reads=64)
+    mapper = _mapper(index, config, (2, 2))
+    _run(mapper, reads, config)
+    assert mapper._stats and all(isinstance(s, torch.Tensor) for s in mapper._stats)
+    mapper.map_hashes(np.arange(5, dtype=np.uint64))
+    assert mapper.n_kmers_mapped == sum(max(0, len(r) - 9 + 1) for r in reads) + 5
+    assert not mapper._stats
+    np.testing.assert_array_equal(mapper.node_counts(), expect)
+    mapper._stats.append(torch.tensor([3, -1], dtype=torch.int32)[1])
+    for read in (lambda: mapper.n_kmers_mapped, mapper.node_counts, mapper.slot_counts,
+                 lambda: mapper.n_kmers_mapped):
+        with pytest.raises(ValueError, match="did not tile"):
+            read()
+
+
+def test_sharded_checks_host_lengths_before_the_upload():
+    """Host lengths that do not tile the chunk raise in map_chunks, before
+    anything is hashed."""
+    rng = np.random.default_rng(32)
+    reads, arrays, _ = _setup(rng, 9)
+    config = MapperConfig(k=9, buf=1024, max_reads=64)
+    mapper = _mapper(_index_with_buckets(arrays, 2 * layout.CHAIN_BLOCK), config, (1, 2))
+    packed, lengths, n_bases, n_reads, _ = next(iter(
+        _chunks_from_reads(reads, config.buf, config.max_reads, 9)))
+    before = dict(hashing.launch_counts)
+    with pytest.raises(ValueError, match="add up to"):
+        mapper.map_chunks([(packed, lengths[:n_reads], n_bases + 1, 0, False)])
+    assert hashing.launch_counts == before
+
+
 @pytest.mark.parametrize("shape,n_buckets", [((4, 2), None), ((2, 4), 4 * layout.CHAIN_BLOCK),
                                              ((1, 8), 8 * layout.CHAIN_BLOCK)])
 def test_sharded_map_hashes_matches_oracle(shape, n_buckets):
@@ -372,8 +411,8 @@ def test_sharded_node_counts_run_the_finalize_per_index_shard():
 
 def test_entry_arrays_are_uploaded_by_the_first_node_counts_and_kept_by_the_mapper():
     """The finalize's entry arrays are uploaded by the first node_counts, a
-    triple an index shard (its ``shard_entries``), and held by the mapper,
-    so they are freed with it; the index holds no tensors."""
+    triple an index shard (its ``shard_entries``, sorted by slot), and held
+    by the mapper, so they are freed with it; the index holds no tensors."""
     rng = np.random.default_rng(9)
     reads, arrays, expect = _setup(rng, 9)
     config = MapperConfig(k=9, buf=1024, max_reads=64)
@@ -385,8 +424,10 @@ def test_entry_arrays_are_uploaded_by_the_first_node_counts_and_kept_by_the_mapp
     kept = dict(mapper._entries)
     assert sorted(kept) == [0, 1]
     for x, triple in kept.items():
-        for got, want in zip(triple, index.shard_entries(x, 2)):
-            np.testing.assert_array_equal(got.numpy(), want)
+        entries = index.shard_entries(x, 2)
+        order = np.argsort(entries[0], kind="stable")
+        for got, want in zip(triple, entries):
+            np.testing.assert_array_equal(got.numpy(), want[order])
     np.testing.assert_array_equal(mapper.node_counts(), expect)
     assert all(mapper._entries[x] is kept[x] for x in kept)
     assert not any(isinstance(v, (torch.Tensor, dict)) for v in vars(index).values())
