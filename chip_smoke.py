@@ -12,7 +12,10 @@ result line):
      shuffled, partitioned windows; the two hash-key kernels (plane and
      ragged, with the ragged step's offsets kernel and its count) against
      theirs on every case of ops/hash_keys_cases.py (exact equality, the
-     keys in the same order); and the block partition
+     keys in the same order), the offsets kernel also on its own cases
+     there (up to 2^21 reads and one past a wave of its persistent grid,
+     the (-1, -1) edges), each launched under the sync check and one kernel
+     a call in the profiler; and the block partition
      against its twin on every case of ops/block_partition_cases.py (the
      main path's kernels: the twin's keys in the twin's order; the cursor
      route of scripts/partition_dissect.py with its histogram in shared
@@ -43,8 +46,10 @@ result line):
      100-151 bp (8 chunks, each one continuous buffer; stages offsets, hash
      keys, partition with the device count, count); its 8 buffers mapped
      once more under torch.cuda.set_sync_debug_mode("error"), so any host
-     sync in the step raises; the offsets' kernel, the hash kernel and the
-     function whole against the twins; the device-count partition of the
+     sync in the step raises; the offsets' kernel (timed beside one
+     one-element fill_, the timer's floor for a launch), the
+     hash kernel and the function whole against the twins; the
+     device-count partition of the
      capacity key buffer == the twin on the count's keys;
   6. dissect: the three dissection scripts of kmer_mapper_tpu_torch.scripts
      run as a user runs them, at their full sizes (their kernels must have
@@ -106,7 +111,9 @@ result line):
      through ShardedKmerMapper on (data, index) grids (1,1), (2,1), (1,2), (2,2) of the card, node counts
      == KmerMapper's, M k-mers/s a grid; sharded map_hashes on phase 8's
      2^23-bucket table over 4 index shards and on a 512-bucket table over 8
-     sub-block shards == KmerMapper's; map_file_sharded over 4 cells (2
+     sub-block shards == KmerMapper's; the ragged buffers on grids (1,2)
+     and (2,2) and on 8 sub-block shards under the sync check ==
+     KmerMapper's; map_file_sharded over 4 cells (2
      index shards) on phase 9's FASTQ == map_file's counts; with two cards
      or more, the grids and the file path over distinct cards and the
      two-card tests of tests/test_torch_kernels.py. Each run's launch counts
@@ -120,6 +127,7 @@ last line is {"ok": true, "device": {...}}. Needs no network and one GPU.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import logging
@@ -307,10 +315,59 @@ def key_err(a, b) -> int:
     return max((abs(x - y) for x, y in zip(a[bad].tolist(), b[bad].tolist())), default=0)
 
 
+@contextlib.contextmanager
+def sync_check(torch):
+    """Raises on any synchronising torch call inside the block
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+#: a process that prints the names of the device work (kernels, copies,
+#: sets) that one ragged_offsets call on an offsets case queues, from its
+#: first torch.profiler session
+OFFSETS_KERNELS = """
+import json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+from kmer_mapper_tpu_torch.ops import hash_keys_cases, hashing
+args = hash_keys_cases.offsets_case(sys.argv[1]).inputs("cuda")
+hashing.ragged_offsets(*args)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    hashing.ragged_offsets(*args)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+"""
+
+
+def offsets_kernels(case: str) -> list[str]:
+    """What one ragged_offsets call queues on the card, profiled in a fresh
+    process: in this one a later profiler session loses device records
+    (none at all in the ragged phase, once one stream_count launch of
+    phase 9's trace, after a session in phase 3)."""
+    proc = subprocess.run([sys.executable, "-c", OFFSETS_KERNELS, case], capture_output=True,
+                          text=True, check=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def offsets_err(got, want) -> int:
+    """Largest |a - b| over the offsets' (starts, offs, count) triples."""
+    return max((int((a.cpu().long() - b.cpu().long()).abs().max()) for a, b in zip(got, want)
+                if a.numel()), default=0)
+
+
 def phase_hash_hazards(torch, np, device) -> dict:
     """Each hash-key kernel against its twin (the same keys in the same
     order) and the host oracle (sorted) on every case of
-    ops/hash_keys_cases.py; returns the largest absolute difference between
+    ops/hash_keys_cases.py, the ragged step's offsets launched under the
+    sync check; the offsets' kernel against its twin and numpy on the
+    offsets' cases (2^21 reads, a wave of its grid and one, (-1, -1) edges),
+    one kernel a call; returns the largest absolute difference between
     kernel and twin keys per kernel (must be 0)."""
     from kmer_mapper_tpu_torch.ops import hash_keys_cases, hashing
 
@@ -324,12 +381,11 @@ def phase_hash_hazards(torch, np, device) -> dict:
         twin = getattr(hashing, f"{name}_reference")(*case.inputs(device))
         if case.ragged:  # the keys are the first count[0] of a capacity buffer
             _, lengths, n_bases, k, _, revcomp = case.inputs(device)
-            offsets = hashing.ragged_offsets(lengths, n_bases, k, revcomp)
+            with sync_check(torch):
+                offsets = hashing.ragged_offsets(lengths, n_bases, k, revcomp)
             plain = hashing.ragged_offsets_reference(lengths, n_bases, k, revcomp)
-            max_err["ragged_offsets"] = max(
-                max_err["ragged_offsets"],
-                *(int((a.long() - b.long()).abs().amax()) for a, b in zip(offsets, plain)
-                  if a.numel()))
+            max_err["ragged_offsets"] = max(max_err["ragged_offsets"],
+                                            offsets_err(offsets, plain))
             got, count = got
             if count.tolist() != plain[2].tolist() or max_err["ragged_offsets"]:
                 raise AssertionError(f"hash hazard {case.name}: ragged_offsets != its twin")
@@ -342,6 +398,27 @@ def phase_hash_hazards(torch, np, device) -> dict:
         n_keys[name] += got.numel()
     log(f"hash hazards: {n_cases} cases ({n_keys} keys), kernel == twin (same order) == "
         f"oracle (sorted) in {time.perf_counter() - t:.1f} s")
+    wave = hashing.ragged_offsets_wave(device)
+    names = hash_keys_cases.offsets_case_names()
+    for name in names:
+        case = hash_keys_cases.offsets_case(name, wave)
+        args = case.inputs(device)
+        before = hashing.launch_counts["ragged_offsets"]
+        with sync_check(torch):
+            got = hashing.ragged_offsets(*args)
+        starts, offs, count = case.expected()
+        err = offsets_err(got, hashing.ragged_offsets_reference(*args))
+        max_err["ragged_offsets"] = max(max_err["ragged_offsets"], err)
+        if (err or hashing.launch_counts["ragged_offsets"] != before + 1
+                or not np.array_equal(got[0].cpu().numpy(), starts)
+                or not np.array_equal(got[1].cpu().numpy(), offs) or got[2].tolist() != count):
+            raise AssertionError(f"offsets hazard {name}: kernel, twin and numpy disagree")
+    queued = offsets_kernels("rows_8193")
+    if len(queued) != 1 or "ragged_offsets_kernel" not in queued[0]:
+        raise AssertionError(f"ragged_offsets queued {queued}, not one kernel")
+    log(f"offsets hazards: {len(names)} cases (up to {len(case.lengths)} reads; a wave of the "
+        f"grid {wave} reads), kernel == twin == numpy under the sync check; one call on 8,193 "
+        f"reads queues {queued} (torch.profiler, a fresh process)")
     return max_err
 
 
@@ -1020,12 +1097,8 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     # its table upload syncs) maps the 8 buffers with torch's sync check set
     # to raise on any synchronising call
     sync_free = KmerMapper(index, config, device)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with sync_check(torch):
         run_mapper_on(sync_free)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     if (not torch.equal(sync_free.counts * (1 + N_WINDOWS), mapper.counts)
             or sync_free.n_kmers_mapped != n_kmers):
         raise AssertionError("ragged: the map_chunk run under the sync check counted "
@@ -1072,14 +1145,15 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     got, count0 = hashing.ragged_hash_keys(*twin_args, out=keys_buffer)
     n_keys = int(count0[0])
     state0 = offsets(dev_chunks[0])
-    offsets_err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(
-        state0[1:], hashing.ragged_offsets_reference(lengths0, nb0, K)))
+    offsets_diff = offsets_err(state0[1:], hashing.ragged_offsets_reference(lengths0, nb0, K))
     hash_err = key_err(got[:n_keys], hashing.ragged_hash_keys_reference(*twin_args))
-    if hash_err or offsets_err or count0.tolist() != [n_keys, n_keys] or n_keys != int(
+    if hash_err or offsets_diff or count0.tolist() != [n_keys, n_keys] or n_keys != int(
             np.maximum(chunks[0].read_lengths.astype(np.int64) - K + 1, 0).sum()):
         raise AssertionError("ragged: ragged_offsets or ragged_hash_keys and its twin disagree "
                              "on one chunk")
     offsets_ms = median_ms(lambda: hashing.ragged_offsets(lengths0, nb0, K))
+    one = torch.zeros(1, dtype=torch.int32, device=device)
+    floor_ms = median_ms(lambda: one.fill_(1))  # one launch of a kernel with no work
     offsets_plain_ms = median_ms(lambda: hashing.ragged_offsets_reference(lengths0, nb0, K))
     hash_ms = median_ms(lambda: hash_keys(state0))
     wrapper_ms = median_ms(lambda: hashing.ragged_hash_keys(*twin_args, out=keys_buffer))
@@ -1092,7 +1166,9 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
         f"(offsets and hash kernel, no sync) {wrapper_ms:.4f} ms, the hash kernel alone "
         f"{hash_ms:.4f} ms, twin {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by}; "
         f"ragged_offsets {offsets_ms:.4f} ms (twin {offsets_plain_ms:.4f} ms, bound "
-        f"{offsets_bound_ms:.5f} ms by {offsets_by})")
+        f"{offsets_bound_ms:.5f} ms by {offsets_by}; a wave of its grid "
+        f"{hashing.ragged_offsets_wave(device)} reads; one one-element fill_ {floor_ms:.4f} "
+        "ms)")
     # the partition with the device count (the main path's) against the twin
     # on the count's keys, then the kernels and the count on the exact keys
     keys = got[:n_keys].clone()
@@ -1116,7 +1192,7 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
             "hash": {"ms": hash_ms, "function_ms": wrapper_ms, "plain_ms": plain_ms,
                      "max_abs_err": hash_err, "bound_ms": bound_ms, "bound_by": bound_by},
             "offsets": {"ms": offsets_ms, "plain_ms": offsets_plain_ms,
-                        "max_abs_err": offsets_err, "bound_ms": offsets_bound_ms,
+                        "max_abs_err": offsets_diff, "bound_ms": offsets_bound_ms,
                         "bound_by": offsets_by}}
 
 
@@ -2147,9 +2223,10 @@ def phase_sharded(torch, np, dev_chunks, ragged_chunks, index, library, feed_dir
     ShardedKmerMapper on grids (1,1), (2,1), (1,2), (2,2) of one card ==
     KmerMapper; (d) sharded map_hashes on phase 8's 2^23-bucket table over
     4 index shards and on a 512-bucket table over 8 == KmerMapper, then
-    the ragged step's device-resident buffers (``ragged_chunks``) on a
-    (1,2) grid of the bench index and on the 512-bucket table's 8 sub-block
-    shards under torch's sync check == KmerMapper; (e)
+    the ragged step's device-resident buffers (``ragged_chunks``) on
+    (1,2) and (2,2) grids of the bench index (a chunk a data row, every
+    cell's offsets launch queued on the one card) and on the 512-bucket
+    table's 8 sub-block shards under torch's sync check == KmerMapper; (e)
     map_file_sharded on phase 9's FASTQ over 4 cells == map_file's counts;
     (f) with two cards or more, (c) and (e) over distinct cards, the
     ragged buffers on grids (2,1) and (2,2) whose data rows lie on distinct
@@ -2348,22 +2425,21 @@ def phase_sharded(torch, np, dev_chunks, ragged_chunks, index, library, feed_dir
     ragged_want: dict = {}  # KmerMapper's node counts and windows a table, for (f)
     for what, idx, grid, chunks in (
             ("bench index", index, (1, 2), ragged_chunks),
+            ("bench index", index, (2, 2), ragged_chunks),
             ("512-bucket table, 8 sub-block index shards", small, (1, 8), ragged_chunks[:2])):
-        ref = KmerMapper(idx, ragged_config, device)
-        for chunk in chunks:
-            ref.map_chunk(*chunk)
-        want, want_kmers = ref.node_counts(), ref.n_kmers_mapped
-        ragged_want.setdefault(what, (want, want_kmers))
-        del ref
+        if what not in ragged_want:
+            ref = KmerMapper(idx, ragged_config, device)
+            for chunk in chunks:
+                ref.map_chunk(*chunk)
+            ragged_want[what] = ref.node_counts(), ref.n_kmers_mapped
+            del ref
+        want, want_kmers = ragged_want[what]
         mapper = sharded_grid(torch, idx, ragged_config, grid, [device])
         zero_launch_counts(*modules)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            for words, lengths, nb in chunks:
-                mapper.map_chunks([(words, lengths, nb, 0, False)])
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+        with sync_check(torch):  # a chunk a data row, the cells' steps queued on one card
+            for i in range(0, len(chunks), grid[0]):
+                mapper.map_chunks([(words, lengths, nb, 0, False)
+                                   for words, lengths, nb in chunks[i:i + grid[0]]])
         got = mapper.node_counts()
         launches = require(f"d, ragged, {what}", ("ragged_offsets", "ragged_hash_keys",
                                                   "node_counts"))

@@ -36,23 +36,40 @@
 // The ragged step's offsets are computed here too, on the card, so that no
 // host sync and no eager torch op stands between a chunk's read lengths and
 // its keys (JAX's chunk_step keeps them on the device too: the cumsum and
-// n_valid of models/mapper.py:140-142). ragged_offsets_launch is a
-// reduce-then-scan in two small kernels over tiles of kScanTile reads:
-// ragged_tile_sums_kernel writes each tile's bases, valid windows and
-// negative lengths; ragged_offsets_kernel adds the tiles before its own and
-// scans its tile, writing each read's start and output offset. Its last CTA
-// writes the chunk's count, int32 (keys, valid windows), which the hash
-// kernel (the reverse complements go after the forward keys, at the valid
-// windows), the block partition and the mapper's totals read from device
-// memory; the key buffer is sized by the buffer's capacity, since windows
-// never outnumber bases. Where the lengths do not tile the buffer (a
-// negative length, or a sum other than n_bases) the count is (-1, -1): the
-// hash kernel writes nothing, the partition takes no key, and the mapper
-// raises at its next read-back.
+// n_valid of models/mapper.py:140-142). Their work is 12 bytes a read (a
+// length read, a start and an offset written): a chunk's half million reads
+// are 2 us of bytes, so what bounds ragged_offsets_launch is fixed cost,
+// launches and round trips to memory. It is one cooperative launch of
+// ragged_offsets_kernel on a persistent grid of at most the CTAs that fit
+// on the card at once (ragged_offsets_grid), each taking a run of
+// contiguous tiles of kScanTile reads; a chunk's reads fill less than one
+// wave (534,721 reads of 100-151 bp: 131 tiles, where an H100 holds 264
+// CTAs), so a CTA takes one tile. A thread loads its 16 consecutive lengths
+// with four 16-byte loads and keeps its CTA's first tile in registers; the
+// CTA scans that tile (warp shuffles, one row of warp totals in shared
+// memory) and writes its totals (bases, valid windows, negative lengths) to
+// its own slot of the scratch. After one grid.sync() each CTA adds the
+// slots of the CTAs before it and writes each read's start and output
+// offset, staged in shared memory so that a warp stores 32 consecutive
+// 16-byte groups of each. Only a CTA with more than one tile (more reads
+// than a wave's tiles) reads its later tiles' lengths again, after the
+// barrier. Every slot is written before the barrier and read after it, so
+// the scratch needs no zeroing and carries nothing from one call to the
+// next. The last CTA, which has added every slot before its own, writes
+// offs[n_rows] and the chunk's count, int32 (keys, valid windows), which
+// the hash kernel (the reverse complements go after the forward keys, at
+// the valid windows), the block partition and the mapper's totals read
+// from device memory; the key buffer is sized by the buffer's capacity,
+// since windows never outnumber bases. Where the lengths do not tile the
+// buffer (a negative length, or a sum other than n_bases) the count is
+// (-1, -1): the hash kernel writes nothing, the partition takes no key, and
+// the mapper raises at its next read-back.
 //
 // Bound with ctypes; see kmer_mapper_tpu_torch/native.py.
 
+#include <atomic>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "u32mix.cuh"
@@ -99,11 +116,14 @@ plane_hash_keys_kernel(const uint32_t* __restrict__ words,
 
 constexpr int kScanThreads = 256;
 constexpr int kScanWarps = kScanThreads / 32;
-constexpr int kScanItems = 8;  // consecutive reads a thread scans
-constexpr int kScanTile = kScanThreads * kScanItems;  // reads a scan CTA, 2,048
-constexpr int kSums = 3;  // a tile's bases, valid windows and negative lengths
+constexpr int kScanVecs = 4;  // 16-byte loads (and stores) of a thread a tile
+constexpr int kScanItems = 4 * kScanVecs;  // consecutive reads a thread scans, 16
+constexpr int kScanTile = kScanThreads * kScanItems;  // reads a tile, 4,096
+constexpr int kSums = 3;  // bases, valid windows and negative lengths
+constexpr int kMaxDevices = 64;  // devices whose grid size is cached
 
-// A lane's running sums of reads: bases, valid windows, negative lengths.
+// Running sums of reads: bases, valid windows, negative lengths. A CTA's
+// slot of the scratch holds its reads' sums as kSums int64.
 struct Sums {
   long long v[kSums];
   __device__ __forceinline__ void add(int len, int k) {
@@ -111,111 +131,183 @@ struct Sums {
     v[1] += max(0, len - k + 1);
     v[2] += len < 0;
   }
+  __device__ __forceinline__ void add(const Sums& o) {
+#pragma unroll
+    for (int c = 0; c < kSums; ++c) v[c] += o.v[c];
+  }
 };
 
-// The block's exclusive scan of each thread's sums (threads in order), in
-// place, and the block's totals; every thread of the block calls it.
-__device__ __forceinline__ void block_scan(Sums& mine, Sums& total) {
-  __shared__ long long warp_sums[kScanWarps + 1][kSums];
+// The block's exclusive scan of each thread's sums (threads in order),
+// returned, and the block's totals; every thread of the block calls it.
+__device__ __forceinline__ Sums block_scan(const Sums& mine, Sums& total) {
+  __shared__ Sums warp_total[kScanWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   Sums incl = mine;
 #pragma unroll
-  for (int c = 0; c < kSums; ++c) {
+  for (int o = 1; o < 32; o <<= 1) {
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
+    for (int c = 0; c < kSums; ++c) {
       const long long u = __shfl_up_sync(0xFFFFFFFFu, incl.v[c], o);
       if (lane >= o) incl.v[c] += u;
     }
   }
-  __syncthreads();  // the readers of a previous call are done with warp_sums
-  if (lane == 31) {
+  __syncthreads();  // the readers of a previous call are done with warp_total
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  Sums before = {{0, 0, 0}};
+  total = before;
 #pragma unroll
-    for (int c = 0; c < kSums; ++c) warp_sums[warp][c] = incl.v[c];
+  for (int w = 0; w < kScanWarps; ++w) {
+    const Sums t = warp_total[w];
+    if (w < warp) before.add(t);
+    total.add(t);
+  }
+#pragma unroll
+  for (int c = 0; c < kSums; ++c) before.v[c] += incl.v[c] - mine.v[c];
+  return before;
+}
+
+// Thread x's lengths in tile t: reads t * kScanTile + 16x ... + 15, 0 past
+// n_rows; four 16-byte loads where the lengths are aligned and in range.
+__device__ __forceinline__ void load_tile(const int32_t* __restrict__ lengths, int n_rows, int t,
+                                          bool vec, int (&len)[kScanItems]) {
+  const int64_t first = static_cast<int64_t>(t) * kScanTile + threadIdx.x * kScanItems;
+  if (vec && first + kScanItems <= n_rows) {
+    const int4* at = reinterpret_cast<const int4*>(lengths + first);
+#pragma unroll
+    for (int j = 0; j < kScanVecs; ++j) {
+      const int4 q = __ldg(at + j);
+      len[4 * j] = q.x;
+      len[4 * j + 1] = q.y;
+      len[4 * j + 2] = q.z;
+      len[4 * j + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kScanItems; ++i) {
+      len[i] = first + i < n_rows ? __ldg(lengths + first + i) : 0;
+    }
+  }
+}
+
+__device__ __forceinline__ Sums tile_sums(const int (&len)[kScanItems], int k) {
+  Sums s = {{0, 0, 0}};
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) s.add(len[i], k);
+  return s;
+}
+
+// The shared-memory slot of a tile's 16-byte group q: its low two bits
+// xor'ed with bits 3-4, so that neither a thread's four consecutive groups
+// (q = 4x + j) nor a warp's consecutive ones (q = 256j + x) meet in a bank.
+__device__ __forceinline__ int swizzle(int q) { return q ^ ((q >> 3) & 3); }
+
+// Tile t's starts and output offsets from thread x's lengths and `at`, the
+// sums of every read before its first: staged in shared memory, so that a
+// warp stores 32 consecutive 16-byte groups of each.
+__device__ __forceinline__ void store_tile(const int (&len)[kScanItems], const Sums& at, int t,
+                                           int n_rows, int k, bool vec,
+                                           int32_t* __restrict__ starts,
+                                           int32_t* __restrict__ offs) {
+  __shared__ int4 staged[2][kScanTile / 4];
+  long long base = at.v[0], out = at.v[1];
+  __syncthreads();  // the stores of a previous tile are done with staged
+#pragma unroll
+  for (int j = 0; j < kScanVecs; ++j) {
+    int s[4], o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // int32 like the twin's: exact wherever the lengths tile the buffer
+      s[e] = static_cast<int32_t>(base);
+      o[e] = static_cast<int32_t>(out);
+      base += len[4 * j + e];
+      out += max(0, len[4 * j + e] - k + 1);
+    }
+    const int q = swizzle(threadIdx.x * kScanVecs + j);
+    staged[0][q] = make_int4(s[0], s[1], s[2], s[3]);
+    staged[1][q] = make_int4(o[0], o[1], o[2], o[3]);
   }
   __syncthreads();
-  if (threadIdx.x == 0) {  // the warps' sums scanned: row w the sums before warp w
-    long long run[kSums] = {0, 0, 0};
-    for (int w = 0; w <= kScanWarps; ++w) {
+  const int64_t first = static_cast<int64_t>(t) * kScanTile;
 #pragma unroll
-      for (int c = 0; c < kSums; ++c) {
-        const long long x = w < kScanWarps ? warp_sums[w][c] : 0;
-        warp_sums[w][c] = run[c];
-        run[c] += x;
+  for (int j = 0; j < kScanVecs; ++j) {
+    const int q = j * kScanThreads + threadIdx.x;
+    const int64_t i = first + 4 * q;
+    const int4 s = staged[0][swizzle(q)];
+    const int4 o = staged[1][swizzle(q)];
+    if (vec && i + 4 <= n_rows) {
+      *reinterpret_cast<int4*>(starts + i) = s;
+      *reinterpret_cast<int4*>(offs + i) = o;
+    } else {
+      const int sv[4] = {s.x, s.y, s.z, s.w};
+      const int ov[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (i + e < n_rows) {
+          starts[i + e] = sv[e];
+          offs[i + e] = ov[e];
+        }
       }
     }
   }
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < kSums; ++c) {
-    mine.v[c] = warp_sums[warp][c] + incl.v[c] - mine.v[c];
-    total.v[c] = warp_sums[kScanWarps][c];
-  }
 }
 
-// Tile t's sums over the reads [t * kScanTile, (t + 1) * kScanTile), into
-// sums[t * kSums ...].
+// The ragged step's offsets in one pass over the lengths (see the note at
+// the top): CTA b takes tiles [b * tiles_per_cta, ...) of `tiles`, writes
+// their sums to slots[b * kSums ...], waits for every CTA at the grid
+// barrier, then writes its reads' starts and offsets; the last CTA writes
+// offs[n_rows] and the count. Needs a cooperative launch.
 __global__ void __launch_bounds__(kScanThreads)
-ragged_tile_sums_kernel(const int32_t* __restrict__ lengths, int n_rows, int k,
-                        long long* __restrict__ sums) {
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kScanTile;
-  Sums mine = {{0, 0, 0}}, total;
-#pragma unroll
-  for (int j = 0; j < kScanItems; ++j) {
-    const int64_t i = first + j * kScanThreads + threadIdx.x;
-    if (i < n_rows) mine.add(__ldg(lengths + i), k);
+ragged_offsets_kernel(const int32_t* __restrict__ lengths, int n_rows, int k, int tiles,
+                      int tiles_per_cta, int vec, long long* slots,
+                      int32_t* __restrict__ starts, int32_t* __restrict__ offs,
+                      int32_t* __restrict__ count, long long n_bases, int with_revcomp) {
+  const int cta = static_cast<int>(blockIdx.x);
+  const int first = cta * tiles_per_cta;
+  const int end = min(first + tiles_per_cta, tiles);
+  int len[kScanItems];  // the first tile's, kept across the barrier
+  load_tile(lengths, n_rows, first, vec, len);
+  Sums own;  // the first tile's, then every tile's of this CTA
+  const Sums before = block_scan(tile_sums(len, k), own);
+  const Sums first_tile = own;
+  for (int t = first + 1; t < end; ++t) {  // more reads than one wave of tiles
+    int more[kScanItems];
+    load_tile(lengths, n_rows, t, vec, more);
+    Sums tile;
+    block_scan(tile_sums(more, k), tile);
+    own.add(tile);
   }
-  block_scan(mine, total);
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int c = 0; c < kSums; ++c) sums[blockIdx.x * kSums + c] = total.v[c];
+    for (int c = 0; c < kSums; ++c) slots[cta * kSums + c] = own.v[c];
   }
-}
-
-// Tile t's starts and output offsets: the sums of the tiles before it, then
-// its reads scanned in order (thread x owns the tile's reads
-// x * kScanItems ... + kScanItems - 1). The last CTA writes offs[n_rows]
-// and the count.
-__global__ void __launch_bounds__(kScanThreads)
-ragged_offsets_kernel(const int32_t* __restrict__ lengths, int n_rows, int k,
-                      const long long* __restrict__ sums, int32_t* __restrict__ starts,
-                      int32_t* __restrict__ offs, int32_t* __restrict__ count,
-                      long long n_bases, int with_revcomp) {
-  // the tile's lengths are loaded first, so that their latency overlaps
-  // the sums of the tiles before it
-  const int64_t first =
-      static_cast<int64_t>(blockIdx.x) * kScanTile + threadIdx.x * kScanItems;
-  int len[kScanItems];
+  cooperative_groups::this_grid().sync();
+  // the slots of the CTAs before this one, added (read past L1: written by
+  // other SMs during this launch)
+  Sums prior = {{0, 0, 0}};
+  for (int b = threadIdx.x; b < cta; b += kScanThreads) {
 #pragma unroll
-  for (int j = 0; j < kScanItems; ++j) {
-    len[j] = first + j < n_rows ? __ldg(lengths + first + j) : 0;
+    for (int c = 0; c < kSums; ++c) prior.v[c] += __ldcg(slots + b * kSums + c);
   }
-  Sums before = {{0, 0, 0}}, prefix;
-  for (int t = threadIdx.x; t < static_cast<int>(blockIdx.x); t += kScanThreads) {
-#pragma unroll
-    for (int c = 0; c < kSums; ++c) before.v[c] += sums[t * kSums + c];
+  Sums carry;  // every read's sums before this CTA's first, then before tile t
+  block_scan(prior, carry);
+  Sums at = carry;
+  at.add(before);
+  store_tile(len, at, first, n_rows, k, vec != 0, starts, offs);
+  carry.add(first_tile);
+  for (int t = first + 1; t < end; ++t) {
+    int more[kScanItems];
+    load_tile(lengths, n_rows, t, vec, more);
+    Sums tile;
+    at = block_scan(tile_sums(more, k), tile);
+    at.add(carry);
+    store_tile(more, at, t, n_rows, k, vec != 0, starts, offs);
+    carry.add(tile);
   }
-  block_scan(before, prefix);
-  Sums mine = {{0, 0, 0}}, tile;
-#pragma unroll
-  for (int j = 0; j < kScanItems; ++j) mine.add(len[j], k);
-  block_scan(mine, tile);
-  long long base = prefix.v[0] + mine.v[0];
-  long long out = prefix.v[1] + mine.v[1];
-#pragma unroll
-  for (int j = 0; j < kScanItems; ++j) {
-    if (first + j < n_rows) {
-      // int32 like the twin's: exact wherever the lengths tile the buffer
-      starts[first + j] = static_cast<int32_t>(base);
-      offs[first + j] = static_cast<int32_t>(out);
-    }
-    base += len[j];
-    out += max(0, len[j] - k + 1);
-  }
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
-    const long long bases = prefix.v[0] + tile.v[0];
-    const long long windows = prefix.v[1] + tile.v[1];
-    const bool tiled = prefix.v[2] + tile.v[2] == 0 && bases == n_bases;
+  if (cta == static_cast<int>(gridDim.x) - 1 && threadIdx.x == 0) {
+    const long long windows = carry.v[1];  // every read's sums now
+    const bool tiled = carry.v[2] == 0 && carry.v[0] == n_bases;
     offs[n_rows] = static_cast<int32_t>(windows);
     count[0] = tiled ? static_cast<int32_t>(windows * (with_revcomp ? 2 : 1)) : -1;
     count[1] = tiled ? static_cast<int32_t>(windows) : -1;
@@ -266,6 +358,29 @@ ragged_hash_keys_kernel(const uint32_t* __restrict__ words, int64_t n_words,
   }
 }
 
+// The most CTAs of ragged_offsets_kernel that are resident on `device` at
+// once (a cooperative launch may have no more), cached per device; the
+// device must be current.
+cudaError_t offsets_ctas(int device, int* ctas) {
+  static std::atomic<int> cached[kMaxDevices];
+  const bool cache = device >= 0 && device < kMaxDevices;
+  if (cache && (*ctas = cached[device].load(std::memory_order_relaxed)) > 0) return cudaSuccess;
+  int per_sm = 0, sms = 0, cooperative = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&cooperative, cudaDevAttrCooperativeLaunch, device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ragged_offsets_kernel,
+                                                      kScanThreads, 0);
+  }
+  if (e != cudaSuccess) return e;
+  if (!cooperative || per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *ctas = per_sm * sms;
+  if (cache) cached[device].store(*ctas, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
 // Keys of every window of reads 0 .. n_reads-1 of a strided buffer; returns
@@ -294,34 +409,51 @@ extern "C" int plane_hash_keys_launch(const void* words, void* keys, int n_reads
   return static_cast<int>(cudaGetLastError());
 }
 
-// The ragged step's offsets of n_rows reads, on the card; returns the
-// first CUDA error (0 on success). Device pointers: lengths int32[n_rows];
-// starts int32[n_rows] (each read's first base) and offs int32[n_rows + 1]
-// (the exclusive sum of max(0, len - k + 1)); count int32[2]: (keys, valid
-// windows), the keys twice the windows with revcomp, both -1 where a length
-// is negative or the lengths do not add up to n_bases; sums int64 scratch of
-// 3 * max(1, ceil(n_rows / 2048)). Launches on `stream` of CUDA device
-// `device` (the tile sums only where the reads fill more than one tile) and
-// does not synchronise; n_rows == 0 still writes offs[0] and the count.
+// The CTAs of ragged_offsets_launch's persistent grid on CUDA device
+// `device`, into *ctas; returns the first CUDA error (0 on success). A call
+// of more than *ctas * 4,096 reads gives some CTAs more than one tile.
+extern "C" int ragged_offsets_grid(int device, int* ctas) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  return static_cast<int>(offsets_ctas(device, ctas));
+}
+
+// The ragged step's offsets of n_rows reads, on the card, in one cooperative
+// launch; returns the first CUDA error (0 on success). Device pointers:
+// lengths int32[n_rows]; starts int32[n_rows] (each read's first base) and
+// offs int32[n_rows + 1] (the exclusive sum of max(0, len - k + 1)); count
+// int32[2]: (keys, valid windows), the keys twice the windows with revcomp,
+// both -1 where a length is negative or the lengths do not add up to
+// n_bases; slots int64 scratch of 3 * max(1, ceil(n_rows / 4096)), whose
+// contents do not matter (every slot used is written before it is read).
+// Launches on `stream` of CUDA device `device` and does not synchronise;
+// n_rows == 0 still writes offs[0] and the count.
 extern "C" int ragged_offsets_launch(const void* lengths, int n_rows, void* starts, void* offs,
-                                     void* count, void* sums, long long n_bases, int k,
+                                     void* count, void* slots, long long n_bases, int k,
                                      int revcomp, int device, void* stream) {
   if (n_rows < 0 || n_bases < 0 || k < 1 || k > 31) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int tiles = n_rows > 0 ? (n_rows + kScanTile - 1) / kScanTile : 1;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int ctas = 0;
+  const cudaError_t grid_err = offsets_ctas(device, &ctas);
+  if (grid_err != cudaSuccess) return static_cast<int>(grid_err);
+  int tiles = n_rows > 0 ? (n_rows - 1) / kScanTile + 1 : 1;
+  int tiles_per_cta = (tiles - 1) / ctas + 1;
+  int vec = aligned16(lengths) && aligned16(starts) && aligned16(offs);
   const auto* len = static_cast<const int32_t*>(lengths);
-  auto* tile_sums = static_cast<long long*>(sums);
-  if (tiles > 1) {
-    ragged_tile_sums_kernel<<<tiles, kScanThreads, 0, s>>>(len, n_rows, k, tile_sums);
-  }
-  ragged_offsets_kernel<<<tiles, kScanThreads, 0, s>>>(
-      len, n_rows, k, tile_sums, static_cast<int32_t*>(starts), static_cast<int32_t*>(offs),
-      static_cast<int32_t*>(count), n_bases, revcomp);
-  return static_cast<int>(cudaGetLastError());
+  auto* slot = static_cast<long long*>(slots);
+  auto* start = static_cast<int32_t*>(starts);
+  auto* off = static_cast<int32_t*>(offs);
+  auto* cnt = static_cast<int32_t*>(count);
+  void* args[] = {&len, &n_rows, &k, &tiles, &tiles_per_cta, &vec, &slot, &start, &off, &cnt,
+                  &n_bases, &revcomp};
+  const cudaError_t launched = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(ragged_offsets_kernel),
+      dim3((tiles - 1) / tiles_per_cta + 1), dim3(kScanThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(launched != cudaSuccess ? launched : cudaGetLastError());
 }
 
 // Keys of the valid windows of a continuously packed buffer; returns

@@ -119,10 +119,13 @@ def library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
         + [ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
+    # lengths, n_rows, starts, offs, count, slots, n_bases, k, revcomp, device,
+    # stream (one cooperative launch)
     lib.ragged_offsets_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 4, ctypes.c_longlong,
         *[ctypes.c_int] * 3, ctypes.c_void_p,
     ]
+    lib.ragged_offsets_grid.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.ragged_hash_keys_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
@@ -146,7 +149,7 @@ def library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
     for fn in (lib.plane_hash_keys_launch, lib.ragged_offsets_launch,
-               lib.ragged_hash_keys_launch,
+               lib.ragged_offsets_grid, lib.ragged_hash_keys_launch,
                lib.partition_histogram_launch, lib.partition_scan_launch, lib.radix_slabs,
                lib.radix_scatter_launch, lib.radix_offsets_launch):
         fn.restype = ctypes.c_int

@@ -192,3 +192,70 @@ def ragged_cases(seeds=SEEDS) -> list[HashCase]:
 
 def cases() -> list[HashCase]:
     return plane_cases() + ragged_cases()
+
+
+#: read counts of the offsets' cases: none, one, around one and two tiles of
+#: the scan (``hashing.RAGGED_SCAN_TILE`` reads, 4,096), and 2^21
+OFFSETS_ROWS = (0, 1, 2047, 2048, 2049, 4095, 4096, 4097, 8193, 1 << 21)
+#: the offsets' edge cases, on 2 tiles and a part: a negative length in the
+#: last tile (the sum kept), lengths that add up to n_bases + 1 and - 1, and
+#: every length below k
+OFFSETS_EDGES = ("negative_in_last_tile", "n_bases_plus_one", "n_bases_minus_one",
+                 "all_below_k")
+
+
+@dataclasses.dataclass
+class OffsetsCase:
+    """Read lengths for ``hashing.ragged_offsets`` with the buffer's bases."""
+    name: str
+    lengths: np.ndarray  # int64
+    n_bases: int
+    k: int
+    revcomp: bool
+
+    def inputs(self, device) -> tuple:
+        """The arguments of ``hashing.ragged_offsets`` on ``device``."""
+        lengths = torch.from_numpy(self.lengths.astype(np.int32)).to(device)
+        return lengths, self.n_bases, self.k, self.revcomp
+
+    def expected(self) -> tuple[np.ndarray, np.ndarray, list[int]]:
+        """(starts, offs, count) by numpy, int32 as the offsets' contract
+        has them: (-1, -1) where the lengths do not tile the bases."""
+        windows = np.maximum(self.lengths - self.k + 1, 0)
+        offs = np.concatenate([[0], np.cumsum(windows)])
+        tiled = self.lengths.sum() == self.n_bases and not (self.lengths < 0).any()
+        n = int(offs[-1])
+        count = [n * (2 if self.revcomp else 1), n] if tiled else [-1, -1]
+        starts = np.cumsum(self.lengths) - self.lengths
+        return starts.astype(np.int32), offs.astype(np.int32), count
+
+
+def offsets_case(name: str, wave: int | None = None) -> OffsetsCase:
+    """One case of :func:`offsets_case_names`: ``rows_<n>`` (lengths of
+    0..200 bp, a few zero, tiling their bases), an edge of
+    :data:`OFFSETS_EDGES`, or ``wave_plus_one``: one read more than a wave
+    of the offsets' persistent grid, ``wave`` reads (so one CTA takes two
+    tiles)."""
+    k = 31
+    if name == "wave_plus_one":
+        if wave is None:
+            raise ValueError("wave_plus_one needs the grid's reads a wave")
+        n = wave + 1
+    elif name.startswith("rows_"):
+        n = int(name[len("rows_"):])
+    else:
+        n = 2 * 4096 + 1000
+    rng = np.random.default_rng(n + 17 * len(name))
+    high = k if name == "all_below_k" else 201
+    lengths = rng.integers(0, high, n).astype(np.int64)
+    lengths[rng.random(n) < 0.05] = 0
+    n_bases = int(lengths.sum())
+    if name == "negative_in_last_tile":
+        lengths[-3] -= lengths[-3] + 7  # -7, the sum kept by the next read
+        lengths[-2] += n_bases - lengths.sum()
+    n_bases += {"n_bases_plus_one": 1, "n_bases_minus_one": -1}.get(name, 0)
+    return OffsetsCase(name, lengths, n_bases, k, revcomp=n % 2 == 1)
+
+
+def offsets_case_names() -> list[str]:
+    return [f"rows_{n}" for n in OFFSETS_ROWS] + list(OFFSETS_EDGES) + ["wave_plus_one"]

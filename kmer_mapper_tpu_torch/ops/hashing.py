@@ -31,6 +31,8 @@ device raises. Kernel and twin write the keys in the same order.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -351,8 +353,8 @@ def ragged_hash_keys(packed: torch.Tensor, lengths: torch.Tensor, n_bases: int, 
     return _ragged_launch(packed, starts, offs, count, k, seed, revcomp, out), count
 
 
-#: reads a CTA of the offsets' scan (``kScanTile`` of ``csrc/hash_keys.cu``)
-RAGGED_SCAN_TILE = 2048
+#: reads a tile of the offsets' scan (``kScanTile`` of ``csrc/hash_keys.cu``)
+RAGGED_SCAN_TILE = 4096
 
 
 def ragged_offsets(lengths: torch.Tensor, n_bases: int, k: int,
@@ -362,8 +364,8 @@ def ragged_offsets(lengths: torch.Tensor, n_bases: int, k: int,
     ``max(0, len - k + 1)`` (``offs[n]`` the valid windows), and the count
     (keys, valid windows), the keys twice the windows with ``revcomp``, both
     -1 where a length is negative or the lengths do not add up to
-    ``n_bases``. On CUDA one launch of ``ragged_offsets_launch`` (a
-    reduce-then-scan, no host sync); on the CPU its twin
+    ``n_bases``. On CUDA one cooperative launch of ``ragged_offsets_kernel``
+    (one pass over the lengths, no host sync); on the CPU its twin
     :func:`ragged_offsets_reference`."""
     if lengths.device.type == "cpu":
         return ragged_offsets_reference(lengths, n_bases, k, revcomp)
@@ -373,18 +375,42 @@ def ragged_offsets(lengths: torch.Tensor, n_bases: int, k: int,
 def _offsets_launch(lengths, n_bases: int, k: int, revcomp: bool):
     """:func:`ragged_offsets`' outputs from one launch of
     ``ragged_offsets_launch`` on the lengths' device and current stream;
-    raises if the build or the launch fails."""
+    raises if the build or the launch fails. Its scratch, a slot of three
+    int64 a CTA, is left as the allocator gives it: the kernel writes every
+    slot it reads."""
     n = lengths.shape[0]
     starts, offs, count = (lengths.new_empty(size) for size in (n, n + 1, 2))
-    sums = lengths.new_empty(3 * max(1, -(-n // RAGGED_SCAN_TILE)), dtype=torch.int64)
+    slots = lengths.new_empty(offsets_slots(n), dtype=torch.int64)
     with torch.cuda.device(lengths.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = native.library().ragged_offsets_launch(
             lengths.data_ptr(), n, starts.data_ptr(), offs.data_ptr(), count.data_ptr(),
-            sums.data_ptr(), n_bases, k, int(revcomp), lengths.device.index, stream)
+            slots.data_ptr(), n_bases, k, int(revcomp), lengths.device.index, stream)
     _raise_on("ragged_offsets", rc)
     launch_counts["ragged_offsets"] += 1
     return starts, offs, count
+
+
+def ragged_offsets_wave(device) -> int:
+    """Reads of one wave of :func:`ragged_offsets`' persistent grid on a
+    CUDA device: its CTAs (as many as are resident at once) times
+    :data:`RAGGED_SCAN_TILE`. A call of more reads gives some CTAs more
+    than one tile."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = native.library().ragged_offsets_grid(index, ctypes.byref(ctas))
+    _raise_on("ragged_offsets_grid", rc)
+    return ctas.value * RAGGED_SCAN_TILE
+
+
+def offsets_slots(n_rows: int) -> int:
+    """int64 entries of :func:`ragged_offsets`' scratch for ``n_rows``
+    reads: a slot of three (bases, valid windows, negative lengths) a tile
+    of :data:`RAGGED_SCAN_TILE` reads, so one for every CTA the grid can
+    have (a CTA takes at least one tile)."""
+    return 3 * max(1, -(-n_rows // RAGGED_SCAN_TILE))
 
 
 def ragged_offsets_reference(lengths: torch.Tensor, n_bases: int, k: int,

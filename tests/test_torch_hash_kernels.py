@@ -213,6 +213,65 @@ def test_offsets_twin_counts_the_valid_windows(name):
         assert failed.tolist() == [-1, -1]
 
 
+OFFSETS = hash_keys_cases.offsets_case_names()
+#: reads of a wave of the offsets' grid for the CPU's cases (the twin does
+#: not depend on it): 132 SMs at 4 CTAs each
+NOMINAL_WAVE = 132 * 4 * hashing.RAGGED_SCAN_TILE
+
+
+def _offsets_equal(got, case) -> None:
+    starts, offs, count = case.expected()
+    assert all(t.dtype == torch.int32 for t in got)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), starts)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), offs)
+    assert got[2].tolist() == count
+
+
+@pytest.mark.parametrize("name", OFFSETS)
+def test_offsets_twin_matches_numpy_on_the_offsets_cases(name):
+    """The offsets' twin == numpy's cumsums on reads around the scan's tiles,
+    2^21 reads, a wave and one, and the edges: a negative length in the last
+    tile, sums one over and one under n_bases ((-1, -1) each), every read
+    shorter than k."""
+    case = hash_keys_cases.offsets_case(name, NOMINAL_WAVE)
+    if name == "negative_in_last_tile":
+        assert (case.lengths < 0).sum() == 1 and case.lengths.sum() == case.n_bases
+        assert np.flatnonzero(case.lengths < 0)[0] >= 2 * hashing.RAGGED_SCAN_TILE
+    if name == "all_below_k":
+        assert case.lengths.max() < case.k and case.expected()[2] == [0, 0]
+    _offsets_equal(hashing.ragged_offsets(*case.inputs("cpu")), case)
+
+
+def test_offsets_scratch_holds_a_slot_a_tile():
+    """The scratch: three int64 a tile of 4,096 reads, at least one slot;
+    a CTA takes at least one tile, so every CTA of the grid has its slot."""
+    assert hashing.RAGGED_SCAN_TILE == 4096
+    assert [hashing.offsets_slots(n) for n in (0, 1, 4096, 4097, 1 << 21)] == [
+        3, 3, 3, 6, 3 * 512]
+
+
+def test_offsets_wave_reads_the_grid(monkeypatch):
+    """``ragged_offsets_wave``: the grid's CTAs from the library times a
+    tile's reads; a failed query raises."""
+    _cuda_stubs(monkeypatch)
+    asked = []
+
+    def grid(index, ctas, rc=0):
+        asked.append(index)
+        ctas._obj.value = 1056
+        return rc
+
+    monkeypatch.setattr(native, "library", lambda: types.SimpleNamespace(
+        ragged_offsets_grid=grid, kmt_error_string=lambda rc: b"invalid argument"))
+    assert hashing.ragged_offsets_wave(torch.device("cuda", 1)) == 1056 * 4096
+    assert asked == [1]
+    monkeypatch.setattr(native, "library", lambda: types.SimpleNamespace(
+        ragged_offsets_grid=lambda index, ctas: grid(index, ctas, 1),
+        kmt_error_string=lambda rc: b"invalid argument"))
+    with pytest.raises(RuntimeError, match="ragged_offsets_grid kernel launch failed"):
+        hashing.ragged_offsets_wave("cuda:0")
+
+
 def test_wrappers_check_their_arguments():
     plane = next(c for c in CASES.values() if not c.ragged and c.n_reads)
     ragged = next(c for c in CASES.values() if c.ragged and c.n_bases)
@@ -366,8 +425,8 @@ def test_kernel_on_trimmed_lengths_matches_twin(name, cuda_device):
 
 
 def _many_reads(seed: int = 3, n: int = 9000):
-    """Lengths of more reads than one tile of the offsets' scan (2,048),
-    zero and short ones among them."""
+    """Lengths of more reads than two tiles of the offsets' scan (4,096
+    each), zero and short ones among them."""
     rng = np.random.default_rng(seed)
     lengths = rng.integers(0, 160, n).astype(np.int32)
     lengths[rng.random(n) < 0.05] = 0
@@ -398,6 +457,66 @@ def test_offsets_kernel_matches_twin(name, cuda_device):
         want = hashing.ragged_offsets_reference(host, n_bases, k, revcomp)
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OFFSETS)
+def test_offsets_kernel_matches_twin_on_the_offsets_cases(name, cuda_device):
+    """One launch a call; starts, offsets and count == the twin and numpy,
+    bit for bit, from no read to 2^21 and to one read past a wave of the
+    persistent grid (one CTA takes two tiles), and on every edge."""
+    wave = hashing.ragged_offsets_wave(cuda_device)
+    assert wave > 0 and wave % hashing.RAGGED_SCAN_TILE == 0
+    case = hash_keys_cases.offsets_case(name, wave)
+    before = hashing.launch_counts["ragged_offsets"]
+    got = hashing.ragged_offsets(*case.inputs(cuda_device))
+    torch.cuda.synchronize()
+    assert hashing.launch_counts["ragged_offsets"] == before + 1
+    for a, b in zip(got, hashing.ragged_offsets_reference(*case.inputs("cpu"))):
+        assert torch.equal(a.cpu(), b)
+    _offsets_equal(got, case)
+
+
+@pytest.mark.cuda
+def test_offsets_back_to_back_on_one_and_two_streams(cuda_device):
+    """Calls queued with no sync between them, on one stream and then on
+    two streams of the device at once, each into scratch that earlier
+    calls used: every result == numpy's."""
+    names = ["rows_2049", "negative_in_last_tile", "rows_8193", "n_bases_plus_one",
+             "all_below_k", "rows_1", "rows_0", "rows_4097"]
+    cases = [hash_keys_cases.offsets_case(name) for name in names]
+    inputs = [case.inputs(cuda_device) for case in cases]
+    torch.cuda.synchronize()
+    got = [hashing.ragged_offsets(*args) for args in inputs * 3]
+    torch.cuda.synchronize()
+    for out, case in zip(got, cases * 3):
+        _offsets_equal(out, case)
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    runs = {0: (inputs, cases), 1: (inputs[::-1], cases[::-1])}
+    outs = {0: [], 1: []}
+    for _ in range(4):
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                outs[i] += [hashing.ragged_offsets(*args) for args in runs[i][0]]
+    torch.cuda.synchronize()
+    for i in outs:
+        for out, case in zip(outs[i], runs[i][1] * 4):
+            _offsets_equal(out, case)
+
+
+@pytest.mark.cuda
+def test_offsets_queue_one_kernel(cuda_device):
+    """A call of ``ragged_offsets`` queues one kernel on the card and
+    nothing else (the profiler's device events)."""
+    args = hash_keys_cases.offsets_case("rows_8193").inputs(cuda_device)
+    hashing.ragged_offsets(*args)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        hashing.ragged_offsets(*args)
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device) == 1 and "ragged_offsets_kernel" in device[0], device
 
 
 @pytest.mark.cuda
