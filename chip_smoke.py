@@ -119,6 +119,14 @@ result line):
      two-card tests of tests/test_torch_kernels.py. Each run's launch counts
      are zeroed before it and read after (stream_count, gather_probe and
      node_counts must run, no twin).
+ 11. matrix: kmer_mapper_tpu_torch.scripts.bench_matrix, the five
+     configurations of scripts/bench_matrix.py (a toy .fa, a gzipped FASTQ
+     against a 4M-key index, k = 16/21/31 with reverse complements and N
+     bases, a 16M-key index, that index over a (1, 2) grid of the card or
+     over every card) through map_file / map_file_sharded, each node-count
+     sum == BENCH_MATRIX.md's and each vector == the numpy oracle's; launch
+     counts zeroed before and read after (the plane step's kernels and the
+     finalize must run, no twin).
 The line before the last is a JSON object describing each kernel, with its
 bound: the larger of its bytes over 3.35 TB/s (the H100 SXM's memory rate)
 and its 32-bit integer operations over the card's INT32 rate (SMs x 64
@@ -720,23 +728,6 @@ def timed_rates(torch, fn, kmers_per_window: int) -> list[float]:
     return rates
 
 
-def stage_split(torch, dev_chunks, stages) -> dict:
-    """Mean device ms a chunk of each stage, CUDA events around each; a
-    stage takes and returns the state of the chunk's step."""
-    stage_ms = dict.fromkeys((name for name, _ in stages), 0.0)
-    for chunk in dev_chunks:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
-        ev[0].record()
-        state = chunk
-        for i, (_, fn) in enumerate(stages):
-            state = fn(state)
-            ev[i + 1].record()
-        torch.cuda.synchronize()
-        for i, name in enumerate(stage_ms):
-            stage_ms[name] += ev[i].elapsed_time(ev[i + 1]) / len(dev_chunks)
-    return stage_ms
-
-
 def oracle_check(np, index, arrays, config, device, packed_chunk, kmers, what):
     """One chunk (words, lengths, n_bases) through a fresh mapper: node
     counts == the oracle's on its k-mers."""
@@ -876,6 +867,7 @@ def phase_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     from kmer_mapper_tpu_torch.ops import block_partition, hashing, stream_probe
     from kmer_mapper_tpu_torch.ops.u32hash import bucket_shift
     from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
+    from kmer_mapper_tpu_torch.scripts import stage_split
 
     config = MapperConfig(
         k=K, buf=CUDA_BUF, max_reads=max(1024, CUDA_BUF // 32), read_len=READ_LEN
@@ -951,12 +943,12 @@ def phase_steady_state(torch, np, chunks, index, arrays, device) -> dict:
         fn(mapper.key_lo, mapper.key_hi, scratch, keys, off, mapper.block_probe, shift, bpb)
         return state
 
-    stage_ms = stage_split(torch, dev_chunks, [
+    stage_ms = stage_split(dev_chunks, [
         ("hash_keys", lambda c: hashing.plane_hash_keys(c[0], K, READ_LEN, c[2], seed)),
         ("partition", lambda keys: block_partition.block_partition(keys, n_buckets, bpb)),
         ("kernel", lambda st: count(st, stream_probe.stream_count)),
         ("twin_count", lambda st: count(st, stream_probe.stream_count_reference)),
-    ])
+    ], device)
     log("steady: per-chunk stage ms " + ", ".join(f"{n} {v:.3f}" for n, v in stage_ms.items()))
 
     # the partition kernels alone on one chunk's keys, against their twin
@@ -1029,6 +1021,7 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     against its twin."""
     from kmer_mapper_tpu_torch.io import readers
     from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
+    from kmer_mapper_tpu_torch.scripts import stage_split
     from kmer_mapper_tpu_torch.ops import block_partition, hashing, stream_probe
     from kmer_mapper_tpu_torch.ops.u32hash import bucket_shift
     from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
@@ -1130,13 +1123,13 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
                                   mapper.block_probe, shift, bpb)
         return state
 
-    stage_ms = stage_split(torch, dev_chunks, [
+    stage_ms = stage_split(dev_chunks, [
         ("offsets", offsets),
         ("hash_keys", hash_keys),
         ("partition", lambda st: block_partition.block_partition(st[0], n_buckets, bpb,
                                                                  count=st[1])),
         ("kernel", count),
-    ])
+    ], device)
     log("ragged: per-chunk stage ms " + ", ".join(f"{n} {v:.3f}" for n, v in stage_ms.items()))
 
     # the ragged stage on one chunk: the offsets' kernel and the hash kernel
@@ -1155,6 +1148,18 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
     one = torch.zeros(1, dtype=torch.int32, device=device)
     floor_ms = median_ms(lambda: one.fill_(1))  # one launch of a kernel with no work
     offsets_plain_ms = median_ms(lambda: hashing.ragged_offsets_reference(lengths0, nb0, K))
+
+    def offsets_composition():
+        """The offsets in the fewest torch calls, without the twin's premise
+        checks: cumsum(lengths) - lengths, the windows' cumsum, the count."""
+        windows = torch.cumsum((lengths0 - (K - 1)).clamp_(min=0), 0, dtype=torch.int32)
+        return torch.cumsum(lengths0, 0, dtype=torch.int32) - lengths0, windows, windows[-1:]
+
+    composed = offsets_composition()
+    if not (torch.equal(composed[0], state0[1]) and torch.equal(composed[1], state0[2][1:])
+            and int(composed[2][0]) == n_keys):
+        raise AssertionError("ragged: the torch composition of the offsets != the kernel's")
+    offsets_torch_ms = median_ms(offsets_composition)
     hash_ms = median_ms(lambda: hash_keys(state0))
     wrapper_ms = median_ms(lambda: hashing.ragged_hash_keys(*twin_args, out=keys_buffer))
     plain_ms = median_ms(lambda: hashing.ragged_hash_keys_reference(*twin_args), reps=3)
@@ -1166,7 +1171,9 @@ def phase_ragged_steady_state(torch, np, chunks, index, arrays, device) -> dict:
         f"(offsets and hash kernel, no sync) {wrapper_ms:.4f} ms, the hash kernel alone "
         f"{hash_ms:.4f} ms, twin {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by}; "
         f"ragged_offsets {offsets_ms:.4f} ms (twin {offsets_plain_ms:.4f} ms, bound "
-        f"{offsets_bound_ms:.5f} ms by {offsets_by}; a wave of its grid "
+        f"{offsets_bound_ms:.5f} ms by {offsets_by}; the torch composition "
+        f"cumsum(lengths) - lengths, the windows' cumsum and the count {offsets_torch_ms:.4f} "
+        f"ms; a wave of its grid "
         f"{hashing.ragged_offsets_wave(device)} reads; one one-element fill_ {floor_ms:.4f} "
         "ms)")
     # the partition with the device count (the main path's) against the twin
@@ -2520,6 +2527,34 @@ def phase_sharded(torch, np, dev_chunks, ragged_chunks, index, library, feed_dir
     return {"launches": path_launches, "node_counts": finalize_entry, "rates": rates}
 
 
+#: launches a kernel of the main path makes at least in the matrix phase: one
+#: a chunk, and each of the 7 configurations' two runs maps one chunk or more
+MATRIX_RUNS = 14
+
+
+def phase_matrix(torch) -> list[dict]:
+    """Phase 11: ``kmer_mapper_tpu_torch.scripts.bench_matrix`` on the card,
+    configurations 1-5 with every check raising (sums == BENCH_MATRIX.md,
+    node-count vectors == the numpy oracle), launch counts zeroed before and
+    read after: the plane step's kernels and the finalize must run, no twin."""
+    from kmer_mapper_tpu_torch.ops import block_partition, finalize, hashing, stream_probe
+    from kmer_mapper_tpu_torch.scripts import bench_matrix
+
+    modules = (stream_probe, hashing, block_partition, finalize)
+    t = time.perf_counter()
+    zero_launch_counts(*modules)
+    rows = bench_matrix.main(["--device", "cuda"])
+    launches = all_launches(*modules)
+    twins = [name for name, n in launches.items() if "reference" in name and n]
+    short = [name for name in (*MAIN_PATH_KERNELS, "plane_hash_keys", "node_counts")
+             if launches[name] < MATRIX_RUNS]
+    if twins or short:
+        raise AssertionError(f"matrix: the configurations did not run the kernels alone "
+                             f"(twins {twins}, too few launches of {short}): {launches}")
+    log(f"matrix: configs {[row['name'] for row in rows]} == BENCH_MATRIX.md's sums and the "
+        f"oracle's vectors in {time.perf_counter() - t:.1f} s; launches {launches}")
+    return rows
+
 
 def main() -> int:
     import numpy as np
@@ -2566,6 +2601,7 @@ def main() -> int:
                                 e2e["index"], library_run, feed_dir, device)
     finally:
         shutil.rmtree(feed_dir, ignore_errors=True)
+    phase_matrix(torch)
     # the sharded paths' launches beside the single-device main path's
     library["launches"] += sharded["launches"]["gather_probe"]
     hash_keys = [

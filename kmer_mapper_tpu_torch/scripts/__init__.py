@@ -11,6 +11,13 @@ the Pallas measurement scripts under ``scripts/``, and the gather probe's.
     python -m kmer_mapper_tpu_torch.scripts.partition_dissect [--keys N]
     python -m kmer_mapper_tpu_torch.scripts.finalize_dissect [variant ...]
 
+and the counterparts of the repo's whole-system scripts under ``scripts/``
+(no kernel of their own: they drive ``pipeline.map_file`` and the mapper):
+
+    python -m kmer_mapper_tpu_torch.scripts.bench_matrix
+    python -m kmer_mapper_tpu_torch.scripts.scale_run [--reads N]
+    python -m kmer_mapper_tpu_torch.scripts.scale_drill [N_KEYS_MILLIONS]
+
 Each module holds a hand-written CUDA kernel (``csrc/<name>.cu``) with its
 variants, the kernel's plain-torch twin and a ``main`` that times every
 variant on the card and prints one line per variant (``--device cpu`` runs
@@ -107,3 +114,32 @@ def cold_ms(fn, device: torch.device, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def stage_split(dev_chunks, stages, device: torch.device) -> dict:
+    """Mean ms a chunk of each stage of a chunk step, over ``dev_chunks``:
+    CUDA events recorded around each stage on a GPU (the card's time, with
+    the host's launch overhead where the card waits for it), the host clock
+    on the CPU. ``stages`` are (name, fn) pairs; each fn takes the state
+    the previous one returned, the first the chunk."""
+    cuda = device.type == "cuda"
+    stage_ms = dict.fromkeys((name for name, _ in stages), 0.0)
+    for chunk in dev_chunks:
+        if cuda:
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+            marks[0].record()
+        else:
+            marks = [time.perf_counter()]
+        state = chunk
+        for i, (_, fn) in enumerate(stages):
+            state = fn(state)
+            if cuda:
+                marks[i + 1].record()
+            else:
+                marks.append(time.perf_counter())
+        if cuda:
+            torch.cuda.synchronize(device)
+        for i, name in enumerate(stage_ms):
+            ms = marks[i].elapsed_time(marks[i + 1]) if cuda else (marks[i + 1] - marks[i]) * 1e3
+            stage_ms[name] += ms / len(dev_chunks)
+    return stage_ms
