@@ -83,8 +83,8 @@ result line):
      against its twins on every hazard case; the device ms of the stream
      and gather routes at 2^12 ... 2^26 hashes; both modes' ms, rounds a
      query, bounds and row-traffic times at 2^24 on the bench index, a
-     skewed, a hit-only and a miss-only batch, and a table of 2^23 buckets
-     (ten times the L2). (The design points of the gather kernel are
+     skewed, a hit-only and a miss-only batch, and a table of 2^22 buckets
+     (five times the L2). (The design points of the gather kernel are
      timed on demand by kmer_mapper_tpu_torch.scripts.gather_probe_dissect.)
   9. file feed: the reads of phase 5's 8 chunks written as one FASTQ (~1.1
      GB), the first chunk's as FASTQ, .fq.gz (zlib level 1) and BGZF, each
@@ -110,13 +110,16 @@ result line):
      kmer_mapper_tpu_torch.scripts.finalize_dissect); phase 5's chunks
      through ShardedKmerMapper on (data, index) grids (1,1), (2,1), (1,2), (2,2) of the card, node counts
      == KmerMapper's, M k-mers/s a grid; sharded map_hashes on phase 8's
-     2^23-bucket table over 4 index shards and on a 512-bucket table over 8
+     2^22-bucket table over 4 index shards and on a 512-bucket table over 8
      sub-block shards == KmerMapper's; the ragged buffers on grids (1,2)
      and (2,2) and on 8 sub-block shards under the sync check ==
      KmerMapper's; map_file_sharded over 4 cells (2
      index shards) on phase 9's FASTQ == map_file's counts; with two cards
-     or more, the grids and the file path over distinct cards and the
-     two-card tests of tests/test_torch_kernels.py. Each run's launch counts
+     or more, the grids and the file path over distinct cards, the
+     two-card tests of tests/test_torch_kernels.py and two processes of one
+     NCCL group, each mapping half of phase 9's FASTQ on its own card,
+     whose all-reduced node counts == map_file's of the whole file
+     (kmer_mapper_tpu_torch.scripts.multihost_run). Each run's launch counts
      are zeroed before it and read after (stream_count, gather_probe and
      node_counts must run, no twin).
  11. matrix: kmer_mapper_tpu_torch.scripts.bench_matrix, the five
@@ -127,6 +130,28 @@ result line):
      sum == BENCH_MATRIX.md's and each vector == the numpy oracle's; launch
      counts zeroed before and read after (the plane step's kernels and the
      finalize must run, no twin).
+ 12. human scale (kmer_mapper_tpu_torch.scripts.human_scale): scale_drill's
+     index (127,494,474 keys in 2^25 buckets, a 2.15 GB table, 30M nodes)
+     saved with KmerIndex.to_file and given by its path: (a) a FASTQ of 8
+     x 64 Mi bases of 151-bp reads through ``cli map -t 8`` in a fresh
+     process, which must map in 128 Mi-base buffers (pipeline.device_buf)
+     and equal map_chunk over the 8 reads' draws as 64 Mi-base
+     device-resident buffers, and the file's first framed chunk == the host
+     probe (scale_run.check_prefix); the wall split into index load, table
+     upload, loop, queue wait and the first node_counts; a ragged FASTQ of
+     one 128 Mi-base buffer of 75-151 bp reads (about 1.19M reads, past a
+     wave of ragged_offsets' grid) through map_file with the CLI's workers
+     on the loaded index == map_chunk over 64 Mi-base buffers; (b)
+     compat.map_kmers_to_graph_index and in_graph_index on 2^26 hashes
+     (half the index's keys) on the loaded index == the host, the call
+     split into upload, kernel and node counts, the gather kernel at 2^24
+     queries, the count kernels on one draw's keys, the finalize on the
+     index's entries and ragged_offsets on the ragged buffer's reads, each
+     against its twin and bound on that table; (c)
+     map_file_sharded on a (1, 2) grid of the card (64 Mi-base buffers for
+     2^24-bucket shards) == (a)'s vector, and with two cards or more over
+     cards 0-1, with four over cards 0-3. Each part's launch counts are
+     zeroed before it and read after it (the kernels of its path, no twin).
 The line before the last is a JSON object describing each kernel, with its
 bound: the larger of its bytes over 3.35 TB/s (the H100 SXM's memory rate)
 and its 32-bit integer operations over the card's INT32 rate (SMs x 64
@@ -165,8 +190,8 @@ LIB_TIMED = 1 << 26  # hashes of the timed map_kmers_to_graph_index call
 LIB_GATHER = 1 << 16  # a small map_hashes batch
 LIB_COUNTER = 1 << 22  # hashes counted by GpuCounter (and their revcomps)
 CROSSOVER = [1 << e for e in range(12, 27, 2)]  # batch sizes timed on both routes
-LARGE_TABLE_KEYS = 1 << 24  # random keys of the table ten times the L2, phase 8
-LARGE_TABLE_BUCKETS = 1 << 23  # 537 MB of key words
+LARGE_TABLE_KEYS = 1 << 23  # random keys of the table five times the L2, phase 8
+LARGE_TABLE_BUCKETS = 1 << 22  # 268 MB of key words
 RAGGED_MIN, RAGGED_MAX = 100, 151  # read lengths of the ragged steady state
 #: INT32 operations a key of the block partition, counted from
 #: csrc/block_partition.cu: per pass (histogram, scatter) the key's compare
@@ -1700,7 +1725,7 @@ def phase_library(torch, np, arrays, rng, device) -> dict:
     from pageable and from page-locked memory; the gather kernel against
     its twins on every hazard case; the stream route against the gather
     route at 2^12 ... 2^26 hashes; the kernel's time, rounds and bounds in
-    both modes at 2^24 on the bench index, a table of 2^23 buckets (10x the
+    both modes at 2^24 on the bench index, a table of 2^22 buckets (5x the
     L2), a skewed, a hit-only and a miss-only batch."""
     import statistics
 
@@ -1910,7 +1935,8 @@ def phase_library(torch, np, arrays, rng, device) -> dict:
     del queries, batch
     torch.cuda.empty_cache()
 
-    # a table ten times the L2: 2^24 random keys in 2^23 buckets (537 MB)
+    # a table five times the L2: 2^23 random keys in 2^22 buckets (268 MB; phase 12
+    # probes a 2.15 GB one)
     t = time.perf_counter()
     keys, large, key_lo, key_hi, block_probe = random_table(rng, LARGE_TABLE_KEYS,
                                                             LARGE_TABLE_BUCKETS, device)
@@ -1934,24 +1960,6 @@ def phase_library(torch, np, arrays, rng, device) -> dict:
         "bound_ms": lib["slots_bound_ms"], "bound_by": lib["slots_bound_by"],
         "library_ms": None,  # no single PyTorch call probes a bucket chain
     }
-
-
-def fastq_bytes(np, chunk, first_id: int) -> bytes:
-    """The chunk's fixed-length reads as FASTQ records of one width:
-    '@' and a 9-digit id, the read, '+', a quality line of 'I'."""
-    n = chunk.n_reads
-    head = 11  # '@', 9 digits, newline
-    rec = np.empty((n, head + 2 * READ_LEN + 4), dtype=np.uint8)
-    rec[:, 0] = ord("@")
-    ids = np.arange(first_id, first_id + n, dtype=np.int64)
-    for d in range(9):
-        rec[:, 9 - d] = ord("0") + (ids // 10**d) % 10
-    rec[:, 10] = ord("\n")
-    rec[:, head : head + READ_LEN] = chunk.bases.reshape(n, READ_LEN)
-    rec[:, head + READ_LEN : head + READ_LEN + 3] = np.frombuffer(b"\n+\n", dtype=np.uint8)
-    rec[:, head + READ_LEN + 3 : -1] = ord("I")
-    rec[:, -1] = ord("\n")
-    return rec.tobytes()
 
 
 def write_bgzf(path, payload: bytes, block_out: int = 60_000, level: int = 6) -> None:
@@ -2004,27 +2012,6 @@ def trace_busy_share(profile_dir: str) -> tuple[float, float, int]:
     return busy / (end - start), (end - start) / 1e3, launches
 
 
-class RunFigures(logging.Handler):
-    """Keeps the figures of the latest ``map_file``, read off its timing
-    record (``record.figures``)."""
-
-    def __init__(self):
-        super().__init__(logging.INFO)
-        self.figures = None
-
-    def emit(self, record):
-        if hasattr(record, "figures"):
-            self.figures = record.figures
-
-
-def ragged_fastq_bytes(np, chunk) -> bytes:
-    """A chunk's reads of any length as FASTQ: '@r' and an id, the read,
-    '+', a quality line of 'I'."""
-    ends = chunk.read_starts + chunk.read_lengths
-    return b"".join(b"@r%d\n%s\n+\n%s\n" % (i, chunk.bases[s:e].tobytes(), b"I" * (e - s))
-                    for i, (s, e) in enumerate(zip(chunk.read_starts, ends)))
-
-
 def phase_file_feed(torch, np, chunks, dev_chunks, ragged, index, device, workdir) -> dict:
     """The file path as a user runs it: the CLI on FASTQ, .fq.gz and BGZF
     files of phase 5's reads and on a FASTQ of the first ragged chunk's
@@ -2039,6 +2026,8 @@ def phase_file_feed(torch, np, chunks, dev_chunks, ragged, index, device, workdi
     from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
     from kmer_mapper_tpu_torch.ops import block_partition, hashing, stream_probe
     from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
+    from kmer_mapper_tpu_torch.scripts.human_scale import (RunFigures, fastq_bytes,
+                                                           ragged_fastq_bytes)
 
     t_phase = time.perf_counter()
     index_path = os.path.join(workdir, "index.tpuidx.npz")
@@ -2049,7 +2038,7 @@ def phase_file_feed(torch, np, chunks, dev_chunks, ragged, index, device, workdi
     first_id = 0
     with open(paths["reads8.fq"], "wb") as f:
         for i, chunk in enumerate(chunks):
-            payload = fastq_bytes(np, chunk, first_id)
+            payload = fastq_bytes(chunk, first_id)
             first_id += chunk.n_reads
             f.write(payload)
             if i == 0:
@@ -2062,7 +2051,7 @@ def phase_file_feed(torch, np, chunks, dev_chunks, ragged, index, device, workdi
     del first
     ragged_chunk, ragged_dev = ragged
     with open(paths["ragged1.fq"], "wb") as f:
-        f.write(ragged_fastq_bytes(np, ragged_chunk))
+        f.write(ragged_fastq_bytes(ragged_chunk))
     sizes = {name: os.path.getsize(p) for name, p in paths.items()}
     log(f"file feed: {os.cpu_count()} host cores; wrote {sizes} bytes in "
         f"{time.perf_counter() - t_phase:.1f} s; "
@@ -2221,6 +2210,32 @@ def map_sharded_chunks(mapper, dev_chunks) -> None:
                            for words, nb, _ in dev_chunks[i : i + mapper.n_data]])
 
 
+def nccl_run(np, reads: str, index_path: str, want, workdir: str) -> None:
+    """Two processes, one job (``kmer_mapper_tpu_torch.scripts.multihost_run``):
+    the fixed-width FASTQ ``reads`` cut in two halves, process r maps half r
+    on cuda:r with ``map_file_sharded``, and the counts all-reduced over
+    NCCL must equal ``want``, the single-process vector of the whole
+    file."""
+    from kmer_mapper_tpu_torch.scripts import multihost_run
+    from kmer_mapper_tpu_torch.scripts.human_scale import FASTQ_RECORD
+
+    record = FASTQ_RECORD
+    with open(reads, "rb") as f:
+        data = f.read()
+    if len(data) % record:
+        raise AssertionError("sharded (f): the FASTQ's records are not of one width")
+    cut = len(data) // record // 2 * record
+    halves = [os.path.join(workdir, f"half{i}.fq") for i in range(2)]
+    for path, part in zip(halves, (data[:cut], data[cut:])):
+        with open(path, "wb") as f:
+            f.write(part)
+    del data
+    result = multihost_run.run(index_path, halves, want, processes=2, device="cuda")
+    log(f"sharded (f): two processes, one NCCL group, each half of the FASTQ on its own "
+        f"card: every rank's all-reduced node counts == map_file's .npy of the whole file, "
+        f"{result['wall_s']:.3f} s; {result['workers']}")
+
+
 def phase_sharded(torch, np, dev_chunks, ragged_chunks, index, library, feed_dir,
                   device) -> dict:
     """Multi-device mapping and the node-count finalize on the card: (a) the
@@ -2228,7 +2243,7 @@ def phase_sharded(torch, np, dev_chunks, ragged_chunks, index, library, feed_dir
     (b) the finalize of phase 8's 2^26-hash call, timed beside its twin,
     the host and an int64 index_add_; (c) phase 5's chunks through
     ShardedKmerMapper on grids (1,1), (2,1), (1,2), (2,2) of one card ==
-    KmerMapper; (d) sharded map_hashes on phase 8's 2^23-bucket table over
+    KmerMapper; (d) sharded map_hashes on phase 8's 2^22-bucket table over
     4 index shards and on a 512-bucket table over 8 == KmerMapper, then
     the ragged step's device-resident buffers (``ragged_chunks``) on
     (1,2) and (2,2) grids of the bench index (a chunk a data row, every
@@ -2237,8 +2252,9 @@ def phase_sharded(torch, np, dev_chunks, ragged_chunks, index, library, feed_dir
     map_file_sharded on phase 9's FASTQ over 4 cells == map_file's counts;
     (f) with two cards or more, (c) and (e) over distinct cards, the
     ragged buffers on grids (2,1) and (2,2) whose data rows lie on distinct
-    cards, and the two-card tests of tests/test_torch_kernels.py. Each run's launch counts
-    are zeroed before it and read after it."""
+    cards, the two-card tests of tests/test_torch_kernels.py and two
+    processes of one NCCL group on two cards (:func:`nccl_run`). Each run's
+    launch counts are zeroed before it and read after it."""
     from kmer_mapper_tpu_torch import pipeline
     from kmer_mapper_tpu_torch.index import kmer_index, layout
     from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
@@ -2404,7 +2420,7 @@ def phase_sharded(torch, np, dev_chunks, ragged_chunks, index, library, feed_dir
         entry_frequency=np.ones(len(small_keys), np.uint16),
         max_node_id=len(small_keys) - 1, n_unique=len(small_keys))
     for what, idx, pool, n, grid in (
-            ("2^23-bucket table, 4 index shards", large_index, keys, LIB_HASHES, (1, 4)),
+            ("2^22-bucket table, 4 index shards", large_index, keys, LIB_HASHES, (1, 4)),
             ("512-bucket table, 8 sub-block index shards", small, small_keys, 1 << 20, (1, 8))):
         q = np.concatenate([rng.choice(pool, n // 2),
                             rng.integers(0, 1 << 62, n - n // 2, dtype=np.uint64)])
@@ -2519,9 +2535,11 @@ def phase_sharded(torch, np, dev_chunks, ragged_chunks, index, library, feed_dir
             + proc.stdout[-3000:])
         if proc.returncode or " passed" not in proc.stdout or "skipped" in proc.stdout:
             raise AssertionError("sharded (f): the two-card tests did not pass")
+        nccl_run(np, reads, index_path, np.load(os.path.join(feed_dir, "counts_b.npy")),
+                 feed_dir)
     else:
-        log(f"sharded (f): {n_cards} card(s): the grids over distinct cards and the two-card "
-            "tests did not run")
+        log(f"sharded (f): {n_cards} card(s): the grids over distinct cards, the two-card "
+            "tests and the NCCL run did not run")
     log(f"sharded: phase took {time.perf_counter() - t_phase:.1f} s")
     finalize_entry.update(launches=path_launches["node_counts"], max_abs_err=max_err)
     return {"launches": path_launches, "node_counts": finalize_entry, "rates": rates}
@@ -2556,6 +2574,187 @@ def phase_matrix(torch) -> list[dict]:
     return rows
 
 
+#: scale_drill's index at its default draw: its keys and buckets
+HUMAN_KEYS = 127_494_474
+HUMAN_BUCKETS = 1 << 25
+HUMAN_DRAWS = 8  # 64 Mi-base draws of reads: 4 buffers of 128 Mi bases
+HUMAN_HASHES = 1 << 26  # the library call's hashes
+HUMAN_PROBED = 1 << 24  # queries of the gather kernel's report
+
+
+def human_kernel_reports(torch, np, mapper, index, chunk, ragged) -> None:
+    """On the human-scale table, with the library call's mapper (its counts
+    those of the 2^26-hash call, its entries uploaded): the count kernels on
+    one 64 Mi-base draw's keys, grouped and sorted, against the twin and
+    the bound (:func:`count_report`); the node-count finalize on the
+    index's entries against its twin and its bound (:func:`finalize_bound`);
+    ``ragged_offsets`` on the reads of phase 12's ragged buffer (``ragged``,
+    packed in one 128 Mi-base buffer) against its twin, the torch
+    composition and its bound."""
+    from kmer_mapper_tpu_torch.io import readers
+    from kmer_mapper_tpu_torch.ops import block_partition, finalize, hashing
+    from kmer_mapper_tpu_torch.ops.u32hash import MASK32
+    from kmer_mapper_tpu_torch.pipeline import CUDA_BUF, HUMAN_SCALE_BUF
+
+    table = index.table
+    (_, lengths, n_bases, n_ragged, _), = readers.pack_for_device(
+        iter([ragged]), HUMAN_SCALE_BUF, HUMAN_SCALE_BUF // 32, K)
+    lengths = torch.from_numpy(lengths[:n_ragged].astype(np.int32)).to(mapper.device)
+    got = hashing.ragged_offsets(lengths, n_bases, K)
+    twin = hashing.ragged_offsets_reference(lengths, n_bases, K)
+    err = offsets_err(got, twin)
+    if err or int(got[2][0]) != int(np.maximum(ragged.read_lengths - K + 1, 0).sum()):
+        raise AssertionError("human scale (a, ragged): ragged_offsets != its twin")
+    ms = median_ms(lambda: hashing.ragged_offsets(lengths, n_bases, K))
+    plain_ms = median_ms(lambda: hashing.ragged_offsets_reference(lengths, n_bases, K))
+
+    def composition():
+        windows = torch.cumsum((lengths - (K - 1)).clamp_(min=0), 0, dtype=torch.int32)
+        return torch.cumsum(lengths, 0, dtype=torch.int32) - lengths, windows, windows[-1:]
+
+    torch_ms = median_ms(composition)
+    bound_ms, bound_by = bound(12 * n_ragged + 12, 0)
+    wave = hashing.ragged_offsets_wave(mapper.device)
+    log(f"human scale (a, ragged): ragged_offsets on {n_ragged} reads ({n_ragged / wave:.2f} "
+        f"waves of {wave}) == twin: {ms:.4f} ms, twin {plain_ms:.4f} ms, the torch "
+        f"composition {torch_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}")
+    del lengths, got, twin
+
+    (packed, _, _, n_reads, _, strided), = readers.pack_for_device(
+        iter([chunk]), CUDA_BUF, CUDA_BUF // 32, K, read_len=READ_LEN)
+    words = torch.from_numpy(packed.view(np.int32)).to(mapper.device)
+    keys = hashing.plane_hash_keys(words, K, READ_LEN, n_reads, table.seed)
+    grouped, off = block_partition.block_partition(keys, table.n_buckets,
+                                                   min(128, table.n_buckets))
+    count_report(torch, mapper, grouped, off, keys, table.n_buckets, table.max_probe,
+                 f"human scale (b), {table.n_buckets} buckets")
+    del words, keys, grouped, off
+
+    counts, entries = mapper.counts, mapper._entries  # uploaded by the call's node_counts
+    if entries is None:  # the CPU path finalizes on the host
+        entries = index.device_entries(mapper.device)
+    n_nodes = index.max_node_id + 1
+    got = finalize.finalize(counts, *entries, 1000, n_nodes)
+    twin = finalize.finalize_reference(counts, *entries, 1000, n_nodes)
+    if not torch.equal(got, twin):
+        raise AssertionError("human scale (b): the finalize kernel != its twin")
+    ms = median_ms(lambda: finalize.finalize(counts, *entries, 1000, n_nodes))
+    plain_ms = median_ms(lambda: finalize.finalize_reference(counts, *entries, 1000, n_nodes),
+                         reps=3)
+    slot, _, freq = entries
+    weighted = torch.where(freq <= 1000, counts[slot.long()].long() & MASK32, 0).ne(0)
+    n_sectors = int(torch.unique(slot[weighted] // (SECTOR_BYTES // 4)).numel())
+    bound_ms, bound_by = finalize_bound(slot.numel(), n_sectors, n_nodes)
+    log(f"human scale (b): node_counts kernel on {slot.numel()} entries ({int(weighted.sum())} "
+        f"with a weight, {n_sectors} distinct sectors; the 2^26-hash call's counts) and "
+        f"{n_nodes} nodes == twin: {ms:.4f} ms, twin {plain_ms:.3f} ms, bound {bound_ms:.4f} "
+        f"ms by {bound_by} ({100 * bound_ms / ms:.0f}% of it)")
+
+
+def phase_human_scale(torch, np, device) -> dict:
+    """Phase 12: the human-scale index (``scale_drill``'s, 127,494,474 keys
+    in 2^25 buckets) saved to disk and given by its path to the user's
+    entry points (``kmer_mapper_tpu_torch.scripts.human_scale``): (a) ``cli
+    map -t 8`` in a fresh process on 4 buffers of 128 Mi bases == map_chunk
+    over 64 Mi-base buffers, the first framed chunk == the host probe; a
+    ragged FASTQ of one 128 Mi-base buffer through ``map_file`` on the
+    loaded index == map_chunk over 64 Mi-base buffers; (b)
+    ``map_kmers_to_graph_index`` and ``in_graph_index`` on 2^26 hashes ==
+    the host, the call split, the gather kernel at 2^24 queries, the count
+    kernels on one draw's keys, the finalize on the index's entries and
+    ``ragged_offsets`` on the ragged buffer's reads, each against its twin
+    and its bound (:func:`human_kernel_reports`);
+    (c) ``map_file_sharded`` on a (1, 2) grid of the card, and with two
+    cards or more over distinct cards at 2 and 4 index shards, == (a).
+    Each part's launch counts are zeroed before it and read after it."""
+    from kmer_mapper_tpu_torch.pipeline import CUDA_BUF, HUMAN_SCALE_BUF
+    from kmer_mapper_tpu_torch.scripts import human_scale
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # earlier phases' cached blocks, before the CLI's process
+
+    def require(what: str, launches: dict, kernels, at_least: int = 1) -> None:
+        twins = {k: n for k, n in launches.items() if "reference" in k and n}
+        short = [k for k in kernels if launches[k] < at_least]
+        if twins or short:
+            raise AssertionError(f"human scale ({what}): {short} launched fewer than "
+                                 f"{at_least} times, or twins ran: {launches}")
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_human_")
+    try:
+        built = human_scale.build(150_000_000, CUDA_BUF, HUMAN_DRAWS, workdir)
+        index = built["index"]
+        if index.n_unique != HUMAN_KEYS or index.table.n_buckets != HUMAN_BUCKETS:
+            raise AssertionError(f"human scale: {index.n_unique} keys in "
+                                 f"{index.table.n_buckets} buckets, not scale_drill's "
+                                 f"{HUMAN_KEYS} in {HUMAN_BUCKETS}")
+        file = human_scale.file_part(built, workdir, device)
+        fig = file["figures"]
+        if fig["buf"] != HUMAN_SCALE_BUF or fig["chunks"] < HUMAN_DRAWS // 2:
+            raise AssertionError(f"human scale (a): {fig['chunks']} buffers of {fig['buf']} "
+                                 f"bases, not {HUMAN_DRAWS // 2} or more of "
+                                 f"{HUMAN_SCALE_BUF}")
+        per_chunk = chunk_launches(HUMAN_BUCKETS)
+        for what, launches, n_chunks in (("a, cli", file["launches"], fig["chunks"]),
+                                         ("a, map_chunk", file["reference_launches"],
+                                          HUMAN_DRAWS),
+                                         ("a, prefix", file["prefix_launches"], 1)):
+            require(what, launches, ("plane_hash_keys", "node_counts"))
+            for name, n in per_chunk.items():
+                if launches[name] != n * n_chunks:
+                    raise AssertionError(f"human scale ({what}): {name} launched "
+                                         f"{launches[name]} times for {n_chunks} chunks")
+        ragged = human_scale.ragged_part(built, workdir, device)
+        # one 128 Mi-base buffer in map_file, two or three of 64 Mi in map_chunk
+        for what, launches, fewest, most in (
+                ("a, ragged", ragged["launches"], 1, 1),
+                ("a, ragged map_chunk", ragged["reference_launches"], 2, 3)):
+            require(what, launches, ("ragged_offsets", "ragged_hash_keys", "node_counts"))
+            n_chunks = launches["ragged_offsets"]  # one a buffer
+            if (not fewest <= n_chunks <= most or launches["ragged_hash_keys"] != n_chunks
+                    or launches["plane_hash_keys"]
+                    or any(launches[name] != n * n_chunks for name, n in per_chunk.items())):
+                raise AssertionError(f"human scale ({what}): not the ragged step alone on "
+                                     f"{n_chunks} buffers: {launches}")
+
+        lib = human_scale.library_part(index, built["entry"], HUMAN_HASHES, device)
+        require("b, library", lib["launches"], ("gather_probe", "node_counts"))
+        if lib["launches"]["stream_count"]:
+            raise AssertionError("human scale (b): the library calls took the stream route")
+        mapper = lib.pop("mapper")
+        queries = torch.from_numpy(lib["hashes"][:HUMAN_PROBED].view(np.int64)).to(device)
+        probe_report(torch, f"the human-scale table ({HUMAN_BUCKETS} buckets; 2^24, half "
+                     "hits)", mapper.key_lo, mapper.key_hi, index.table, mapper.block_probe,
+                     queries)
+        del queries
+        human_kernel_reports(torch, np, mapper, index, built["chunks"][0], ragged["reads"])
+        del mapper
+        human_scale.release_library(index, device)
+
+        n_cards = torch.cuda.device_count()
+        placements = [[device] * 2]
+        if n_cards >= 2:
+            placements.append([torch.device("cuda", i) for i in range(2)])
+        if n_cards >= 4:
+            placements.append([torch.device("cuda", i) for i in range(4)])
+        sharded = []
+        for devices in placements:
+            run = human_scale.sharded_part(built["path"], file["reads_path"], file["counts"],
+                                           HUMAN_BUCKETS, devices)
+            require(f"c, grid {run['grid']}", run["launches"],
+                    ("stream_count", "plane_hash_keys", "node_counts"))
+            if run["buf"] != CUDA_BUF:
+                raise AssertionError(f"human scale (c): {run['buf']}-base buffers for "
+                                     f"{HUMAN_BUCKETS // len(devices)}-bucket shards")
+            sharded.append(run)
+        if n_cards < 2:
+            log(f"human scale (c): {n_cards} card: the grids over distinct cards did not run")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"human scale: phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"file": file, "ragged": ragged, "library": lib, "sharded": sharded}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2565,12 +2764,19 @@ def main() -> int:
               file=sys.stderr)
         return 1
     device = torch.device("cuda")
+    stamps = [("start", time.perf_counter())]
+
+    def stamp(name: str) -> None:  # the end of a phase, for the phases' seconds
+        stamps.append((name, time.perf_counter()))
+
     card, smi = phase_environment(torch)
     phase_build()
+    stamp("build")
     log("tolerance: every comparison is exact integer equality (max_abs_err 0)")
     max_err = phase_hazards(torch, device)
     hash_err = phase_hash_hazards(torch, np, device)
     partition_err = phase_partition_hazards(torch, np, device)
+    stamp("hazards")
     rng = np.random.default_rng(0)
     from kmer_mapper_tpu_torch.io.readers import strided_rows
     from kmer_mapper_tpu_torch.pipeline import CUDA_BUF
@@ -2581,7 +2787,9 @@ def main() -> int:
         e2e = phase_end_to_end(torch, np, chunks[0], rng, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    stamp("end to end")
     steady = phase_steady_state(torch, np, chunks, e2e["index"], e2e["arrays"], device)
+    stamp("steady")
     log(f"summary on {smi}: kernel path median "
         f"{sorted(steady['kernel_rates'])[N_WINDOWS // 2] / 1e6:.1f} Mk/s, twin path median "
         f"{sorted(steady['twin_rates'])[N_WINDOWS // 2] / 1e6:.1f} Mk/s, peak device memory "
@@ -2589,19 +2797,31 @@ def main() -> int:
     ragged_reads = ragged_chunks(np, rng, chunks)
     ragged = phase_ragged_steady_state(torch, np, ragged_reads, e2e["index"], e2e["arrays"],
                                        device)
+    stamp("ragged")
     dissect = phase_dissect(torch, np, device)
+    stamp("dissect")
     tiles = phase_tiles(torch, np, device)
+    stamp("tiles")
     library_run, library = phase_library(torch, np, e2e["arrays"], rng, device)
+    stamp("library")
     feed_dir = tempfile.mkdtemp(prefix="chip_smoke_feed_")
     try:
         feed = phase_file_feed(torch, np, chunks, steady["dev_chunks"],
                                (ragged_reads[0], ragged["dev_chunks"][0]), e2e["index"],
                                device, feed_dir)
+        stamp("file feed")
         sharded = phase_sharded(torch, np, steady["dev_chunks"], ragged["dev_chunks"],
                                 e2e["index"], library_run, feed_dir, device)
     finally:
         shutil.rmtree(feed_dir, ignore_errors=True)
+    stamp("sharded")
     phase_matrix(torch)
+    stamp("matrix")
+    phase_human_scale(torch, np, device)
+    stamp("human scale")
+    log("phases, s: " + ", ".join(f"{name} {t - stamps[i][1]:.1f}"
+                                  for i, (name, t) in enumerate(stamps[1:]))
+        + f"; all {stamps[-1][1] - stamps[0][1]:.1f}")
     # the sharded paths' launches beside the single-device main path's
     library["launches"] += sharded["launches"]["gather_probe"]
     hash_keys = [

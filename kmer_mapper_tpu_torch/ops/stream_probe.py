@@ -44,6 +44,11 @@ INVALID_WORD = 0xFFFFFFFF
 launch_counts = {"stream_count": 0, "stream_count_reference": 0}
 #: the fingerprint of an empty slot; a key's is 1..15 (:func:`fingerprint`)
 EMPTY_FINGERPRINT = 0
+#: a device's share of the table from which the file pipeline takes
+#: 128 Mi-base buffers (``pipeline.device_buf``): a human pangenome's index
+#: (~127M keys); every chunk reads the whole table once in the count, and a
+#: larger buffer spreads that read over more keys
+HUMAN_SCALE_BUCKETS = 1 << 25
 
 
 def sort_key(m_lo: torch.Tensor, m_hi: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,7 @@ import torch
 from .index.kmer_index import KmerIndex, load_index
 from .io import readers
 from .models.mapper import KmerMapper, MapperConfig, chunk_is_fixed
+from .ops import stream_probe
 from .ops.hashing import read_stride
 from .utils import profiling
 from .utils.timing import log_memory_usage_now, span
@@ -33,6 +34,9 @@ logger = logging.getLogger(__name__)
 #: device buffer on CUDA, in bases (a 64 Mi-base buffer of 151 bp reads
 #: holds ~53.8M k=31 windows)
 CUDA_BUF = 64 << 20
+#: device buffer on CUDA where a device's share of the table has
+#: ``stream_probe.HUMAN_SCALE_BUCKETS`` buckets or more (:func:`device_buf`)
+HUMAN_SCALE_BUF = 128 << 20
 #: smallest buffer on the CPU, where the buffer otherwise follows chunk_size
 CPU_BUF_FLOOR = 1 << 16
 
@@ -147,17 +151,26 @@ def map_file(
     ``reader_workers`` frames an uncompressed file in that many byte regions
     in parallel (the reference's ``-t``; ``io/parallel_reader.py``).
 
-    The mapping loop's figures (chunks, bases, k-mers, its seconds and the
-    seconds it waited on the host feed) ride on the INFO record of its
-    timing line as ``record.figures``."""
+    The run's figures (the buffer, chunks, bases, k-mers; the seconds of the
+    index load, the device's start (a process's first CUDA call makes its
+    context), the chain blocks' bounds on the host, the table upload, the
+    mapping loop and its wait on the host feed) ride on the INFO record of
+    the loop's timing line as ``record.figures``, and with the node counts'
+    and the whole call's seconds added (``node_counts_s``, ``total_s``) on
+    the last line's."""
     t_start = time.perf_counter()
     device = torch.device(device)
     index = load_index(index)
-    mapper, packed = make_mapper_and_chunks(
+    load_s = time.perf_counter() - t_start
+    mapper, packed, setup = make_mapper_and_chunks(
         index, reads_path, k=k, chunk_size=chunk_size,
         map_reverse_complements=map_reverse_complements, device=device,
         reader_workers=reader_workers,
     )
+    logger.info("Index of %d k-mers in %d buckets loaded in %.3f s, its chain-block bounds "
+                "in %.3f s; %s ready in %.3f s, the table on it in %.3f s; buffers of %d "
+                "bases", index.n_unique, index.table.n_buckets, load_s, setup["bounds_s"],
+                mapper.device, setup["init_s"], setup["upload_s"], mapper.config.buf)
     ring = None
     if device.type == "cuda":
         ring = PinnedRing(queue_depth + 2, _max_words(mapper.config), mapper.device,
@@ -200,8 +213,8 @@ def map_file(
         chunks.close()
         if ring is not None:
             ring.close()
-    figures = dict(chunks=n_chunks, bases=n_bases_total, kmers=n_kmers, map_s=map_s,
-                   queue_wait_s=waited)
+    figures = dict(buf=mapper.config.buf, chunks=n_chunks, bases=n_bases_total,
+                   kmers=n_kmers, load_s=load_s, **setup, map_s=map_s, queue_wait_s=waited)
     logger.info(
         "Time spent only on hashing and counting hashes: %.4f (waited %.4f on the "
         "host feed)", map_s, waited, extra={"figures": figures},
@@ -210,13 +223,17 @@ def map_file(
         logger.warning(
             "%d invalid (non-ACGTN) bases were encoded as A", mapper.n_invalid_bases
         )
+    t = time.perf_counter()
     with span("node count finalization", logging.INFO):
         node_counts = mapper.node_counts(max_frequency=max_frequency)
+    figures = dict(figures, node_counts_s=time.perf_counter() - t)
     log_memory_usage_now("after mapping")
     n_hits = _index_hits(mapper.counts)
+    figures["total_s"] = time.perf_counter() - t_start
     logger.info(
         "Mapped %d kmers (%d index hits) from %d chunks on %s in %.3f sec total",
-        n_kmers, n_hits, n_chunks, mapper.device, time.perf_counter() - t_start,
+        n_kmers, n_hits, n_chunks, mapper.device, figures["total_s"],
+        extra={"figures": figures},
     )
     return node_counts
 
@@ -244,29 +261,64 @@ def make_mapper_and_chunks(
     map_reverse_complements: bool,
     device,
     reader_workers: int = 1,
-) -> tuple[KmerMapper, Iterable]:
-    """The device mapper plus the packed host chunk iterator
-    (:func:`config_and_chunks`)."""
+) -> tuple[KmerMapper, Iterable, dict]:
+    """The device mapper, the packed host chunk iterator
+    (:func:`config_and_chunks`) and the set-up's seconds: the device's start
+    (``init_s``; a process's first CUDA call makes its context), the chain
+    blocks' bounds on the host (``bounds_s``) and the table upload
+    (``upload_s``)."""
+    device = torch.device(device)
     config, chunks = config_and_chunks(reads_path, k, chunk_size, map_reverse_complements,
-                                       torch.device(device), reader_workers)
-    return KmerMapper(index, config, device), chunks
+                                       device, reader_workers,
+                                       n_buckets=index.table.n_buckets)
+    t = time.perf_counter()
+    if device.type == "cuda":
+        torch.zeros(1, device=device)
+        torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t
+    t = time.perf_counter()
+    index.table.block_max_probe()  # kept by the table for the mapper
+    bounds_s = time.perf_counter() - t
+    t = time.perf_counter()
+    mapper = KmerMapper(index, config, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(mapper.device)
+    return mapper, chunks, dict(init_s=init_s, bounds_s=bounds_s,
+                                upload_s=time.perf_counter() - t)
+
+
+def device_buf(n_buckets: int, n_shards: int = 1) -> int:
+    """The buffer on CUDA, in bases, for a table of ``n_buckets`` split over
+    ``n_shards`` index shards: ``HUMAN_SCALE_BUF`` where a shard holds
+    ``stream_probe.HUMAN_SCALE_BUCKETS`` buckets or more (a shard is at
+    least one chain block), else ``CUDA_BUF``. Each chunk's count reads the
+    shard's whole table once, so on a human-scale table a larger buffer
+    spreads that read over more keys (JAX's ``_buf_floor`` gate)."""
+    if max(128, n_buckets // max(1, n_shards)) >= stream_probe.HUMAN_SCALE_BUCKETS:
+        return HUMAN_SCALE_BUF
+    return CUDA_BUF
+
+
+def buffer_bases(device: torch.device, chunk_size: int, n_buckets: int,
+                 n_shards: int = 1) -> int:
+    """The buffer, in bases, of a file mapped on ``device``: :func:`device_buf`
+    on CUDA whatever ``chunk_size`` says; on the CPU ``chunk_size``, kept
+    within [CPU_BUF_FLOOR, CUDA_BUF] and rounded up to 8 Ki."""
+    if device.type == "cuda":
+        return device_buf(n_buckets, n_shards)
+    return _round_up(min(max(chunk_size, CPU_BUF_FLOOR), CUDA_BUF), 1 << 13)
 
 
 def config_and_chunks(reads_path: str, k: int, chunk_size: int, map_reverse_complements: bool,
-                      device: torch.device, reader_workers: int = 1
-                      ) -> tuple[MapperConfig, Iterable]:
+                      device: torch.device, reader_workers: int = 1, *, n_buckets: int,
+                      n_shards: int = 1) -> tuple[MapperConfig, Iterable]:
     """The mapper's config and the file's packed host chunks (6-tuples,
-    :func:`_strided_chunks`).
-
-    The buffer is ``CUDA_BUF`` bases on CUDA whatever ``chunk_size`` says;
-    on the CPU it follows ``chunk_size``. If the file's first records are
-    uniform-length reads (the Illumina case), buffers arrive in the strided
-    layout of the plane step; any buffer that is not uniform takes the
-    ragged step with identical results."""
-    if device.type == "cuda":
-        buf = CUDA_BUF
-    else:
-        buf = _round_up(min(max(chunk_size, CPU_BUF_FLOOR), CUDA_BUF), 1 << 13)
+    :func:`_strided_chunks`) for a table of ``n_buckets`` over ``n_shards``
+    index shards, in buffers of :func:`buffer_bases`. If the file's first
+    records are uniform-length reads (the Illumina case), buffers arrive in
+    the strided layout of the plane step; any buffer that is not uniform
+    takes the ragged step with identical results."""
+    buf = buffer_bases(device, chunk_size, n_buckets, n_shards)
 
     def make_config(read_len):
         return MapperConfig(
@@ -375,8 +427,10 @@ def map_file_sharded(
     devices at the node-count finalize (in a ``torch.distributed`` process
     group, across the processes too). Returns uint32[max_node_id + 1].
     ``strict_bases``, ``profile_dir`` and ``reader_workers`` as in
-    :func:`map_file`. The buffers are uploaded from pageable host memory,
-    one chunk a data row at a time."""
+    :func:`map_file`; the buffer is :func:`device_buf` of an index shard.
+    The buffers are uploaded from pageable host memory, one chunk a data
+    row at a time. The timing line's record carries the buffer, chunks,
+    k-mers and loop seconds as ``record.figures``."""
     from .parallel import ShardedKmerMapper, make_mesh
 
     t_start = time.perf_counter()
@@ -384,7 +438,8 @@ def map_file_sharded(
     mesh = make_mesh(n_devices=n_devices, index_parallel=index_parallel, devices=devices)
     devices = {dev for row in mesh.devices for dev in row}
     config, chunks = config_and_chunks(
-        reads_path, k, chunk_size, map_reverse_complements, mesh.devices[0][0], reader_workers
+        reads_path, k, chunk_size, map_reverse_complements, mesh.devices[0][0], reader_workers,
+        n_buckets=index.table.n_buckets, n_shards=index_parallel,
     )
     mapper = ShardedKmerMapper(index, config, mesh)
     n_chunks = 0
@@ -411,8 +466,11 @@ def map_file_sharded(
             map_s = time.perf_counter() - t_map
     finally:
         batches.close()
-    logger.info("Mapped %d kmers in %d chunks over the grid %s in %.3f sec (loop %.4f s)",
-                n_kmers, n_chunks, mesh.shape, time.perf_counter() - t_start, map_s)
+    logger.info("Mapped %d kmers in %d chunks of %d-base buffers over the grid %s in %.3f "
+                "sec (loop %.4f s)", n_kmers, n_chunks, config.buf, mesh.shape,
+                time.perf_counter() - t_start, map_s,
+                extra={"figures": dict(buf=config.buf, chunks=n_chunks, kmers=n_kmers,
+                                       map_s=map_s)})
     if mapper.n_invalid_bases:
         logger.warning(
             "%d invalid (non-ACGTN) bases were encoded as A", mapper.n_invalid_bases

@@ -11,12 +11,16 @@ the Pallas measurement scripts under ``scripts/``, and the gather probe's.
     python -m kmer_mapper_tpu_torch.scripts.partition_dissect [--keys N]
     python -m kmer_mapper_tpu_torch.scripts.finalize_dissect [variant ...]
 
-and the counterparts of the repo's whole-system scripts under ``scripts/``
-(no kernel of their own: they drive ``pipeline.map_file`` and the mapper):
+and the counterparts of the repo's whole-system scripts under ``scripts/``,
+with the drill's index through the user's entry points and a job of
+several processes (no kernel of their own: they drive the pipeline, the
+library calls and the mappers):
 
     python -m kmer_mapper_tpu_torch.scripts.bench_matrix
     python -m kmer_mapper_tpu_torch.scripts.scale_run [--reads N]
     python -m kmer_mapper_tpu_torch.scripts.scale_drill [N_KEYS_MILLIONS]
+    python -m kmer_mapper_tpu_torch.scripts.human_scale [N_KEYS_MILLIONS]
+    python -m kmer_mapper_tpu_torch.scripts.multihost_run -i INDEX --expect NPY READS ...
 
 Each module holds a hand-written CUDA kernel (``csrc/<name>.cu``) with its
 variants, the kernel's plain-torch twin and a ``main`` that times every

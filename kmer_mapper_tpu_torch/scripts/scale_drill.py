@@ -6,8 +6,12 @@
 
 N_KEYS_MILLIONS defaults to 150 (about 127M unique keys in 2^25 buckets).
 Environment:
-    STEPS        distinct buffer-sized chunks resident on the device (4)
-    BUF_MI       the buffer, in Mi bases (default: pipeline.CUDA_BUF)
+    STEPS        draws of reads, each of one buffer (4)
+    BUF_MI       the buffer and the draws, in Mi bases (default: draws of
+                 ``pipeline.CUDA_BUF``, as the JAX drill draws them, mapped
+                 in the file pipeline's buffer for the table,
+                 ``pipeline.device_buf``: from 2^25 buckets two draws make
+                 one buffer of 128 Mi)
     SKIP_DEVICE  1: the host phases only
     REUSE_INDEX  1: load the index a previous run saved
                  (``drill.tpuidx.npz`` in the temporary directory) instead
@@ -17,7 +21,7 @@ Environment:
 Phases, each timed, with the host's peak RSS after each:
   1. keys and build: buckets, table GB, chain bound, mean block rounds;
   2. ``KmerIndex.to_file`` / ``from_file``: seconds and GB on disk;
-  3. device: the table upload, STEPS distinct device-resident chunks
+  3. device: the table upload, the draws as distinct device-resident chunks
      through ``KmerMapper.map_chunk`` in 3 windows after a first one (host
      clock around work that ends in a synchronize), the stage split (hash
      keys, partition, count; CUDA events), peak device memory;
@@ -71,6 +75,23 @@ def make_read_chunk(rng, n_bases: int) -> readers.SequenceChunk:
     n_reads = n_bases // READ_LEN
     starts = np.arange(n_reads, dtype=np.int64) * READ_LEN
     return readers.SequenceChunk(bases=bases[: n_reads * READ_LEN], read_starts=starts)
+
+
+def merge_chunks(chunks, n_bases: int) -> list:
+    """Consecutive chunks joined into chunks of at most ``n_bases`` bases
+    (a chunk that alone is larger stays as it is)."""
+    groups = [[]]
+    for chunk in chunks:
+        if groups[-1] and sum(c.n_bases for c in groups[-1]) + chunk.n_bases > n_bases:
+            groups.append([])
+        groups[-1].append(chunk)
+    out = []
+    for group in groups:
+        offsets = np.cumsum([0] + [c.n_bases for c in group[:-1]])
+        out.append(readers.SequenceChunk(
+            bases=np.concatenate([c.bases for c in group]),
+            read_starts=np.concatenate([c.read_starts + o for c, o in zip(group, offsets)])))
+    return out
 
 
 def entry_kmers(index: KmerIndex) -> np.ndarray:
@@ -247,15 +268,16 @@ def main(argv=None) -> dict:
     skip_device = os.environ.get("SKIP_DEVICE") == "1"
     device = None if skip_device else pick_device(a.device)
     steps = int(os.environ.get("STEPS", 4))
-    buf = int(os.environ.get("BUF_MI", 0)) << 20 or pipeline.CUDA_BUF
+    buf_env = int(os.environ.get("BUF_MI", 0)) << 20
+    draw = buf_env or pipeline.CUDA_BUF
     n_keys = a.n_keys_millions * 1_000_000
     print(f"scale_drill on {'the host' if skip_device else device_name(device)}: "
-          f"{n_keys} keys drawn, {steps} chunks of {buf >> 20} Mi bases", flush=True)
+          f"{n_keys} keys drawn, {steps} chunks of {draw >> 20} Mi bases drawn", flush=True)
 
     rng = np.random.default_rng(0)
-    chunks = [make_read_chunk(rng, buf) for _ in range(steps)]
+    chunks = [make_read_chunk(rng, draw) for _ in range(steps)]
     path = os.path.join(tempfile.gettempdir(), "drill.tpuidx.npz")
-    result = dict(buf_mi=buf >> 20, steps=steps)
+    result = dict(steps=steps)
     if os.environ.get("REUSE_INDEX") == "1" and os.path.exists(path):
         t = time.perf_counter()
         index = KmerIndex.from_file(path)
@@ -274,6 +296,12 @@ def main(argv=None) -> dict:
         f"{table.nbytes / 1e9:.2f} GB, max_probe={table.max_probe}, block rounds mean "
         f"{block_rounds:.4f} (RSS {rss_gb():.1f} GB)")
     result["rss_build_gb"] = rss_gb()
+    buf = buf_env or pipeline.device_buf(table.n_buckets)
+    result["buf_mi"] = buf >> 20
+    if buf > draw:
+        chunks = merge_chunks(chunks, buf)
+        log(f"the pipeline's buffer for {table.n_buckets} buckets: the {steps} draws as "
+            f"{len(chunks)} chunks of up to {buf >> 20} Mi bases")
 
     if "build_s" in result:  # phase 2: the file that convert-index writes
         t = time.perf_counter()

@@ -23,7 +23,8 @@ SCRIPT = textwrap.dedent(
         importlib.import_module(name)
     for script in ("r2_kernel_dissect", "r2_window_dissect", "r3_iter_floor",
                    "r9_dot_orient", "r9_step_parts", "r9_block_pipeline",
-                   "partition_dissect", "bench_matrix", "scale_run", "scale_drill"):
+                   "partition_dissect", "bench_matrix", "scale_run", "scale_drill",
+                   "human_scale", "multihost_run"):
         assert f"kmer_mapper_tpu_torch.scripts.{script}" in names, names
     for module in ("compat", "mapper", "gpu_counter", "ops.probe", "ops.probe_cases",
                    "index.pickled", "io.native", "io.gzio", "io.parallel_reader",
@@ -40,7 +41,8 @@ SCRIPT = textwrap.dedent(
     assert callable(smoke.phase_file_feed)
     assert callable(smoke.phase_hash_hazards) and callable(smoke.phase_ragged_steady_state)
     assert callable(smoke.phase_partition_hazards) and callable(smoke.phase_sharded)
-    assert callable(smoke.phase_matrix)
+    assert callable(smoke.phase_matrix) and callable(smoke.phase_human_scale)
+    assert callable(smoke.nccl_run) and callable(smoke.human_kernel_reports)
     from kmer_mapper_tpu_torch import oracle, pipeline
     from kmer_mapper_tpu_torch.index import kmer_index
 

@@ -85,11 +85,12 @@ def test_fixed_length_file_takes_the_plane_step(tmp_path):
     _write(path, reads, "fastq", gz=False)
     _index_npz(rng, reads, 31, tmp_path / "index.npz")
     index = pipeline.load_index(str(tmp_path / "index.npz"))
-    mapper, chunks = pipeline.make_mapper_and_chunks(
+    mapper, chunks, setup = pipeline.make_mapper_and_chunks(
         index, str(path), k=31, chunk_size=1 << 16,
         map_reverse_complements=False, device="cpu",
     )
     assert mapper.config.read_len == 61 and mapper.config.buf == 1 << 16
+    assert sorted(setup) == ["bounds_s", "init_s", "upload_s"]
     flags = [c[5] for c in chunks]
     assert len(flags) == 2 and all(flags)
 
