@@ -33,6 +33,7 @@ import torch
 from ..index.kmer_index import KmerIndex
 from ..index.layout import CHAIN_BLOCK
 from ..ops import encode, finalize, hashing, probe, stream_probe
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -258,7 +259,8 @@ class KmerMapper(WindowTotals):
         the chunk's ``n_reads`` reads (``lengths[:n_reads]``); zero padding
         after them gives the same counts but costs a scan of the padding."""
         self.n_invalid_bases += n_invalid
-        words = self._words(packed)
+        with profiling.span(profiling.UPLOAD):
+            words = self._words(packed)
         table = self.index.table
         step_args = (self.key_lo, self.key_hi, self.counts, words)
         step_kw = dict(config=self.config, seed=table.seed, block_probe=self.block_probe)
@@ -268,7 +270,8 @@ class KmerMapper(WindowTotals):
             n_reads = n_bases // self.config.read_len
             self._stats.append(plane_chunk_step(*step_args, n_reads, **step_kw))
             return
-        lengths = self._lengths(lengths, n_bases)
+        with profiling.span(profiling.UPLOAD):
+            lengths = self._lengths(lengths, n_bases)
         self._stats.append(chunk_step(*step_args, lengths, n_bases, **step_kw,
                                       out=key_buffer(self._keys, words, self.config)))
 

@@ -54,6 +54,7 @@ import torch
 
 from .. import native
 from ..index.layout import CHAIN_BLOCK
+from ..utils import profiling
 
 #: the sort key of the all-ones invalid (m_lo, m_hi) pair, the largest
 #: int64 (``stream_probe.sort_key(INVALID_WORD, INVALID_WORD)``)
@@ -109,16 +110,17 @@ def block_partition(keys: torch.Tensor, n_buckets: int, bpb: int, *, consume: bo
     the same keys does not. With ``count`` (see the module's note) only the
     first ``count[0]`` keys are partitioned: the grouped keys are as long as
     ``keys``, and past the count their entries are unspecified."""
-    n_blocks = check_partition_args(keys, n_buckets, bpb)
-    if count is not None:
-        _check_count(count, keys)
-    if keys.device.type == "cpu":
-        if count is None:
-            return block_partition_reference(keys, n_buckets, bpb)
-        n = _host_count(count, keys)
-        grouped, off = block_partition_reference(keys[:n], n_buckets, bpb)
-        return torch.cat([grouped, keys[n:]]), off
-    return radix_partition(keys, n_blocks, consume=consume, count=count)
+    with profiling.span(profiling.PARTITION):
+        n_blocks = check_partition_args(keys, n_buckets, bpb)
+        if count is not None:
+            _check_count(count, keys)
+        if keys.device.type == "cpu":
+            if count is None:
+                return block_partition_reference(keys, n_buckets, bpb)
+            n = _host_count(count, keys)
+            grouped, off = block_partition_reference(keys[:n], n_buckets, bpb)
+            return torch.cat([grouped, keys[n:]]), off
+        return radix_partition(keys, n_blocks, consume=consume, count=count)
 
 
 def _check_count(count: torch.Tensor, keys: torch.Tensor) -> None:

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils import profiling
 from .stream_probe import INVALID_WORD, sort_key
 from .u32hash import MASK32, feistel_mix_torch, from_int32_bits
 
@@ -232,17 +233,18 @@ def plane_hash_keys(packed: torch.Tensor, k: int, read_len: int, n_reads: int, s
     neither hashed nor written: ``n_reads * (read_len - k + 1)`` keys (twice
     that with ``revcomp``), in :func:`plane_hash_mixed`'s (window combo,
     read) order, reverse complements after the forward keys. Unsorted."""
-    _check_words("plane_hash_keys", packed)
-    if not 1 <= k <= 31 or read_len < k:
-        raise ValueError(f"plane_hash_keys: k={k}, read_len={read_len} (need 1 <= k <= 31, "
-                         "k <= read_len)")
-    npr = read_stride(read_len) // 16
-    if not 0 <= n_reads <= packed.shape[0] // npr:
-        raise ValueError(f"plane_hash_keys: {n_reads} reads in a buffer of "
-                         f"{packed.shape[0] // npr} rows")
-    if packed.device.type == "cpu":
-        return plane_hash_keys_reference(packed, k, read_len, n_reads, seed, revcomp)
-    return _plane_launch(packed, k, read_len, n_reads, seed, revcomp)
+    with profiling.span(profiling.HASH):
+        _check_words("plane_hash_keys", packed)
+        if not 1 <= k <= 31 or read_len < k:
+            raise ValueError(f"plane_hash_keys: k={k}, read_len={read_len} (need 1 <= k <= 31, "
+                             "k <= read_len)")
+        npr = read_stride(read_len) // 16
+        if not 0 <= n_reads <= packed.shape[0] // npr:
+            raise ValueError(f"plane_hash_keys: {n_reads} reads in a buffer of "
+                             f"{packed.shape[0] // npr} rows")
+        if packed.device.type == "cpu":
+            return plane_hash_keys_reference(packed, k, read_len, n_reads, seed, revcomp)
+        return _plane_launch(packed, k, read_len, n_reads, seed, revcomp)
 
 
 def _plane_launch(packed, k: int, read_len: int, n_reads: int, seed: int,
@@ -343,14 +345,15 @@ def ragged_hash_keys(packed: torch.Tensor, lengths: torch.Tensor, n_bases: int, 
     not tile the buffer the count is (-1, -1) and nothing is written: the
     caller raises on it when it next reads a count back. On the CPU the twin
     raises at once and returns exactly the keys (``out`` unused)."""
-    _check_ragged(packed, lengths, n_bases, k)
-    if packed.device.type == "cpu":
-        check_lengths(lengths, n_bases)
-        keys = ragged_hash_keys_reference(packed, lengths, n_bases, k, seed, revcomp)
-        n = keys.shape[0]
-        return keys, torch.tensor([n, n // (2 if revcomp else 1)], dtype=torch.int32)
-    starts, offs, count = ragged_offsets(lengths, n_bases, k, revcomp)
-    return _ragged_launch(packed, starts, offs, count, k, seed, revcomp, out), count
+    with profiling.span(profiling.HASH):
+        _check_ragged(packed, lengths, n_bases, k)
+        if packed.device.type == "cpu":
+            check_lengths(lengths, n_bases)
+            keys = ragged_hash_keys_reference(packed, lengths, n_bases, k, seed, revcomp)
+            n = keys.shape[0]
+            return keys, torch.tensor([n, n // (2 if revcomp else 1)], dtype=torch.int32)
+        starts, offs, count = ragged_offsets(lengths, n_bases, k, revcomp)
+        return _ragged_launch(packed, starts, offs, count, k, seed, revcomp, out), count
 
 
 #: reads a tile of the offsets' scan (``kScanTile`` of ``csrc/hash_keys.cu``)

@@ -29,6 +29,7 @@ import torch
 
 from .. import native
 from ..index.layout import BUCKET_KEYS, CHAIN_BLOCK
+from ..utils import profiling
 from .block_partition import INVALID_KEY, block_partition
 from .u32hash import (
     MASK32, bucket_shift, feistel_mix_torch, to_int32_bits,
@@ -177,27 +178,28 @@ def stream_count(key_lo, key_hi, counts, keys, off, block_probe,
 
     CUDA tensors launch ``csrc/stream_count.cu`` (a failed build or launch
     raises); CPU tensors run :func:`stream_count_reference`."""
-    check_count_args(key_lo, key_hi, counts, keys, off, block_probe, shift, bpb,
-                     bucket_base=bucket_base, n_buckets_global=n_buckets_global)
-    if counts.device.type == "cpu":
-        return stream_count_reference(
-            key_lo, key_hi, counts, keys, off, block_probe, shift, bpb, bucket_base
-        )
-    if counts.device.type != "cuda":
-        raise ValueError(f"stream_count: no kernel for device {counts.device}")
-    fn = native.library().stream_count_launch
-    n_blocks = block_probe.shape[0]
-    with torch.cuda.device(counts.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(
-            key_lo.data_ptr(), key_hi.data_ptr(), counts.data_ptr(),
-            keys.data_ptr(), off.data_ptr(), block_probe.data_ptr(),
-            n_blocks, shift, bpb, bucket_base, counts.device.index, stream,
-        )
-    if rc:
-        raise RuntimeError(f"stream_count kernel launch failed: {native.error_string(rc)}")
-    launch_counts["stream_count"] += 1
-    return counts
+    with profiling.span(profiling.COUNT):
+        check_count_args(key_lo, key_hi, counts, keys, off, block_probe, shift, bpb,
+                         bucket_base=bucket_base, n_buckets_global=n_buckets_global)
+        if counts.device.type == "cpu":
+            return stream_count_reference(
+                key_lo, key_hi, counts, keys, off, block_probe, shift, bpb, bucket_base
+            )
+        if counts.device.type != "cuda":
+            raise ValueError(f"stream_count: no kernel for device {counts.device}")
+        fn = native.library().stream_count_launch
+        n_blocks = block_probe.shape[0]
+        with torch.cuda.device(counts.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(
+                key_lo.data_ptr(), key_hi.data_ptr(), counts.data_ptr(),
+                keys.data_ptr(), off.data_ptr(), block_probe.data_ptr(),
+                n_blocks, shift, bpb, bucket_base, counts.device.index, stream,
+            )
+        if rc:
+            raise RuntimeError(f"stream_count kernel launch failed: {native.error_string(rc)}")
+        launch_counts["stream_count"] += 1
+        return counts
 
 
 def fingerprint(m_hi: torch.Tensor) -> torch.Tensor:

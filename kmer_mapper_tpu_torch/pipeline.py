@@ -147,7 +147,9 @@ def map_file(
     With ``strict_bases`` any non-ACGTN base raises (the reference's
     bionumpy DNAEncoding does); by default such bases encode as A with a
     warning. ``profile_dir`` writes a ``torch.profiler`` trace of the
-    mapping loop there, one ``map_chunk`` region per chunk.
+    mapping loop there: one ``map_chunk`` region per chunk, the stage spans
+    inside it, and a ``kmt.feed_wait`` region for each wait on the host
+    feed (``utils/profiling.py`` lists the spans).
     ``reader_workers`` frames an uncompressed file in that many byte regions
     in parallel (the reference's ``-t``; ``io/parallel_reader.py``).
 
@@ -186,7 +188,8 @@ def map_file(
             t_map = time.perf_counter()  # after the profiler started
             while True:
                 t0 = time.perf_counter()
-                item = next(chunks, None)
+                with profiling.span(profiling.FEED_WAIT):
+                    item = next(chunks, None)
                 waited += time.perf_counter() - t0
                 if item is None:
                     break
@@ -196,8 +199,7 @@ def map_file(
                         f"{n_invalid} invalid (non-ACGTN) bases in input "
                         "(--strict-bases; the reference's DNAEncoding would raise too)"
                     )
-                with profiling.step_annotation("map_chunk") if profile_dir else (
-                        contextlib.nullcontext()):
+                with profiling.span(profiling.MAP_CHUNK):
                     mapper.map_chunk(packed_codes, lengths, n_bases, n_invalid, strided=strided)
                 if slot is not None:
                     ring.release(slot)

@@ -1,0 +1,11 @@
+"""count_span_us_per_Mkmer (layer: stream count; moves kmers_per_s): device time
+of the operations launched inside the port's ``kmt.count`` spans in the
+traced window (``portbench/spans.py``), microseconds a million k-mers
+mapped. The twin of ``count_us_per_Mkmer``, which matches kernel names."""
+from portbench import spans
+
+SPAN = "kmt.count"
+
+
+def read(record):
+    return spans.us_per_mkmer(record, SPAN)

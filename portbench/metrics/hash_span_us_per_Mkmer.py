@@ -1,0 +1,11 @@
+"""hash_span_us_per_Mkmer (layer: hash keys; moves kmers_per_s): device time
+of the operations launched inside the port's ``kmt.hash`` spans in the
+traced window (``portbench/spans.py``), microseconds a million k-mers
+mapped. The twin of ``hash_us_per_Mkmer``, which matches kernel names."""
+from portbench import spans
+
+SPAN = "kmt.hash"
+
+
+def read(record):
+    return spans.us_per_mkmer(record, SPAN)
