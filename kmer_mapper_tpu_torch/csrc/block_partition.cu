@@ -31,19 +31,35 @@
 //  * partition_scan_kernel: the matrix's exclusive scan down each digit's
 //    column, in place, and each digit's total; the wrapper's torch.cumsum
 //    of the totals gives each digit's first slot.
-//  * radix_scatter_kernel: CTA s walks its slab in tiles of 4,096 keys,
-//    ranks each tile stably in shared memory (ballots over the digit's
-//    bits find the lanes of a warp that share a digit; running counts per
-//    warp; the warps' counts scanned in (digit, warp) order), stores the
-//    tile grouped by digit and writes it out in that order from one
-//    cursor a digit in shared memory: each digit's keys of a tile leave as
-//    one run (~32 keys at 128 digits). Stable, so the passes compose into
-//    a sort by bin, equal to the plain twin's stable order.
+//  * radix_scatter_kernel: CTA s walks its slab in tiles of 8,192 keys,
+//    ranks each tile stably in shared memory and writes it out grouped by
+//    digit, so that each digit's keys of a tile leave as one run (~64 keys
+//    at 128 digits). Like a copy it reads and writes each key once: 0.514
+//    ms a pass for the human-scale buffer's 107.6M keys at 3.35 TB/s, and
+//    a device-to-device copy of them takes 0.572 ms. What bounds it is
+//    the work a tile takes between its read and its write. The first
+//    design read 4,096-key tiles with plain loads, then ranked each (a
+//    ballot a digit bit of every key), grouped it and wrote it behind six
+//    barriers, so a CTA's reads stopped for most of each tile: 1.06 ms a
+//    128-digit pass. Here the tiles come through a ring of two stages in
+//    shared memory, each filled by one bulk copy (TMA, one thread a tile,
+//    completing on an mbarrier) a tile ahead, so the next tile's reads are
+//    in flight while this one is ranked and written; a key is ranked by an
+//    atomicOr into its digit's word of its warp's row, which then names
+//    the lanes that share the digit, and one atomicAdd a group (the
+//    ballots were half the ranking's time); four barriers a tile. The ring
+//    fills an SM's shared memory, one CTA of 1,024 threads: its tiles,
+//    twice the first design's, write runs twice as long, which the
+//    128-digit passes needed most (0.85 ms at 4,096 keys, 0.73 at 8,192;
+//    0.65 at 33 digits; PERF.md). What is left is shared memory and the
+//    runs' writes: a key is stored and loaded at random slots to group it.
+//    Stable, so the passes compose into a sort by bin, equal to the plain
+//    twin's stable order.
 // radix_offsets_launch then finds each bin's first position in the sorted
 // keys (a binary search a bin, or one read of the keys where the bins are
 // many). A pass reads and writes each key once, plus one read for its
-// histogram. The slabs are one wave of the scatter kernel: the card's SMs
-// times its resident CTAs (radix_slabs).
+// histogram. The slabs are one wave of the histogram kernel: the card's SMs
+// times its resident CTAs (radix_slabs); the scatter takes them in waves.
 //
 // Every launch takes the number of keys from device memory: the ragged
 // step's keys come with a count that stays on the card (the hash stage
@@ -64,6 +80,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
 #include "block_partition.cuh"
 
 namespace {
@@ -153,133 +170,249 @@ partition_scan_kernel(int* __restrict__ rows, int* __restrict__ totals, int n_sl
   }
 }
 
-constexpr int kRadixThreads = 512;
+constexpr int kRadixThreads = 1024;
 constexpr int kRadixWarps = kRadixThreads / 32;
 constexpr int kRadixItems = 8;  // keys a thread ranks in a tile
-constexpr int kRadixTile = kRadixThreads * kRadixItems;  // 4096 keys, 32 KB
+constexpr int kRadixTile = kRadixThreads * kRadixItems;  // 8192 keys, 64 KB
+constexpr int kRadixStages = 2;  // tiles of the ring
+constexpr int kRadixCtas = 1;    // resident CTAs an SM (the ring takes most of its shared memory)
+// a stage's slots: the tile, one slot of skew (RadixLoad) and one that
+// keeps the stages on 16 bytes
+constexpr int kRadixSlots = kRadixTile + 2;
 constexpr int kRadixMaxBits = 8;
 constexpr int kRadixDigits = 1 << kRadixMaxBits;
+// the scan of a tile's counts: kDigitThreads neighbouring threads a digit,
+// each summing kDigitWarps warps' counts of it
+constexpr int kDigitThreads = kRadixThreads / kRadixDigits;
+constexpr int kDigitWarps = kRadixWarps / kDigitThreads;
+// the row stride of the warps' counts: the digit's threads' rows fall in
+// distinct banks
+constexpr int kCountStride = kRadixDigits + 1;
 // radix_offsets_launch searches for each bin's bound where the keys are at
 // least this many times the bins, and else reads every key once
 constexpr long long kSearchKeysABin = 64;
 
 struct RadixSmem {
-  long long tile[kRadixTile];            // the tile's keys, stably grouped by digit
-  int warp_count[kRadixWarps][kRadixDigits];  // a warp's keys of each digit, then its base
-  int cursor[kRadixDigits];              // the slab's next slot of each digit
-  int start[kRadixDigits];               // a digit's first position in the tile
-  int count[kRadixDigits];               // a digit's keys in the tile
+  long long stage[kRadixStages][kRadixSlots];  // the ring: tile t in stage t % kRadixStages
+  int count[kRadixWarps][kCountStride];  // a warp's keys of each digit, then its first slot
+  unsigned int lanes[kRadixWarps][kRadixDigits];  // a warp's lanes of each digit in an item
+  int base[kRadixDigits];                // grouped key p of digit d goes to out[base[d] + p]
+  int warp_sum[kRadixWarps];             // the scan's sum of each warp's threads
+  uint64_t full[kRadixStages];           // mbarrier: the stage's tile has landed
+  unsigned char digit[kRadixTile];       // each grouped key's digit
 };
+
+// A pass's digit of a key, (key_bin(key) >> shift) & mask, from the key's
+// top word alone: the bin is its top log2_blocks bits (at most 30).
+struct RadixDigit {
+  unsigned int down;  // 32 - log2_blocks + shift; 32 or more leaves no bit
+  int mask;
+  int invalid;  // the invalid key's digit, that of bin n_blocks
+
+  __device__ __forceinline__ RadixDigit(int log2_blocks, int shift, int bits)
+      : down(32 - log2_blocks + shift), mask((1 << bits) - 1),
+        invalid(((1 << log2_blocks) >> shift) & ((1 << bits) - 1)) {}
+
+  __device__ __forceinline__ int operator()(long long key) const {
+    if (key == kInvalidKey) return invalid;
+    const unsigned int top =
+        static_cast<unsigned int>(static_cast<unsigned long long>(key) >> 32) ^ 0x80000000u;
+    return down < 32 ? static_cast<int>(top >> down) & mask : 0;
+  }
+};
+
+// Where a tile's keys come from. The bulk copy wants 16-byte addresses and
+// a whole number of 16-byte pairs, and keys may lie on 8 bytes only (a
+// view keys[1:]): key i of the tile lands in slot i + skew of its stage,
+// where skew is 1 if the keys' base lies 8 bytes off 16 (every tile starts
+// a whole number of warp tiles into the keys, so on the same parity), and
+// keys [lo, hi), whole pairs, come by the copy; the one before lo and the
+// one at hi, where the tile has them, are read from device memory by the
+// thread that ranks them.
+struct RadixLoad {
+  long long tile0;  // the tile's first key
+  int n;            // its keys: kRadixTile, or fewer in a slab's last tile
+  int lo, hi;
+
+  __device__ __forceinline__ RadixLoad(long long first, long long end, int t, int skew) {
+    tile0 = first + static_cast<long long>(t) * kRadixTile;
+    n = static_cast<int>(min(static_cast<long long>(kRadixTile), end - tile0));
+    lo = min(skew, n);
+    hi = lo + ((n - lo) & ~1);
+  }
+};
+
+// One thread starts tile t's bulk copy into its stage (an arrival alone
+// where the tile has no whole pair).
+__device__ __forceinline__ void radix_issue(RadixSmem& sm, const long long* __restrict__ keys,
+                                            long long first, long long end, int t, int skew) {
+  const RadixLoad ld(first, end, t, skew);
+  uint64_t* bar = &sm.full[t % kRadixStages];
+  if (ld.hi == ld.lo) {
+    kmt_copy::mbar_arrive(bar);
+    return;
+  }
+  const unsigned int bytes = static_cast<unsigned int>(ld.hi - ld.lo) * sizeof(long long);
+  kmt_copy::mbar_arrive_expect_tx(bar, bytes);
+  kmt_copy::bulk_copy(&sm.stage[t % kRadixStages][ld.lo + skew], keys + ld.tile0 + ld.lo, bytes,
+                      bar);
+}
 
 // One LSD pass: slab s's keys, each written at its digit's cursor
 // doff[d] + rows[s, d] (the scanned (slab, digit) matrix) plus its stable
 // rank among the slab's keys of that digit. The slab goes in tiles of
-// kRadixTile keys; a tile is ranked in shared memory (for each item of a
-// warp, the lanes that share a digit found with one ballot a digit bit;
-// each warp's running count of each digit; the warps' counts scanned in
-// (digit, warp) order), stored grouped by digit, and written out in that
-// order, so each digit's keys of a tile leave as one coalesced run.
+// kRadixTile keys through a ring of kRadixStages stages in shared memory:
+// thread 0 starts each tile's bulk copy as soon as its stage is free, so
+// the next tile lands while the CTA ranks and writes out this one. A tile:
+//  1. each warp ranks its 256 keys from the stage, an item (32 keys) at a
+//     time: each lane ORs its bit into its digit's word of the warp's row
+//     of `lanes`, which then holds the lanes that share its digit; the
+//     last of them adds their number to the digit's running count in the
+//     warp's row of `count`, hands the count before it to the others and
+//     clears the word. Each key's digit is computed once and kept with its
+//     rank;
+//  2. one scan of the warps' counts in (digit, warp) order, kDigitThreads
+//     threads a digit, gives each warp's first slot of each digit in
+//     the grouped tile, and each digit's out position (`base`: its cursor
+//     less its first slot), and moves the cursors on;
+//  3. each thread stores its keys grouped by digit into the stage it
+//     ranked from (every key of the tile is in registers by then), each
+//     with its digit;
+//  4. the grouped tile is written out in order: each digit's keys of a
+//     tile leave as one coalesced run.
+// Four block-wide barriers a tile, after 1, the scan's first half, 2 and
+// 3; the first also frees the previous tile's stage for the copy of the
+// tile kRadixStages - 1 ahead.
 // Stability: a tile's order is (warp, item, lane) = the slab's order, and
 // the slab's tiles go in order, so equal digits keep the input order, and
 // LSD passes compose into a sort by bin.
-__global__ void __launch_bounds__(kRadixThreads)
+__global__ void __launch_bounds__(kRadixThreads, kRadixCtas)
 radix_scatter_kernel(const long long* __restrict__ keys, long long n,
                      const int* __restrict__ count, const int* __restrict__ rows,
-                     const int* __restrict__ doff, long long* __restrict__ out, int log2_blocks, int shift, int bits,
-                     int width) {
+                     const int* __restrict__ doff, long long* __restrict__ out, int log2_blocks,
+                     int shift, int bits, int width) {
   extern __shared__ __align__(16) unsigned char radix_smem[];
   RadixSmem& sm = *reinterpret_cast<RadixSmem*>(radix_smem);
-  const int mask = (1 << bits) - 1;
+  const RadixDigit digit_of(log2_blocks, shift, bits);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const unsigned int below = (1u << lane) - 1u;
-  const int* row = rows + static_cast<long long>(blockIdx.x) * width;
-  for (int d = threadIdx.x; d < width; d += kRadixThreads) sm.cursor[d] = doff[d] + row[d];
   long long slab_len;
   n = pass_keys(n, count, slab_len);
   const long long first = blockIdx.x * slab_len;
   const long long end = min(n, first + slab_len);
-  for (long long tile0 = first; tile0 < end; tile0 += kRadixTile) {
-    for (int i = threadIdx.x; i < kRadixWarps * width; i += kRadixThreads) {
-      sm.warp_count[i / width][i % width] = 0;
-    }
-    __syncthreads();
-    // warp w ranks the tile's keys [w * 32 * kRadixItems, (w + 1) * ...)
-    const long long base = tile0 + warp * 32 * kRadixItems;
+  const int tiles = first < end ? static_cast<int>((end - first + kRadixTile - 1) / kRadixTile) : 0;
+  const int skew = static_cast<int>(reinterpret_cast<uintptr_t>(keys) >> 3) & 1;
+  // the scan's thread: digit scan_d, warps scan_w .. scan_w + kDigitWarps
+  const int scan_d = threadIdx.x / kDigitThreads;
+  const int scan_w = threadIdx.x % kDigitThreads * kDigitWarps;
+  const bool scans = scan_d < width;
+  // the digit's first thread keeps the slab's next slot of that digit
+  int cursor = 0;
+  if (scans && scan_w == 0) {
+    cursor = doff[scan_d] + rows[static_cast<long long>(blockIdx.x) * width + scan_d];
+  }
+  for (int i = threadIdx.x; i < kRadixWarps * kRadixDigits; i += kRadixThreads) {
+    (&sm.lanes[0][0])[i] = 0u;  // each item's last lanes clear their words again
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRadixStages; ++s) kmt_copy::mbar_init(&sm.full[s], 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int t = 0; t < kRadixStages && t < tiles; ++t) radix_issue(sm, keys, first, end, t, skew);
+  }
+  for (int t = 0; t < tiles; ++t) {
+    const RadixLoad ld(first, end, t, skew);
+    long long* stage = sm.stage[t % kRadixStages];
+    for (int d = lane; d < width; d += 32) sm.count[warp][d] = 0;
+    kmt_copy::mbar_wait(&sm.full[t % kRadixStages], (t / kRadixStages) & 1);
+    // 1. warp w ranks the tile's keys [w * 32 * kRadixItems, (w + 1) * ...)
+    const int i0 = warp * 32 * kRadixItems + lane;
     long long key[kRadixItems];
-    int digit[kRadixItems], rank[kRadixItems];
+    int dr[kRadixItems];  // digit << 16 | rank in the warp
 #pragma unroll
     for (int j = 0; j < kRadixItems; ++j) {
-      const long long i = base + 32 * j + lane;
-      key[j] = i < end ? keys[i] : 0;
+      const int i = i0 + 32 * j;
+      key[j] = i >= ld.n ? 0 : i >= ld.lo && i < ld.hi ? stage[i + skew] : keys[ld.tile0 + i];
     }
+    __syncwarp();  // the warp's zeroed row before any lane reads it
 #pragma unroll
     for (int j = 0; j < kRadixItems; ++j) {
-      const bool valid = base + 32 * j + lane < end;
-      digit[j] = valid ? (key_bin(key[j], log2_blocks) >> shift) & mask : 0;
-      unsigned int peers = __ballot_sync(kFullMask, valid);
-      for (int b = 0; b < bits; ++b) {
-        const unsigned int ones = __ballot_sync(kFullMask, (digit[j] >> b) & 1);
-        peers &= (digit[j] >> b) & 1 ? ones : ~ones;
-      }
-      const int seen = valid ? sm.warp_count[warp][digit[j]] : 0;
-      rank[j] = seen + __popc(peers & below);
+      const bool valid = i0 + 32 * j < ld.n;
+      const int digit = valid ? digit_of(key[j]) : 0;
+      unsigned int* word = &sm.lanes[warp][digit];
+      if (valid) atomicOr(word, 1u << lane);
       __syncwarp();
-      if (valid && (peers & below) == 0) sm.warp_count[warp][digit[j]] = seen + __popc(peers);
+      const unsigned int peers = valid ? *word : 0u;
+      const int last = 31 - __clz(peers);
+      int seen = 0;
+      if (valid && lane == last) seen = atomicAdd(&sm.count[warp][digit], __popc(peers));
+      seen = __shfl_sync(kFullMask, seen, last & 31);
+      if (valid && lane == last) *word = 0u;
+      dr[j] = digit << 16 | (seen + __popc(peers & below));
       __syncwarp();
     }
     __syncthreads();
-    // each digit's warps in order: warp_count becomes the warp's base
-    for (int d = threadIdx.x; d < width; d += kRadixThreads) {
-      int run = 0;
-      for (int w = 0; w < kRadixWarps; ++w) {
-        const int c = sm.warp_count[w][d];
-        sm.warp_count[w][d] = run;
-        run += c;
+    // the stage of tile t - 1 is free: start the copy of tile t - 1 + kRadixStages
+    if (threadIdx.x == 0 && t > 0 && t - 1 + kRadixStages < tiles) {
+      radix_issue(sm, keys, first, end, t - 1 + kRadixStages, skew);
+    }
+    // 2. the counts in (digit, warp) order, scanned across the CTA
+    int c[kDigitWarps];
+    int sum = 0;
+#pragma unroll
+    for (int v = 0; v < kDigitWarps; ++v) {
+      c[v] = scans ? sm.count[scan_w + v][scan_d] : 0;
+      sum += c[v];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFullMask, incl, o);
+      if (lane >= o) incl += v;
+    }
+    int total = sum;  // the digit's keys in the tile
+#pragma unroll
+    for (int o = 1; o < kDigitThreads; o <<= 1) total += __shfl_xor_sync(kFullMask, total, o);
+    if (lane == 31) sm.warp_sum[warp] = incl;
+    __syncthreads();
+    int before = lane < warp ? sm.warp_sum[lane] : 0;  // the warps before this one
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) before += __shfl_xor_sync(kFullMask, before, o);
+    int run = before + incl - sum;
+    if (scans) {
+      if (scan_w == 0) {
+        sm.base[scan_d] = cursor - run;
+        cursor += total;
       }
-      sm.count[d] = run;
+#pragma unroll
+      for (int v = 0; v < kDigitWarps; ++v) {
+        sm.count[scan_w + v][scan_d] = run;
+        run += c[v];
+      }
     }
     __syncthreads();
-    if (warp == 0) {  // the digits' starts in the tile: a warp scan of 8-digit sums
-      const int per_lane = kRadixDigits / 32;
-      int sums[per_lane];
-      int total = 0;
-#pragma unroll
-      for (int k = 0; k < per_lane; ++k) {
-        const int d = lane * per_lane + k;
-        sums[k] = d < width ? sm.count[d] : 0;
-        total += sums[k];
-      }
-      int incl = total;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int v = __shfl_up_sync(kFullMask, incl, o);
-        if (lane >= o) incl += v;
-      }
-      int run = incl - total;
-#pragma unroll
-      for (int k = 0; k < per_lane; ++k) {
-        const int d = lane * per_lane + k;
-        if (d < width) sm.start[d] = run;
-        run += sums[k];
-      }
-    }
-    __syncthreads();
+    // 3. the tile grouped by digit, in place, each key with its digit
 #pragma unroll
     for (int j = 0; j < kRadixItems; ++j) {
-      if (base + 32 * j + lane < end) {
-        sm.tile[sm.start[digit[j]] + sm.warp_count[warp][digit[j]] + rank[j]] = key[j];
+      if (i0 + 32 * j < ld.n) {
+        const int digit = dr[j] >> 16;
+        const int p = sm.count[warp][digit] + (dr[j] & 0xFFFF);
+        stage[p] = key[j];
+        sm.digit[p] = static_cast<unsigned char>(digit);
       }
     }
     __syncthreads();
-    const int tile_n = static_cast<int>(min(static_cast<long long>(kRadixTile), end - tile0));
-    for (int p = threadIdx.x; p < tile_n; p += kRadixThreads) {
-      const long long k = sm.tile[p];
-      const int d = (key_bin(k, log2_blocks) >> shift) & mask;
-      out[sm.cursor[d] + (p - sm.start[d])] = k;
+    // 4. written out in order
+#pragma unroll
+    for (int j = 0; j < kRadixItems; ++j) {
+      const int p = threadIdx.x + j * kRadixThreads;
+      if (p < ld.n) out[sm.base[sm.digit[p]] + p] = stage[p];
     }
-    __syncthreads();
-    for (int d = threadIdx.x; d < width; d += kRadixThreads) sm.cursor[d] += sm.count[d];
+    // before the stage's next bulk copy, which the next tile's first
+    // barrier lets thread 0 start
+    kmt_copy::fence_proxy_async();
   }
 }
 
@@ -321,23 +454,30 @@ __global__ void radix_offsets_kernel(const long long* __restrict__ sorted, long 
 
 }  // namespace
 
-// The partition's slab count: one wave of radix_scatter_kernel, the card's
-// SMs times the CTAs of it that an SM holds. Returns the count, or minus a
-// CUDA error code.
+// The partition's slab count: one wave of partition_histogram_kernel, the
+// card's SMs times the CTAs of it that an SM holds (at its widest digit).
+// The histogram only streams its slabs' keys and needs that many CTAs'
+// loads in flight; radix_scatter_kernel, one CTA an SM for its ring, takes
+// the same slabs in waves. Returns the count, or minus a CUDA error code
+// (an error too where the scatter kernel fits no SM).
 extern "C" int radix_slabs(int device) {
-  int sms = 0, resident = 0;
+  int sms = 0, resident = 0, scatter = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, partition_histogram_kernel,
+                                                        kThreads, sizeof(int) * kRadixDigits);
+  }
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(radix_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(sizeof(RadixSmem)));
   }
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, radix_scatter_kernel,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&scatter, radix_scatter_kernel,
                                                         kRadixThreads, sizeof(RadixSmem));
   }
   if (err != cudaSuccess) return -static_cast<int>(err);
-  if (resident < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
+  if (resident < 1 || scatter < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
   return sms * resident;
 }
 

@@ -23,12 +23,13 @@ runs ``partition_histogram`` (each CTA counts the digits of a contiguous
 slab of keys into one row of a (slab, digit) matrix), ``partition_scan``
 (the matrix's scan down each digit and the digits' totals, whose
 ``torch.cumsum`` gives each digit's first slot) and ``radix_scatter``
-(each CTA ranks its slab's keys stably, a 4096-key tile at a time in
-shared memory, and writes each digit's keys of a tile as one run);
-``radix_offsets`` finds the windows' bounds in the sorted keys. No global
-atomics; a pass reads and writes each key once. The slabs are one wave of
-the scatter kernel (:func:`radix_slabs`). Its plain pieces are
-:func:`radix_passes`, :func:`slab_histograms`, :func:`slab_bases`,
+(each CTA ranks its slab's keys stably, an 8,192-key tile at a time in
+shared memory, the next tile landing by a bulk copy meanwhile, and writes
+each digit's keys of a tile as one run); ``radix_offsets`` finds the
+windows' bounds in the sorted keys. No global atomics; a pass reads and
+writes each key once. The slabs are one wave of the histogram kernel
+(:func:`radix_slabs`), which the scatter takes in waves. Its plain pieces
+are :func:`radix_passes`, :func:`slab_histograms`, :func:`slab_bases`,
 :func:`slab_scatter_reference` and :func:`radix_offsets_reference`,
 composed in :func:`radix_partition_reference`, which equals the twin bit
 for bit, as the kernels do: the keys of a window keep the input order.
@@ -218,8 +219,9 @@ def radix_partition(keys: torch.Tensor, n_blocks: int, *, consume: bool = False,
 
 def radix_slabs(device: torch.device) -> int:
     """The partition's slab count on CUDA ``device`` (a tensor's, with its
-    index): one wave of the scatter kernel, the SMs times the CTAs of it
-    that an SM holds (``radix_slabs`` of the library)."""
+    index): one wave of the histogram kernel, the SMs times the CTAs of it
+    that an SM holds (``radix_slabs`` of the library); the scatter kernel,
+    one CTA an SM, takes them in waves."""
     n = native.library().radix_slabs(device.index)
     if n <= 0:
         raise RuntimeError(f"radix_slabs failed: {native.error_string(-n)}")

@@ -11,8 +11,10 @@ Two kinds:
 * :func:`cases`, key sets alone (``PartitionCase``): the keys of every
   table case, plus words at the extremes of m_lo and m_hi beside invalid
   keys, the reverse-complement keys of two hash-key cases in window order,
-  and tables of 2**25 and 2**29 buckets, whose histograms (262,145 and
-  4,194,305 bins) do not fit in shared memory.
+  tables of 2**25, 2**26 and 2**29 buckets, whose histograms (262,145,
+  524,289 and 4,194,305 bins) do not fit in shared memory, and counts that
+  end inside the radix scatter's 8,192-key tiles, on an odd key or with
+  one or two keys in a slab's last tile.
 
 Everything is made from numpy seeds, independent of the kernel and its
 twin. Used by ``tests/test_torch_block_partition.py``,
@@ -128,6 +130,16 @@ def _wide_table(rng, n_buckets: int, n_keys: int) -> PartitionCase:
     return PartitionCase(f"wide_table_{n_buckets}", rng.permutation(keys), n_buckets)
 
 
+def _tile_tail(rng, n_buckets: int, n_keys: int) -> PartitionCase:
+    """``n_keys`` random keys, one in 50 invalid, for the scatter's tiles of
+    8,192 keys: a count that ends a tile on an odd key, or leaves one or
+    two keys in a slab's last tile at slabs of 128 keys, and slabs of
+    several tiles plus a remainder at a few slabs."""
+    keys = mixed_keys(*(rng.integers(0, 1 << 32, n_keys, dtype=np.uint64) for _ in range(2)))
+    keys[rng.random(n_keys) < 0.02] = INVALID_KEY
+    return PartitionCase(f"tile_tail_{n_buckets}_{n_keys}", keys, n_buckets)
+
+
 def cases(poly_a: int = 5000) -> list[PartitionCase]:
     rng = np.random.default_rng(4096)
     out = [PartitionCase(c.name, query_keys(c), c.table.n_buckets) for c in table_cases(poly_a)]
@@ -136,4 +148,11 @@ def cases(poly_a: int = 5000) -> list[PartitionCase]:
     out += [_revcomp_keys(hashed["plane_k31_L151_rc1_s0_n3"], 1 << 10, rng),
             _revcomp_keys(hashed["ragged_poly_a_k31_b0_rc1_s0"], 1 << 6, rng)]
     out += [_wide_table(rng, 1 << 25, 200_000), _wide_table(rng, 1 << 29, 20_000)]
+    # the scatter's tiles: the human-scale table (digits of 128, 128 and 33);
+    # counts that end inside a tile on an odd key, or one or two keys past
+    # a whole number of 128-key slabs; slabs shorter than a tile (at a wave
+    # of slabs) and of several tiles plus a remainder (at 1 or 3)
+    tiles = np.random.default_rng(4097)
+    out += [_wide_table(tiles, 1 << 26, 60_000), _tile_tail(tiles, 1 << 20, 21_717),
+            _tile_tail(tiles, 1 << 29, 41_346), _tile_tail(tiles, 1 << 25, 16_385)]
     return out

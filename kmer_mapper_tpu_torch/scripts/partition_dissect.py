@@ -21,8 +21,8 @@ variant whole and in its kernels, the twin and ``torch.sort`` +
 exact, windows equal as multisets), or it raises. :func:`radix_pass_ms`
 times the main path's kernels pass by pass at a slab count of the
 caller's. ``main`` runs both on ``N_KEYS`` random keys for tables of each
-of ``BUCKETS`` buckets, the passes at one wave of the scatter kernel and
-at one CTA an SM.
+of ``BUCKETS`` buckets, the passes at the main path's slab count (one wave
+of the histogram kernel) and at one CTA an SM.
 """
 from __future__ import annotations
 

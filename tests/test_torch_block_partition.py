@@ -102,7 +102,7 @@ def test_radix_pieces_match_jax_sort_and_offsets(name, n_slabs):
     """The radix route's plain pieces (per LSD pass the slab rows of its
     digit, their scan and the stable slot rule; then the offsets of the
     sorted keys) == JAX's sort and block offsets, at 3 slabs and at 264
-    (one wave of the scatter kernel on an H100)."""
+    (two CTAs on each of an H100's 132 SMs)."""
     case = CASES[name]
     keys, n_buckets, bpb = case.inputs("cpu")
     _check_against_jax(case, *block_partition.radix_partition_reference(

@@ -69,8 +69,8 @@ def test_twin_matches_sort_and_count_offsets(name):
         **before, "block_partition_reference": before["block_partition_reference"] + 1}
 
 
-#: (case, slab count) of the plain pieces: one slab, three, and 264 (one
-#: wave of the scatter kernel on an H100: 2 CTAs on each of 132 SMs)
+#: (case, slab count) of the plain pieces: one slab, three, and 264 (two
+#: CTAs on each of an H100's 132 SMs)
 SLAB_CASES = [(name, n_slabs) for name in CASES for n_slabs in (1, 3, 264)]
 
 
@@ -532,17 +532,30 @@ def test_kernel_partition_of_slots_past_2_31(cuda_device):
     np.testing.assert_array_equal(values, reps)
 
 
+def _placed(keys: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of ``keys`` as a contiguous view ``offset`` keys into a fresh
+    buffer: at 1, a base on 8 bytes and not on 16."""
+    buffer = torch.empty(keys.numel() + offset, dtype=keys.dtype, device=keys.device)
+    buffer[offset:].copy_(keys)
+    return buffer[offset:]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("name", list(CASES))
-def test_kernels_partition_the_device_count(name, cuda_device):
+def test_kernels_partition_the_device_count(name, offset, cuda_device):
     """A capacity buffer with a garbage tail and a device count: the
     kernels == the twin on ``keys[:n]`` in order, and each kernel == its
     plain piece on the count's keys (the histogram's rows past the count's
-    last slab zeros), the slabs cut on the card."""
+    last slab zeros), the slabs cut on the card, so the count ends inside
+    a slab's last tile. At ``offset`` 1 the keys and each pass's output
+    are views ``buffer[1:]``, whose base lies on 8 bytes and not on 16,
+    as the scatter's bulk copies must not need."""
     case = CASES[name]
     keys, n_buckets, bpb = case.inputs("cpu")
     n, n_blocks = keys.shape[0], n_buckets // bpb
-    buffer = _with_tail(keys).to(cuda_device)
+    buffer = _placed(_with_tail(keys).to(cuda_device), offset)
+    assert buffer.data_ptr() % 16 == 8 * offset
     count = torch.tensor([n, 0], dtype=torch.int32, device=cuda_device)
     grouped, off = block_partition.block_partition(buffer, n_buckets, bpb, count=count)
     twin_grouped, twin_off = block_partition.block_partition_reference(keys, n_buckets, bpb)
@@ -557,7 +570,7 @@ def test_kernels_partition_the_device_count(name, cuda_device):
         bases, doff = block_partition.slab_bases(rows)
         block_partition.partition_scan(rows)
         out = block_partition.radix_scatter(cur, rows, doff, n_blocks, shift, bits, count,
-                                            cur.clone())
+                                            _placed(cur, offset))
         plain = block_partition.slab_scatter_reference(plain, bases, doff, n_blocks, slab_len,
                                                        shift, bits)
         assert torch.equal(out[:n], plain) and torch.equal(out[n:], cur[n:])
