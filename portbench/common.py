@@ -20,8 +20,10 @@ PEAK_BYTES_S = 3.35e12
 WINDOW_SPAN = "portbench.window"
 #: trace categories of work on the device
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+#: trace categories of the host's CUDA API calls
+CALL_CATEGORIES = ("cuda_runtime", "cuda_driver")
 #: trace categories of work on the host
-HOST_CATEGORIES = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
+HOST_CATEGORIES = ("cpu_op", "user_annotation") + CALL_CATEGORIES
 
 
 def timed_window(step: Callable[[int], None], n_items: int, seconds: float,
@@ -64,9 +66,16 @@ class BufferShape:
     n_reads: int
     n_bases: int
     n_words: int  # int32 words of the packed buffer handed to the mapper
-    n_windows: int  # valid k-mer windows: the keys the step makes
+    n_windows: int  # valid k-mer windows: the k-mers mapped (kmers_per_s counts them)
+    n_keys: int  # the keys the step makes: n_windows, twice that under revcomp
     n_buckets: int  # the table's buckets (8 slots of 8 bytes each)
-    distinct_hits: int  # distinct index k-mers the buffer's windows hit
+    distinct_hits: int  # distinct index k-mers the buffer's keys hit (either hash of a window)
+
+
+def correlation(event: dict) -> int:
+    """The profiler's correlation id of a CUDA call or of the device
+    operation it launched (both carry it); -1 where the event has none."""
+    return int(event.get("args", {}).get("correlation", -1))
 
 
 class Trace:
@@ -81,13 +90,24 @@ class Trace:
         win = spans[0]
         self.start = float(win["ts"])
         self.end = self.start + float(win["dur"])
-        self.device = sorted(
-            (float(e["ts"]), float(e["ts"]) + float(e["dur"]), e.get("name", "?"))
+        device = sorted(
+            (float(e["ts"]), float(e["ts"]) + float(e["dur"]), e.get("name", "?"), correlation(e))
             for e in events if e.get("cat") in DEVICE_CATEGORIES)
+        self.device = [(a, b, name) for a, b, name, _ in device]
+        #: the correlation id of each operation of ``device``
+        self.device_ids = [c for _, _, _, c in device]
+        own = [e for e in events if e.get("tid") == win.get("tid")
+               and e.get("pid") == win.get("pid")]
         self.host = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e.get("name", "?"),
                       e.get("cat"))
-                     for e in events if e.get("cat") in HOST_CATEGORIES
-                     and e.get("tid") == win.get("tid") and e.get("pid") == win.get("pid")]
+                     for e in own if e.get("cat") in HOST_CATEGORIES]
+        #: the start of each CUDA call of the window's thread, by correlation id
+        self.call_starts = {correlation(e): float(e["ts"]) for e in own
+                            if e.get("cat") in CALL_CATEGORIES and correlation(e) >= 0}
+        #: the correlation ids of the CUDA calls of every other thread
+        self.other_calls = {correlation(e) for e in events
+                            if e.get("cat") in CALL_CATEGORIES and correlation(e) >= 0
+                            } - self.call_starts.keys()
 
     @classmethod
     def from_file(cls, path) -> "Trace":

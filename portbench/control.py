@@ -45,7 +45,8 @@ def control(spec: Spec, cell: dict, seed: int, device, chunk_size: int = harness
     full = reference.NodeCountReference(entries, config["max_frequency"])
     low = reference.NodeCountReference(entries, config["max_frequency"], key=reference.key32)
     for buf in pool:
-        hashes = reference.buffer_hashes(g, buf, config["k"], device)
+        hashes = reference.buffer_hashes(g, buf, config["k"], device,
+                                         revcomp=traffic["revcomp"])
         full.add(hashes)
         low.add(hashes)
     got = (low.node_counts() & M32).cpu().numpy().astype(np.uint32)

@@ -16,6 +16,11 @@ it, reads sampled from it, and those reads packed as the mapper takes them.
   Every buffer holds the same multiset of read lengths (each length of the
   traffic's range equally often), in an order drawn from the seed, so every
   seed gives buffers of one size.
+* Traffic mapped with ``-r`` (its ``revcomp``) is a sample sequenced from
+  both strands: half the reads of a buffer, which ones drawn from the seed,
+  come from the reverse strand, the reverse complement of their genome
+  window (code ``3 - c``, the order reversed). Other traffic is read from
+  the forward strand alone.
 * The k-mer hash puts base ``m`` of a window in bits ``[2m, 2m + 2)``, the
   packed words base ``i`` in bits ``[2i, 2i + 2)`` of word ``i // 16``.
 
@@ -117,8 +122,9 @@ def index_entries(config: dict, device) -> Entries:
 
 @dataclasses.dataclass
 class Buffer:
-    """One buffer of the pool: the reads' starts and lengths, and the words
-    (and for the continuous layout the int32 lengths) that the mapper takes."""
+    """One buffer of the pool: the reads' starts, lengths and strands, and
+    the words (and for the continuous layout the int32 lengths) that the
+    mapper takes."""
 
     starts: torch.Tensor  # int64, on the host
     lengths: torch.Tensor  # int64, on the host
@@ -127,6 +133,7 @@ class Buffer:
     n_bases: int
     strided: bool
     n_windows: int  # valid k-mer windows
+    reverse: torch.Tensor | None = None  # bool a read, on the host: from the reverse strand
 
 
 def read_stride(read_len: int) -> int:
@@ -160,17 +167,39 @@ def pack_words(codes: torch.Tensor, n_words: int) -> torch.Tensor:
 
 
 def read_codes(genome: Genome, starts: torch.Tensor, lengths: torch.Tensor,
-               strided: bool) -> torch.Tensor:
+               strided: bool, reverse: torch.Tensor | None = None) -> torch.Tensor:
     """The codes of the reads: (reads, length) for one read length, else
-    flat, the reads back to back."""
+    flat, the reads back to back. A read where ``reverse`` (bool a read) is
+    set is the reverse complement of its genome window: its base ``j`` is
+    ``3 - c`` of the window's base ``length - 1 - j``."""
     if strided:
         length = int(lengths[0])
-        return genome.codes(starts[:, None] + torch.arange(length, device=starts.device))
-    first = torch.cumsum(lengths, 0) - lengths
-    n_bases = int(lengths.sum())
-    pos = torch.repeat_interleave(starts - first, lengths) + torch.arange(
-        n_bases, device=starts.device)
-    return genome.codes(pos)
+        pos = starts[:, None] + torch.arange(length, device=starts.device)
+        if reverse is None:
+            return genome.codes(pos)
+        flip, start, end = reverse[:, None], starts[:, None], starts[:, None] + length - 1
+    else:
+        first = torch.cumsum(lengths, 0) - lengths
+        n_bases = int(lengths.sum())
+        pos = torch.repeat_interleave(starts - first, lengths) + torch.arange(
+            n_bases, device=starts.device)
+        if reverse is None:
+            return genome.codes(pos)
+        flip = torch.repeat_interleave(reverse, lengths)
+        start = torch.repeat_interleave(starts, lengths)
+        end = start + torch.repeat_interleave(lengths, lengths) - 1
+    codes = genome.codes(torch.where(flip, start + end - pos, pos))
+    return torch.where(flip, 3 - codes, codes)
+
+
+def draw_strands(traffic: dict, n_reads: int, generator: torch.Generator) -> torch.Tensor | None:
+    """Which of ``n_reads`` reads come from the reverse strand: None where
+    the traffic is not mapped with ``-r`` (no draw), else ``n_reads // 2``
+    of them, which ones drawn with ``generator``."""
+    if not traffic["revcomp"]:
+        return None
+    order = torch.randperm(n_reads, generator=generator, device=generator.device)
+    return order < n_reads // 2
 
 
 def make_buffer(genome: Genome, traffic: dict, k: int, buf: int, strided: bool,
@@ -178,7 +207,10 @@ def make_buffer(genome: Genome, traffic: dict, k: int, buf: int, strided: bool,
     """One buffer of ``buf`` bases of the traffic's reads, drawn with
     ``generator`` on its device: the stride-padded layout of
     ``read_stride(read_len)`` bases a row (``buf // read_len`` rows) where
-    ``strided``, else the continuous layout of ``buf // 16 + 2`` words."""
+    ``strided``, else the continuous layout of ``buf // 16 + 2`` words. The
+    draws: the order of the lengths (continuous layout), the starts, then,
+    for traffic mapped with ``-r`` alone, the strands
+    (:func:`draw_strands`), so that a forward buffer makes no draw more."""
     device = generator.device
     lo, hi = int(traffic["read_length_min"]), int(traffic["read_length_max"])
     if strided:
@@ -191,7 +223,8 @@ def make_buffer(genome: Genome, traffic: dict, k: int, buf: int, strided: bool,
     room = (genome.length - lengths + 1).double()
     starts = (torch.rand(lengths.shape[0], dtype=torch.float64, generator=generator,
                          device=device) * room).long()
-    codes = read_codes(genome, starts, lengths, strided)
+    reverse = draw_strands(traffic, lengths.shape[0], generator)
+    codes = read_codes(genome, starts, lengths, strided, reverse)
     if strided:
         stride = read_stride(lo)
         rows = torch.zeros(codes.shape[0], stride, dtype=torch.int64, device=device)
@@ -209,7 +242,8 @@ def make_buffer(genome: Genome, traffic: dict, k: int, buf: int, strided: bool,
         read_lengths = None if read_lengths is None else read_lengths.cpu()
     return Buffer(starts=starts.cpu(), lengths=lengths.cpu(), words=words,
                   read_lengths=read_lengths, n_bases=int(lengths.sum()), strided=strided,
-                  n_windows=int((lengths - (k - 1)).clamp(min=0).sum()))
+                  n_windows=int((lengths - (k - 1)).clamp(min=0).sum()),
+                  reverse=None if reverse is None else reverse.cpu())
 
 
 def _pinned(x: torch.Tensor) -> torch.Tensor:

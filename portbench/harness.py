@@ -12,9 +12,9 @@ Set-up, as a user maps many samples against one converted index:
   2. the ``MapperConfig`` that the port's ``pipeline.config_and_chunks``
      makes for a FASTQ of the traffic's reads on that table (the buffer
      policy, ``max_reads``, the read length that picks the step);
-  3. the pool: distinct buffers of reads drawn from ``--seed``, in
-     page-locked host memory, at least the traffic's ``pool_min_bytes``
-     of buffer bases (past the L2);
+  3. the pool: distinct buffers of reads drawn from ``--seed`` (from both
+     strands for traffic mapped with ``-r``), in page-locked host memory, at
+     least the traffic's ``pool_min_bytes`` of buffer bases (past the L2);
   4. ``KmerMapper(index, config, device)``, one buffer mapped, the first
      ``node_counts`` (the entries' upload and sort), two buffers mapped
      back to back (the allocator's warm-up), ``reset_counts``.
@@ -174,11 +174,13 @@ def make_pool(config: dict, traffic: dict, made: MapperConfig, seed: int,
     return pool
 
 
-def shape_of(buf: genome.Buffer, n_buckets: int, distinct_hits: int) -> common.BufferShape:
+def shape_of(buf: genome.Buffer, n_buckets: int, distinct_hits: int,
+             revcomp: bool) -> common.BufferShape:
     return common.BufferShape(strided=buf.strided, n_reads=int(buf.lengths.shape[0]),
                               n_bases=buf.n_bases, n_words=int(buf.words.shape[0]),
-                              n_windows=buf.n_windows, n_buckets=n_buckets,
-                              distinct_hits=distinct_hits)
+                              n_windows=buf.n_windows,
+                              n_keys=buf.n_windows * (2 if revcomp else 1),
+                              n_buckets=n_buckets, distinct_hits=distinct_hits)
 
 
 def launches() -> dict:
@@ -200,16 +202,18 @@ def card_line(device: torch.device) -> str:
         return f"card: nvidia-smi failed ({exc})"
 
 
-def check(config: dict, pool: list, mapped: list, got_nodes: np.ndarray, got_kmers: int,
-          device: torch.device) -> tuple[dict, list]:
+def check(config: dict, traffic: dict, pool: list, mapped: list, got_nodes: np.ndarray,
+          got_kmers: int, device: torch.device) -> tuple[dict, list]:
     """The reference's counts of the pool's buffers, each as many times as
-    the window mapped it, judged against the program's: (the numbers
-    compared with their limits, the distinct index k-mers each buffer hit)."""
+    the window mapped it, both hashes of a window where the traffic says
+    ``revcomp``, judged against the program's: (the numbers compared with
+    their limits, the distinct index k-mers each buffer hit)."""
     t = time.perf_counter()
     g = genome.Genome(config["genome_length"], config["seed"])
     ref = reference.NodeCountReference(genome.index_entries(config, device),
                                        config["max_frequency"])
-    distinct = [ref.add(reference.buffer_hashes(g, buf, config["k"], device), times)
+    distinct = [ref.add(reference.buffer_hashes(g, buf, config["k"], device,
+                                                revcomp=traffic["revcomp"]), times)
                 if times else 0 for buf, times in zip(pool, mapped)]
     want_nodes = ref.node_counts()
     checks = reference.judge(got_nodes, got_kmers, want_nodes, ref.windows)
@@ -289,7 +293,8 @@ def run(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool, device,
         log(f"config: buf {made.buf}, max_reads {made.max_reads}, read_len {made.read_len}, "
             f"revcomp {made.revcomp}; index {index.n_unique} k-mers, {n_buckets} buckets; "
             f"pool {len(pool)} buffers of {pool[0].lengths.shape[0]} reads, "
-            f"{pool[0].n_windows} k-mers")
+            f"{pool[0].n_windows} k-mers, "
+            f"{shape_of(pool[0], n_buckets, 0, traffic['revcomp']).n_keys} keys")
 
         before = launches()
         traced = None
@@ -332,12 +337,13 @@ def run(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool, device,
             torch.cuda.empty_cache()
         log(f"{card_line(device)}; peak device memory {peak} bytes")
 
-        checks, distinct = check(config, pool, mapped, got_nodes, got_kmers, device)
+        checks, distinct = check(config, traffic, pool, mapped, got_nodes, got_kmers, device)
 
     correct = reference.is_correct(checks)
     kmers = sum(buf.n_windows * times for buf, times in zip(pool, mapped))
     record = Record(spec=spec, kmers=kmers, window_s=window_s, setup_s=setup_s, calls=calls,
-                    shapes=[shape_of(b, n_buckets, d) for b, d in zip(pool, distinct)],
+                    shapes=[shape_of(b, n_buckets, d, traffic["revcomp"])
+                            for b, d in zip(pool, distinct)],
                     mapped=mapped, trace=traced)
     wanted = spec.per_layer(cell["name"]) if trace else spec.end_to_end(cell["name"])
     metrics = {}

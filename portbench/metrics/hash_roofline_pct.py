@@ -7,10 +7,11 @@ GROUP = "hash_keys"
 def least_bytes(buf):
     """The packed words that hold the reads, read once (the stride-padded
     rows, or the bases of the continuous layout), the reads' int32 lengths
-    in the continuous layout, and one int64 key written a valid window."""
+    in the continuous layout, and each int64 key written once (a valid
+    window's, and under revcomp its reverse complement's)."""
     if buf.strided:
-        return 4 * buf.n_words + 8 * buf.n_windows
-    return buf.n_bases / 4 + 4 * buf.n_reads + 8 * buf.n_windows
+        return 4 * buf.n_words + 8 * buf.n_keys
+    return buf.n_bases / 4 + 4 * buf.n_reads + 8 * buf.n_keys
 
 
 def read(record):

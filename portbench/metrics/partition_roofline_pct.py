@@ -9,7 +9,7 @@ def least_bytes(buf):
     """Each int64 key read once and written once, grouped by chain block,
     and an int32 offset a chain block and one more: what the stage needs
     whatever implements it."""
-    return 16 * buf.n_windows + 4 * (max(buf.n_buckets // CHAIN_BLOCK, 1) + 1)
+    return 16 * buf.n_keys + 4 * (max(buf.n_buckets // CHAIN_BLOCK, 1) + 1)
 
 
 def read(record):

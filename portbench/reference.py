@@ -2,18 +2,23 @@
 ``correct``.
 
 The reference works from what the benchmark made: the index's entries
-(k-mer hash, node, frequency) and the pool's reads (their starts and
-lengths in the genome). It hashes every window that lies in one read,
-finds each hash among the index's distinct k-mers by a binary search,
-counts the hits of each distinct k-mer times the number of times the window
-mapped the buffer, and adds each entry's count to its node where the
-entry's frequency is at most ``max_frequency``. Plain torch, on the device
-the run used, a buffer at a time. It imports nothing of the program and
-reads nothing the program made.
+(k-mer hash, node, frequency) and the pool's reads (their starts, lengths
+and strands in the genome, from which it rebuilds each read, a
+reverse-strand read as the reverse complement of its window). It hashes
+every window that lies in one read and, where the traffic says
+``revcomp`` (the mapper's ``-r``), also the window's reverse complement
+(the read's codes complemented and reversed, then hashed as a forward
+window is), finds each hash among the index's distinct k-mers by a binary
+search, counts the hits of each distinct k-mer, every hit of either hash
+of a window, times the number of times the window mapped the buffer, and
+adds each entry's count to its node where the entry's frequency is at most
+``max_frequency``. A window is one k-mer mapped, whether it makes one key
+or two. Plain torch, on the device the run used, a buffer at a time. It
+imports nothing of the program and reads nothing the program made.
 
-The control (``key=key32``) is the same reference with 32-bit keys in
-place of the 62-bit k-mer hashes: the precision below the one the
-configuration states.
+The control (``key=key32``) is the same reference, both hashes of a
+window under ``revcomp`` alike, with 32-bit keys in place of the 62-bit
+k-mer hashes: the precision below the one the configuration states.
 """
 from __future__ import annotations
 
@@ -31,18 +36,32 @@ def key32(hashes: torch.Tensor) -> torch.Tensor:
     return mix32(mix32(hashes & M32) ^ (hashes >> 32))
 
 
-def buffer_hashes(genome: Genome, buf: Buffer, k: int, device) -> torch.Tensor:
-    """The hashes of the buffer's valid windows (those that lie in one read)."""
+def revcomp_hashes(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """The hashes of the reverse complement of every window of the rows of
+    ``codes``, aligned with ``window_hashes(codes, k)``: the codes
+    complemented (``3 - c``) and reversed, their windows hashed, and the
+    result reversed back, so that entry ``t`` is that of window ``t``."""
+    return window_hashes(3 - codes.flip(-1), k).flip(-1)
+
+
+def buffer_hashes(genome: Genome, buf: Buffer, k: int, device,
+                  revcomp: bool = False) -> torch.Tensor:
+    """The hashes of the buffer's valid windows (those that lie in one
+    read): one a window, or with ``revcomp`` (2, windows), the forward
+    hashes and those of each window's reverse complement."""
     starts, lengths = buf.starts.to(device), buf.lengths.to(device)
-    codes = read_codes(genome, starts, lengths, buf.strided)
-    if buf.strided:
-        return window_hashes(codes, k).reshape(-1)
+    reverse = None if buf.reverse is None else buf.reverse.to(device)
+    codes = read_codes(genome, starts, lengths, buf.strided, reverse)
     hashes = window_hashes(codes, k)
+    if revcomp:
+        hashes = torch.stack([hashes, revcomp_hashes(codes, k)])
+    if buf.strided:
+        return hashes.reshape(hashes.shape[:-2] + (-1,))
     read = torch.repeat_interleave(torch.arange(lengths.shape[0], device=device), lengths)
     first = torch.cumsum(lengths, 0) - lengths
     at = torch.arange(codes.shape[0], device=device) - first[read]
-    n = hashes.shape[0]
-    return hashes[at[:n] <= (lengths[read] - k)[:n]]
+    n = hashes.shape[-1]
+    return hashes[..., at[:n] <= (lengths[read] - k)[:n]]
 
 
 class NodeCountReference:
@@ -60,9 +79,12 @@ class NodeCountReference:
         self.windows = 0
 
     def add(self, hashes: torch.Tensor, times: int = 1) -> int:
-        """Counts the hashes ``times`` over; returns how many distinct index
+        """Counts the hashes of windows ``times`` over: (windows,), or
+        (hashes a window, windows), every hit of each hash of a window
+        counted, the window counted once; returns how many distinct index
         k-mers they hit."""
-        self.windows += hashes.shape[0] * times
+        self.windows += hashes.shape[-1] * times
+        hashes = hashes.reshape(-1)
         if not hashes.shape[0] or not self.distinct.shape[0]:
             return 0
         q = hashes if self.key is None else self.key(hashes)

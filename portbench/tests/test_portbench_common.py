@@ -61,7 +61,7 @@ def test_the_trace_needs_one_window():
 def test_per_layer_readers_read_the_trace():
     spec = Spec()
     shape = common.BufferShape(strided=True, n_reads=10, n_bases=1510, n_words=100,
-                               n_windows=1210, n_buckets=128, distinct_hits=5)
+                               n_windows=1210, n_keys=1210, n_buckets=128, distinct_hits=5)
     record = harness.Record(spec=spec, kmers=2_000_000, window_s=1e-3, setup_s=1.0, calls=4,
                             shapes=[shape, shape], mapped=[3, 1],
                             trace=common.Trace(_events()))

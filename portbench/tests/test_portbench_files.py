@@ -94,10 +94,10 @@ def _phase5_shape(strided):
     if strided:
         return common.BufferShape(strided=True, n_reads=444_429, n_bases=444_429 * 151,
                                   n_words=444_429 * 10, n_windows=53_775_909,
-                                  n_buckets=1 << 20, distinct_hits=587_500)
+                                  n_keys=53_775_909, n_buckets=1 << 20, distinct_hits=587_500)
     return common.BufferShape(strided=False, n_reads=534_721, n_bases=67_108_760,
                               n_words=(64 << 20) // 16 + 2, n_windows=51_067_130,
-                              n_buckets=1 << 20, distinct_hits=0)
+                              n_keys=51_067_130, n_buckets=1 << 20, distinct_hits=0)
 
 
 @pytest.mark.parametrize("metric,strided,mb,ms", [
@@ -110,6 +110,65 @@ def test_byte_functions_give_the_worked_bounds(metric, strided, mb, ms):
     least = SPEC.reader(metric).least_bytes(_phase5_shape(strided))
     assert abs(least / 1e6 - mb) < 0.1
     assert abs(least / common.PEAK_BYTES_S * 1e3 - ms) < 0.0001
+
+
+def _human_shape(strided, revcomp=False):
+    """A buffer of the human-scale index: ``human.fixed151``'s (888,859
+    reads of 151 bp), or one of the continuous layout."""
+    if strided:
+        n_windows = 107_551_939
+        shape = dict(strided=True, n_reads=888_859, n_bases=888_859 * 151,
+                     n_words=888_859 * 10, n_windows=n_windows, n_buckets=1 << 26,
+                     distinct_hits=6_000_000)
+    else:
+        n_windows = 101_802_906
+        shape = dict(strided=False, n_reads=1_067_521, n_bases=(128 << 20) - 5,
+                     n_words=(128 << 20) // 16 + 2, n_windows=n_windows, n_buckets=1 << 26,
+                     distinct_hits=5_500_000)
+    return common.BufferShape(n_keys=n_windows * (2 if revcomp else 1), **shape)
+
+
+#: the byte functions' values on ``_human_shape``: pinned, so that forward
+#: traffic (a key a window) keeps its roofline shares
+FORWARD_BYTES = {
+    ("hash_roofline_pct", True): 895_969_872,
+    ("partition_roofline_pct", True): 1_722_928_180,
+    ("count_roofline_pct", True): 5_203_382_808,
+    ("hash_roofline_pct", False): 852_247_762.75,
+    ("partition_roofline_pct", False): 1_630_943_652,
+    ("count_roofline_pct", False): 5_153_390_544,
+}
+
+
+@pytest.mark.parametrize("metric,strided", sorted(FORWARD_BYTES))
+def test_the_byte_functions_of_forward_traffic_are_as_before(metric, strided):
+    assert SPEC.reader(metric).least_bytes(_human_shape(strided)) == \
+        FORWARD_BYTES[metric, strided]
+
+
+@pytest.mark.parametrize("metric,strided", sorted(FORWARD_BYTES))
+def test_the_byte_functions_charge_each_key_of_revcomp(metric, strided):
+    # -r doubles the keys: the words and the table are read as before
+    per_key = {"hash_roofline_pct": 8, "partition_roofline_pct": 16,
+               "count_roofline_pct": 8}[metric]
+    n_windows = _human_shape(strided).n_windows
+    assert (SPEC.reader(metric).least_bytes(_human_shape(strided, revcomp=True))
+            == FORWARD_BYTES[metric, strided] + per_key * n_windows)
+
+
+def test_both151r_takes_the_ports_revcomp_config(tmp_path):
+    config, traffic = SPEC.config("human_kage"), SPEC.traffic("both151r")
+    assert traffic["revcomp"] is True
+    assert traffic["pool_min_bytes"] == SPEC.traffic("fixed151")["pool_min_bytes"]
+    n_buckets = 1 << 26
+    made = harness.mapper_config(config, traffic, n_buckets, torch.device("cuda"),
+                                 harness.CHUNK_SIZE, tmp_path)
+    assert made == MapperConfig(k=31, buf=128 << 20, max_reads=(128 << 20) // 32,
+                                revcomp=True, read_len=151)
+    # the plane step's keys of a buffer: both hashes of each of its windows,
+    # within int32
+    keys = (made.buf // 151) * (151 - 30) * 2
+    assert keys == 215_103_878 < 2**31
 
 
 @pytest.mark.parametrize("cell,n_buckets,buf,reads,kmers", [
@@ -134,14 +193,14 @@ def test_each_cell_takes_the_ports_config_for_its_table(cell, n_buckets, buf, re
     assert reads <= made.max_reads
 
 
-@pytest.mark.parametrize("traffic", ["fixed151", "ragged"])
+@pytest.mark.parametrize("traffic", ["fixed151", "ragged", "both151r", "ragged_both_r"])
 def test_the_packed_buffers_equal_the_ports_packer(traffic):
     t = tiny.TinySpec().traffic(traffic)
     fixed = t["read_length_min"] == t["read_length_max"]
     g = genome.Genome(50_000, 3)
     gen = torch.Generator().manual_seed(9)
     buf = genome.make_buffer(g, t, 31, 1 << 14, fixed, gen, pinned=False)
-    codes = genome.read_codes(g, buf.starts, buf.lengths, fixed).reshape(-1)
+    codes = genome.read_codes(g, buf.starts, buf.lengths, fixed, buf.reverse).reshape(-1)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)[codes.numpy()]
     starts = np.concatenate([[0], np.cumsum(buf.lengths.numpy())[:-1]])
     chunk = readers.SequenceChunk(bases=bases, read_starts=starts.astype(np.int64))
@@ -152,6 +211,7 @@ def test_the_packed_buffers_equal_the_ports_packer(traffic):
     if not fixed:
         assert np.array_equal(lengths[:n_reads], buf.read_lengths.numpy())
     assert buf.n_windows == int(np.maximum(buf.lengths.numpy() - 30, 0).sum())
+    assert (buf.reverse is None) == (not t["revcomp"])
 
 
 def test_a_config_traffic_metric_and_kernel_are_added_by_files_alone(tmp_path):

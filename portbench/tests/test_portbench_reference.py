@@ -1,17 +1,24 @@
 """The reference against the port's CPU path on tiny cells, the faults and
-the control that the comparison must catch, and the index cache."""
+the control that the comparison must catch, the forward pool and its counts
+pinned, reads from both strands, and the index cache."""
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import time
 
 import numpy as np
 import pytest
+import torch
 
 from kmer_mapper_tpu_torch.models.mapper import KmerMapper
-from portbench import control, harness
+from portbench import control, genome, harness, reference
 from portbench.tests import tiny
 
-LAYOUTS = [("human_kage", "fixed151"), ("human_kage", "ragged")]
+#: each layout forward, and from both strands mapped with -r
+TRAFFIC = ["fixed151", "ragged", "both151r", "ragged_both_r"]
+REVCOMP_TRAFFIC = ["both151r", "ragged_both_r"]
+LAYOUTS = [("human_kage", traffic) for traffic in TRAFFIC]
 
 
 @pytest.mark.parametrize("config,traffic", LAYOUTS)
@@ -64,7 +71,7 @@ FAULTS = {
 }
 
 
-@pytest.mark.parametrize("traffic", ["fixed151", "ragged"])
+@pytest.mark.parametrize("traffic", TRAFFIC)
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 def test_a_broken_timed_path_is_not_correct(fault, traffic, tmp_path, monkeypatch):
     name, broken = FAULTS[fault]()
@@ -75,7 +82,23 @@ def test_a_broken_timed_path_is_not_correct(fault, traffic, tmp_path, monkeypatc
     assert any(c["value"] > c["limit"] for c in result["checks"].values())
 
 
-@pytest.mark.parametrize("traffic", ["fixed151", "ragged"])
+@pytest.mark.parametrize("traffic", REVCOMP_TRAFFIC)
+def test_a_port_without_revcomp_on_revcomp_traffic_is_not_correct(traffic, tmp_path,
+                                                                 monkeypatch):
+    mapper_config = harness.mapper_config
+
+    def forward_only(*args, **kwargs):
+        return dataclasses.replace(mapper_config(*args, **kwargs), revcomp=False)
+
+    monkeypatch.setattr(harness, "mapper_config", forward_only)
+    result = tiny.run(tiny.TinySpec(), tiny.cell("human_kage", traffic), tmp_path)
+    assert result["correct"] is False
+    # the same windows, each looked up by one hash of the two
+    assert result["checks"]["kmers_off"]["value"] == 0
+    assert result["checks"]["nodes_off"]["value"] > 0
+
+
+@pytest.mark.parametrize("traffic", TRAFFIC)
 def test_the_control_is_not_correct(traffic, tmp_path):
     # 32-bit keys collide once index k-mers times windows pass 2**32 many
     # times over: 400,000 k-mers and 3 buffers of ~52,000 windows
@@ -85,6 +108,93 @@ def test_the_control_is_not_correct(traffic, tmp_path):
                              chunk_size=tiny.CHUNK, cache=tmp_path)
     assert checks["nodes_off"]["value"] > 0
     assert checks["kmers_off"]["value"] == 0
+
+
+#: a digest of a tiny pool's words, starts and lengths (3 buffers at seed
+#: 2**31 + 11) and of the reference's node counts of them; the distinct
+#: index k-mers each buffer hit, the windows and the node hits: pinned, so
+#: that forward traffic keeps its data and its reference whatever strands
+#: and -r add
+FORWARD_POOLS = {
+    "fixed151": ("e1db10215c942be141043577b68a98781e75bceec3e74fe4962083714b8a8288",
+                 [1945, 1912, 1953], 157_542, 6_255),
+    "ragged": ("81dc35c77c1d0d5d141f9f84e6b2f0b4b5c2dc533e0d14d00e68342d6c1f4d21",
+               [1833, 1798, 1840], 149_403, 5_893),
+}
+
+
+def _tiny_pool(traffic_name: str, seed: int, buffers: int = 3):
+    spec = tiny.TinySpec()
+    config, traffic = spec.config("human_kage"), spec.traffic(traffic_name)
+    fixed = traffic["read_length_min"] == traffic["read_length_max"]
+    g = genome.Genome(config["genome_length"], config["seed"])
+    gen = torch.Generator().manual_seed(seed)
+    pool = [genome.make_buffer(g, traffic, config["k"], tiny.CHUNK, fixed, gen, pinned=False)
+            for _ in range(buffers)]
+    return config, traffic, g, pool
+
+
+@pytest.mark.parametrize("traffic", sorted(FORWARD_POOLS))
+def test_a_forward_pool_and_its_counts_are_as_before(traffic):
+    config, _, g, pool = _tiny_pool(traffic, 2**31 + 11)
+    ref = reference.NodeCountReference(genome.index_entries(config, "cpu"),
+                                       config["max_frequency"])
+    distinct = [ref.add(reference.buffer_hashes(g, buf, config["k"], "cpu")) for buf in pool]
+    digest = hashlib.sha256()
+    for buf in pool:
+        assert buf.reverse is None
+        for t in (buf.words, buf.starts, buf.lengths):
+            digest.update(t.numpy().tobytes())
+    nodes = ref.node_counts()
+    digest.update(nodes.numpy().tobytes())
+    assert (digest.hexdigest(), distinct, ref.windows, int(nodes.sum())) == \
+        FORWARD_POOLS[traffic]
+
+
+@pytest.mark.parametrize("traffic", REVCOMP_TRAFFIC)
+def test_a_pool_from_both_strands_is_half_reverse_complements(traffic):
+    config, _, g, pool = _tiny_pool(traffic, 2**33 + 7)
+    k = config["k"]
+    reverse = torch.cat([buf.reverse for buf in pool])
+    assert abs(reverse.float().mean().item() - 0.5) <= 0.01
+    for buf in pool:
+        codes = genome.read_codes(g, buf.starts, buf.lengths, buf.strided, buf.reverse)
+        forward = genome.read_codes(g, buf.starts, buf.lengths, buf.strided)
+        at, read_of = 0, []
+        for i, (start, length) in enumerate(zip(buf.starts.tolist(), buf.lengths.tolist())):
+            window = g.codes(start + torch.arange(length))
+            want = 3 - window.flip(0) if buf.reverse[i] else window
+            got = codes[i] if buf.strided else codes[at:at + length]
+            assert torch.equal(got, want)
+            at += length
+            read_of += [i] * max(length - k + 1, 0)
+        assert not torch.equal(codes, forward)
+        # the reference's two hashes of a reverse-strand read's windows are
+        # those of the forward read's windows, the other way round
+        got = reference.buffer_hashes(g, buf, k, "cpu", revcomp=True)
+        fwd = reference.buffer_hashes(g, dataclasses.replace(buf, reverse=None), k, "cpu",
+                                      revcomp=True)
+        assert got.shape == fwd.shape == (2, buf.n_windows)
+        flipped = torch.tensor(buf.reverse.numpy()[read_of])
+        assert torch.equal(got[:, ~flipped], fwd[:, ~flipped])
+        for a, b in ((0, 1), (1, 0)):
+            assert torch.equal(got[a, flipped].sort().values, fwd[b, flipped].sort().values)
+
+
+def test_reverse_strand_reads_hit_only_through_their_revcomp_hashes():
+    config, _, g, pool = _tiny_pool("both151r", 2**32 + 3, buffers=2)
+    kmers = genome.index_entries(config, "cpu").kmers
+    for buf in pool:
+        codes = genome.read_codes(g, buf.starts, buf.lengths, True, buf.reverse)
+        hits_fwd = torch.isin(genome.window_hashes(codes, config["k"]), kmers).sum(1)
+        hits_rc = torch.isin(reference.revcomp_hashes(codes, config["k"]), kmers).sum(1)
+        rev = buf.reverse
+        assert int(hits_fwd[rev].sum()) == 0 and int(hits_rc[rev].sum()) > 100
+        assert int(hits_rc[~rev].sum()) == 0 and int(hits_fwd[~rev].sum()) > 100
+        # a read hits as often on either strand: the same windows
+        forward = genome.read_codes(g, buf.starts, buf.lengths, True)
+        hits = torch.isin(genome.window_hashes(forward, config["k"]), kmers).sum(1)
+        assert torch.equal(torch.where(rev, hits_rc, hits_fwd), hits)
 
 
 def test_the_index_cache_is_built_once_and_loaded_after(tmp_path, monkeypatch):

@@ -30,7 +30,7 @@ class TinySpec(Spec):
         return config
 
     def traffic(self, name):
-        traffic = dict(RAGGED) if name == "ragged" else super().traffic(name)
+        traffic = dict(TWINS[name]) if name in TWINS else super().traffic(name)
         traffic["pool_min_bytes"] = self.buffers * CHUNK // 4
         return traffic
 
@@ -40,6 +40,10 @@ class TinySpec(Spec):
 #: trimmed reads has been taken from a public source)
 RAGGED = {"what": "reads of 100-151 bp, each length equally often", "read_length_min": 100,
           "read_length_max": 151, "revcomp": False}
+#: the ragged twin of ``both151r``: reads from both strands, mapped with -r
+RAGGED_BOTH_R = dict(RAGGED, revcomp=True)
+#: the tests' traffic mixes that no cell sends, by name
+TWINS = {"ragged": RAGGED, "ragged_both_r": RAGGED_BOTH_R}
 
 
 def cell(config: str, traffic: str) -> dict:
