@@ -32,6 +32,7 @@ import torch
 
 from ..index.kmer_index import KmerIndex
 from ..index.layout import CHAIN_BLOCK
+from ..io import readers
 from ..ops import encode, finalize, hashing, probe, stream_probe
 from ..utils import profiling
 
@@ -59,6 +60,18 @@ class MapperConfig:
         """Words of a continuously packed buffer: buf bases and a window's
         tail."""
         return self.buf // encode.BASES_PER_WORD + 2
+
+    @property
+    def max_words(self) -> int:
+        """Words of the largest packed buffer the config's chunks can have:
+        the continuous layout's, or with ``read_len`` the stride-padded
+        layout's where that is longer."""
+        words = self.packed_words
+        if self.read_len:
+            rows = readers.strided_rows(self.buf, self.read_len)
+            words = max(words, rows * (hashing.read_stride(self.read_len)
+                                       // encode.BASES_PER_WORD))
+        return words
 
 
 def chunk_is_fixed(lengths, n_bases, read_len: int) -> bool:
@@ -114,28 +127,6 @@ def plane_chunk_keys(packed, n_reads: int, *, config: MapperConfig, seed: int):
     return keys, n_reads * (config.read_len - config.k + 1)
 
 
-def chunk_step(key_lo, key_hi, counts, packed, lengths, n_bases: int, *,
-               config: MapperConfig, seed: int, block_probe, out=None) -> torch.Tensor:
-    """Ragged step (:func:`chunk_keys`, then the stream count over the
-    count's keys): folds the chunk's hits into ``counts`` in place and
-    returns its valid-window count, an int32 scalar on the device (-1 where
-    the lengths did not tile the buffer and nothing was counted)."""
-    keys, count = chunk_keys(packed, lengths, n_bases, config=config, seed=seed, out=out)
-    stream_probe.stream_probe_count_keys(key_lo, key_hi, counts, keys, block_probe,
-                                         count=count)
-    return count[1]
-
-
-def plane_chunk_step(key_lo, key_hi, counts, packed, n_reads: int, *,
-                     config: MapperConfig, seed: int, block_probe) -> int:
-    """Fixed-read-length step (:func:`plane_chunk_keys`, then the stream
-    count): folds the hits of the first ``n_reads`` rows into ``counts`` in
-    place and returns the valid-window count."""
-    keys, n_valid = plane_chunk_keys(packed, n_reads, config=config, seed=seed)
-    stream_probe.stream_probe_count_keys(key_lo, key_hi, counts, keys, block_probe)
-    return n_valid
-
-
 class WindowTotals:
     """The valid windows a mapper has counted: ints, and the ragged step's
     device scalars, which are summed (one transfer a device) only when the
@@ -183,6 +174,81 @@ def state_from_jax(counts_plane: np.ndarray, n_buckets: int,
     )
 
 
+class StagingSlots:
+    """Two device slots that a CUDA mapper copies page-locked chunks into,
+    on a copy stream of its own, so that a chunk's upload runs while the
+    mapper's stream still runs the previous chunk's kernels.
+
+    A chunk takes the slots in turn (:meth:`take`). Each slot holds
+    ``n_words`` int32 words and, from the first ragged chunk on,
+    ``n_lengths`` int32 read lengths; they are allocated on first use, from
+    the mapper's stream's memory pool, and kept. CUDA events order the two
+    streams:
+
+      * "ready": recorded on the mapper's stream when a slot is allocated;
+        the copy stream waits on it before its first write there, since
+        kernels queued before may still use the block;
+      * "slot j is free": recorded on the mapper's stream (:meth:`passed`)
+        after the last kernel that reads the slot (the step's hash-key
+        kernel); the copy stream waits on it before it writes slot j again;
+      * "copied": recorded on the copy stream after each copy; the mapper's
+        stream waits on it before the step reads the slot, and
+        :attr:`copied` keeps the chunk's last one, where the copies that
+        read the host memory end (``pipeline.PinnedRing`` waits on it
+        before it rewrites a host buffer)."""
+
+    def __init__(self, device: torch.device, n_words: int, n_lengths: int):
+        self.device = device
+        self.capacity = {"packed": n_words, "lengths": n_lengths}
+        self.stream = torch.cuda.Stream(device)
+        self._slots: dict = {"packed": [None, None], "lengths": [None, None]}
+        self._free = [torch.cuda.Event(), torch.cuda.Event()]
+        self._next = 0
+        self.slot: int | None = None  # the slot of the chunk being staged
+        self.copied = None  # the event after the chunk's last copy
+
+    def take(self) -> None:
+        """Start a chunk: it takes the next slot, which the copy stream
+        writes only once the chunk that last read it has passed its hash."""
+        self.slot, self._next = self._next, self._next ^ 1
+        self.stream.wait_event(self._free[self.slot])
+        self.copied = None
+
+    def copy(self, x: torch.Tensor, what: str) -> torch.Tensor:
+        """``x`` (page-locked int32 ``packed`` words or ``lengths``) copied
+        into the chunk's slot on the copy stream; the mapper's stream waits
+        for the copy. Returns the slot's first ``len(x)`` entries."""
+        if self.slot is None:
+            self.take()
+        n, cap = x.shape[0], self.capacity[what]
+        if n > cap:
+            raise ValueError(f"{n} page-locked {what} entries, past the staging slot's "
+                             f"{cap} (the config's largest chunk)")
+        slots = self._slots[what]
+        if slots[self.slot] is None:
+            slots[self.slot] = torch.empty(cap, dtype=torch.int32, device=self.device)
+            # the block comes from the mapper's stream's pool, where kernels
+            # queued before may still use it (memory freed under them): the
+            # copy stream waits for them before its first write
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+            self.stream.wait_event(ready)
+        out = slots[self.slot][:n]
+        with torch.cuda.stream(self.stream):
+            out.copy_(x, non_blocking=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record(self.stream)
+        torch.cuda.current_stream(self.device).wait_event(self.copied)
+        return out
+
+    def passed(self) -> None:
+        """The chunk's kernels that read its slot are enqueued on the
+        mapper's stream: the slot is free once the stream gets here."""
+        if self.slot is not None:
+            self._free[self.slot].record(torch.cuda.current_stream(self.device))
+            self.slot = None
+
+
 class KmerMapper(WindowTotals):
     """Device-resident mapper: the index table and the counts live on
     ``device``; feed packed chunks with :meth:`map_chunk` or uint64 hashes
@@ -205,8 +271,19 @@ class KmerMapper(WindowTotals):
         self.block_probe = torch.from_numpy(table.block_max_probe()).to(self.device)
         self._entries = None  # the finalize's entry arrays, from the first node_counts on
         self._keys: dict = {}  # the ragged step's key buffer (key_buffer)
+        # page-locked chunks are copied on CUDA through two device slots
+        self._staging = (StagingSlots(self.device, config.max_words, config.max_reads)
+                         if self.device.type == "cuda" else None)
         self._reset_totals()
         self.n_invalid_bases = 0
+
+    @property
+    def upload_done(self):
+        """The CUDA event after the last :meth:`map_chunk`'s copies of
+        page-locked host memory, on the mapper's copy stream: the caller may
+        rewrite that memory once it has completed. None where the chunk
+        copied none (on the CPU always)."""
+        return None if self._staging is None else self._staging.copied
 
     def _to_device(self, words: np.ndarray) -> torch.Tensor:
         """uint32 host words -> int32 bit patterns on the device."""
@@ -215,11 +292,14 @@ class KmerMapper(WindowTotals):
         )
 
     def _staged(self, x: torch.Tensor, what: str) -> torch.Tensor:
-        """An int32 tensor on the mapper's device, or in page-locked host
-        memory and then copied asynchronously: the caller keeps it unchanged
-        until the stream has passed this chunk (``pipeline.PinnedRing``)."""
-        if x.dtype == torch.int32 and x.device.type == "cpu" and x.is_pinned():
-            return x.to(self.device, non_blocking=True)
+        """An int32 tensor on the mapper's device, or on CUDA in page-locked
+        host memory: then copied asynchronously into the chunk's staging
+        slot on the mapper's copy stream (:class:`StagingSlots`, at most the
+        config's largest chunk), and the caller keeps it unchanged until
+        :attr:`upload_done` has completed (``pipeline.PinnedRing``)."""
+        if (self._staging is not None and x.dtype == torch.int32
+                and x.device.type == "cpu" and x.is_pinned()):
+            return self._staging.copy(x, what)
         if x.dtype != torch.int32 or x.device != self.device:
             raise TypeError(
                 f"{what} tensor must be int32 on {self.device} or in page-locked "
@@ -259,21 +339,28 @@ class KmerMapper(WindowTotals):
         the chunk's ``n_reads`` reads (``lengths[:n_reads]``); zero padding
         after them gives the same counts but costs a scan of the padding."""
         self.n_invalid_bases += n_invalid
+        if self._staging is not None:
+            self._staging.copied = None
         with profiling.span(profiling.UPLOAD):
             words = self._words(packed)
-        table = self.index.table
-        step_args = (self.key_lo, self.key_hi, self.counts, words)
-        step_kw = dict(config=self.config, seed=table.seed, block_probe=self.block_probe)
+        config, seed = self.config, self.index.table.seed
         if strided:
-            if not self.config.read_len:
+            if not config.read_len:
                 raise ValueError("strided chunks need config.read_len")
-            n_reads = n_bases // self.config.read_len
-            self._stats.append(plane_chunk_step(*step_args, n_reads, **step_kw))
-            return
-        with profiling.span(profiling.UPLOAD):
-            lengths = self._lengths(lengths, n_bases)
-        self._stats.append(chunk_step(*step_args, lengths, n_bases, **step_kw,
-                                      out=key_buffer(self._keys, words, self.config)))
+            keys, n_valid = plane_chunk_keys(words, n_bases // config.read_len,
+                                             config=config, seed=seed)
+            count = None
+        else:
+            with profiling.span(profiling.UPLOAD):
+                lengths = self._lengths(lengths, n_bases)
+            keys, count = chunk_keys(words, lengths, n_bases, config=config, seed=seed,
+                                     out=key_buffer(self._keys, words, config))
+            n_valid = count[1]  # a device scalar: no sync
+        if self._staging is not None:
+            self._staging.passed()  # only the hash-key kernel read the slot
+        stream_probe.stream_probe_count_keys(self.key_lo, self.key_hi, self.counts, keys,
+                                             self.block_probe, count=count)
+        self._stats.append(n_valid)
 
     def _hash_pieces(self, kmers):
         """uint64 hashes -> int64 tensors of the same bits on the device, one

@@ -5,8 +5,9 @@ decode, frame and pack fixed-shape buffers (the native C++ loader, else the
 numpy framer; ``reader_workers`` byte regions in parallel) while the device
 maps the previous ones; the "reduce" is the device-resident count state. On
 CUDA the producer stages each buffer in page-locked host memory, so the
-upload in ``KmerMapper.map_chunk`` is asynchronous and the consumer thread
-only enqueues work.
+upload in ``KmerMapper.map_chunk`` is asynchronous (on the mapper's copy
+stream, beside the previous buffer's kernels) and the consumer thread only
+enqueues work.
 """
 from __future__ import annotations
 
@@ -25,7 +26,6 @@ from .index.kmer_index import KmerIndex, load_index
 from .io import readers
 from .models.mapper import KmerMapper, MapperConfig, chunk_is_fixed
 from .ops import stream_probe
-from .ops.hashing import read_stride
 from .utils import profiling
 from .utils.timing import log_memory_usage_now, span
 
@@ -73,21 +73,20 @@ class PinnedRing:
     """Page-locked host buffers that packed chunks are staged in on their way
     to the card: the packed words, and for a buffer that takes the ragged
     step the lengths of its reads as int32 (room for ``n_lengths``, pinned
-    when the slot first takes a ragged buffer). A buffer goes back to the
-    ring with a CUDA event recorded on ``device``'s current stream once the
-    chunk's work (its uploads first) was enqueued there; the producer waits
-    on that event before it writes the buffer again. The event goes on the
-    mapper's device whatever the thread's current device is: one recorded
-    elsewhere would complete before the upload it guards. The event is all
-    that guards a slot: neither step reads anything back, so the host may
-    queue several chunks ahead, and a slot's words and lengths stay
-    unchanged until the stream has passed the chunk's uploads. The mapper
-    reads the staged lengths on the host (their premise check) before it
-    enqueues their upload."""
+    when the slot first takes a ragged buffer). ``KmerMapper.map_chunk``
+    copies them (the ``kmt.upload`` span's host-to-device copies) on the
+    mapper's copy stream into its device staging slots, and a buffer goes
+    back to the ring with the event where those copies end
+    (``KmerMapper.upload_done``, recorded on the copy stream, so on the
+    mapper's device whatever the thread's current device is); the producer
+    waits on that event before it writes the buffer again. The event is
+    all that guards a slot: neither step reads anything back, so the host
+    may queue several chunks ahead, and a slot's words and lengths stay
+    unchanged until its copies have ended, which may be before the
+    chunk's kernels run. The mapper reads the staged lengths on the host
+    (their premise check) before it enqueues their upload."""
 
-    def __init__(self, n_buffers: int, n_words: int, device: torch.device, *,
-                 n_lengths: int):
-        self.device = device
+    def __init__(self, n_buffers: int, n_words: int, *, n_lengths: int):
         self.n_lengths = n_lengths
         self._free: queue.Queue = queue.Queue()
         for _ in range(n_buffers):
@@ -115,11 +114,10 @@ class PinnedRing:
                 lengths = staged_lengths
             yield slot, (words, lengths, n_bases, n_reads, n_invalid, strided)
 
-    def release(self, slot) -> None:
-        """Return ``slot`` after its chunk's work was enqueued on the device's
-        current stream. Runs in the consumer thread."""
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
+    def release(self, slot, event) -> None:
+        """Return ``slot`` with ``event``, a CUDA event that completes where
+        the copies that read it end (None: nothing reads it any more). Runs
+        in the consumer thread."""
         self._free.put((slot, event))
 
     def close(self) -> None:
@@ -175,7 +173,7 @@ def map_file(
                 mapper.device, setup["init_s"], setup["upload_s"], mapper.config.buf)
     ring = None
     if device.type == "cuda":
-        ring = PinnedRing(queue_depth + 2, _max_words(mapper.config), mapper.device,
+        ring = PinnedRing(queue_depth + 2, mapper.config.max_words,
                           n_lengths=mapper.config.max_reads)
         feed = ring.staged(packed)
     else:
@@ -202,7 +200,7 @@ def map_file(
                 with profiling.span(profiling.MAP_CHUNK):
                     mapper.map_chunk(packed_codes, lengths, n_bases, n_invalid, strided=strided)
                 if slot is not None:
-                    ring.release(slot)
+                    ring.release(slot, mapper.upload_done)
                 n_chunks += 1
                 n_bases_total += n_bases
                 if n_chunks % 200 == 0:
@@ -244,15 +242,6 @@ def _index_hits(counts: torch.Tensor) -> int:
     """The sum of uint32 slot counts held as int32 bits, taken on their
     device: the int32 sum plus 2**32 for each count at or past 2**31."""
     return int(counts.sum(dtype=torch.int64)) + (int(counts.lt(0).sum()) << 32)
-
-
-def _max_words(config: MapperConfig) -> int:
-    """Words of the largest packed buffer the config's chunks can have."""
-    words = config.buf // 16 + 2
-    if config.read_len:
-        rows = readers.strided_rows(config.buf, config.read_len)
-        words = max(words, rows * (read_stride(config.read_len) // 16))
-    return words
 
 
 def make_mapper_and_chunks(

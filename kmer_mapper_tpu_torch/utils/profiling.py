@@ -16,7 +16,14 @@ id. The spans, by name:
                    (what the run's ``queue_wait_s`` sums)
     kmt.upload     ``KmerMapper.map_chunk``: the chunk's words to the
                    device, and apart the ragged step's read lengths with
-                   their host check
+                   their host check. On CUDA a page-locked chunk's copies
+                   run on the mapper's copy stream, into its two device
+                   staging slots, beside the previous chunk's kernels (the
+                   mapper's stream waits for them); numpy input goes on the
+                   mapper's stream. A ``pipeline.PinnedRing`` host buffer is
+                   rewritten only once the event recorded on the copy
+                   stream after its copies (``KmerMapper.upload_done``)
+                   has completed
     kmt.hash       ``ops/hashing.py``: the hash-key kernels of both steps
     kmt.partition  ``ops/block_partition.py``: the block partition, every
                    radix pass with its fills and scans, and the offsets

@@ -314,24 +314,40 @@ def _two_devices():
 
 @pytest.mark.cuda
 def test_pinned_ring_event_waits_on_the_mappers_device():
-    """With another device current, the ring's event still follows the
-    mapper's stream: it is pending while that stream is busy. One recorded
-    on the idle current device would complete at once and let the producer
+    """With another device current, the event a host buffer goes back to
+    the ring with (the mapper's ``upload_done``) follows the mapper's copy
+    stream: the copy into a device slot that a held-up chunk still reads
+    waits for it, and the event is pending until then. One recorded on the
+    idle current device would complete at once and let the producer
     overwrite a buffer whose upload is still queued."""
-    from kmer_mapper_tpu_torch import pipeline
+    from kmer_mapper_tpu_torch import oracle, pipeline
+    from kmer_mapper_tpu_torch.index import kmer_index
+    from kmer_mapper_tpu_torch.models.mapper import KmerMapper, MapperConfig
 
     _two_devices()
     mapper_device = torch.device("cuda", 1)
+    rng = np.random.default_rng(3)
+    arrays = oracle.build_kmer_index(rng.integers(0, 1 << 62, 500, dtype=np.uint64),
+                                     rng.integers(0, 50, 500), 1021)
+    config = MapperConfig(k=31, buf=1024, max_reads=32)
+    words = torch.from_numpy(rng.integers(0, 1 << 32, config.packed_words, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).pin_memory()
+    lens = torch.full((8,), 128, dtype=torch.int32).pin_memory()
     with torch.cuda.device(0):
-        ring = pipeline.PinnedRing(1, 1024, mapper_device, n_lengths=16)
+        mapper = KmerMapper(kmer_index.KmerIndex.from_arrays(arrays), config, mapper_device)
+        ring = pipeline.PinnedRing(1, 1024, n_lengths=16)
         buf, _ = ring._free.get()
         with torch.cuda.device(mapper_device):
             torch.cuda._sleep(1 << 30)  # about half a second of the mapper's stream
-        ring.release(buf)
+        for _ in range(3):  # the third chunk's copy waits for the first's hash
+            mapper.map_chunk(words, lens, 1024)
+        ring.release(buf, mapper.upload_done)
         _, event = ring._free.get()
+        assert event is mapper.upload_done
         assert not event.query()
         event.synchronize()
         assert event.query()
+        assert mapper.n_kmers_mapped == 3 * 8 * (128 - 30)
 
 
 @pytest.mark.cuda
@@ -398,22 +414,42 @@ def test_sharded_ragged_chunks_over_two_cards(index_parallel):
 
 
 def test_pinned_ring_records_on_the_mappers_stream(monkeypatch):
-    """The ring records its event on the current stream of the mapper's
-    device, not of the thread's current device (no card needed: the CUDA
-    calls are stood in for)."""
+    """A buffer goes back to the ring with the event the mapper recorded on
+    its copy stream after the chunk's copies (``upload_done``), on the
+    mapper's device whatever the thread's current device is; the ring
+    records no event of its own (no card needed: the CUDA calls are stood
+    in for)."""
     from kmer_mapper_tpu_torch import pipeline
+    from kmer_mapper_tpu_torch.models.mapper import StagingSlots
 
     recorded = []
+
+    class Stream:
+        def __init__(self, device=None):
+            self.device = device
+
+        def wait_event(self, event):
+            pass
 
     class Event:
         def record(self, stream=None):
             recorded.append(stream)
 
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
     monkeypatch.setattr(torch.cuda, "Event", Event)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: ("stream", device))
-    ring = pipeline.PinnedRing(0, 16, torch.device("cuda", 1), n_lengths=16)
-    ring.release(torch.zeros(16, dtype=torch.int32))
-    assert recorded == [("stream", torch.device("cuda", 1))]
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream(device))
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
+    slots = StagingSlots(torch.device("cpu"), 16, 16)
+    copy_stream = slots.stream
+    slots.copy(torch.zeros(16, dtype=torch.int32), "packed")
+    assert recorded[-1] is copy_stream  # the copy's event, last
+    n_recorded = len(recorded)
+    ring = pipeline.PinnedRing(0, 16, n_lengths=16)
+    ring.release(torch.zeros(16, dtype=torch.int32), slots.copied)
+    assert len(recorded) == n_recorded
+    assert ring._free.get()[1] is slots.copied
+    slots = StagingSlots(torch.device("cuda", 1), 16, 16)
+    assert slots.stream.device == torch.device("cuda", 1)
 
 
 def test_pinned_ring_stages_ragged_lengths(monkeypatch):
@@ -421,8 +457,9 @@ def test_pinned_ring_stages_ragged_lengths(monkeypatch):
     int32 beside its words, in a lengths buffer it pins when a slot first
     takes a ragged buffer (a strided buffer's step never reads the lengths,
     so they stay as they are and pin nothing), and hands a slot out again
-    only after waiting on the event its last chunk recorded (no card
-    needed: page-locked memory and the CUDA calls are stood in for)."""
+    only after waiting on the event it came back with, the mapper's where
+    its last chunk's copies end (no card needed: page-locked memory and the
+    CUDA event are stood in for)."""
     from kmer_mapper_tpu_torch import pipeline
 
     empty = torch.empty
@@ -431,15 +468,10 @@ def test_pinned_ring_stages_ragged_lengths(monkeypatch):
     waits = []
 
     class Event:
-        def record(self, stream=None):
-            pass
-
         def synchronize(self):
             waits.append(self)
 
-    monkeypatch.setattr(torch.cuda, "Event", Event)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
-    ring = pipeline.PinnedRing(1, 64, torch.device("cuda", 0), n_lengths=16)
+    ring = pipeline.PinnedRing(1, 64, n_lengths=16)
     rng = np.random.default_rng(0)
     lengths = rng.integers(0, 100, 16).astype(np.uint16)
     chunks = [
@@ -453,9 +485,10 @@ def test_pinned_ring_stages_ragged_lengths(monkeypatch):
     np.testing.assert_array_equal(words.numpy().view(np.uint32), chunks[0][0])
     assert lens is chunks[0][1] and rest == [120, 8, 0, True]
     assert slot[1] is None and not waits  # no lengths pinned for a strided buffer
-    ring.release(slot)
+    copied = Event()
+    ring.release(slot, copied)
     slot2, (words2, lens2, *rest2) = next(staged)
-    assert slot2 is slot and len(waits) == 1  # the one slot came back after its event
+    assert slot2 is slot and waits == [copied]  # the one slot came back after its event
     assert words2.dtype == lens2.dtype == torch.int32
     np.testing.assert_array_equal(words2.numpy().view(np.uint32), chunks[1][0])
     np.testing.assert_array_equal(lens2.numpy(), lengths[:9].astype(np.int32))
